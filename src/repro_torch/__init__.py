@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the CFN placement system (the JAX package ``repro``
+is the reference).
+
+``repro_torch.api`` is the user surface (``PlacementSpec``, ``CFNSession``);
+``core`` holds the substrate, workload, power model and solvers;
+``kernels`` the CUDA kernels for Hopper (``csrc/*.cu``), their launch
+wrappers and plain PyTorch versions, and the float64 oracle.  Importing the
+package needs neither a GPU nor the CUDA toolkit: the kernels are compiled
+at their first launch.
+"""

@@ -1,0 +1,718 @@
+"""The CFN power model: paper Eq. (1) + Eq. (2), full and incremental (torch).
+
+Given a placement ``X[r, v]`` (processing-node index per VM), total power is
+
+  net_pc = sum_n PUE_n * ( eps_n * lambda_n + beta_n * delta_n * pi_n )      (1)
+  pr_pc  = sum_p PUE_p * ( E_p * Omega_p + N_p * pi_p
+                           + EL_p * theta_p + Phi_p * share_p * pi_p^LAN )   (2)
+
+with lambda_n accumulated along the padded-CSR route table of topology.py:
+``route_idx[b, e, :]`` lists the <= K network nodes of the (b, e) route
+(sentinel N marks padding).
+
+Two regimes, as in the JAX package:
+
+  * **Full evaluation** (``evaluate`` / ``objective_batch``): loads from
+    scatter-adds over the VMs and virtual links of each candidate, batched
+    over a leading candidate dimension.
+  * **Delta evaluation** (the state engine): a solver proposal moves ONE VM,
+    so ``_move_core`` / ``_delta_objective`` re-score only the touched
+    entries -- the processing terms at the source and destination node, the
+    network terms along the touched routes.  ``delta_sweep`` scores all P
+    destinations of one VM at once (coordinate descent).  Float32 residue of
+    exact +/- cancellation is snapped to zero (SNAP_*) so the beta/phi
+    activation indicators stay exact.
+
+Every tensor of a ``PlacementProblem`` lives on one device; entry points take
+``device=None``, which means CUDA and raises when there is none.  Node and
+link indices are int32 at the public boundary (``X``, ``route_idx``,
+``link_src``/``link_dst``) and int64 inside, where torch indexing wants it.
+
+Units: W, GFLOPS, Mbps (converted to Gbps where eps/EL are W per Gbps).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, fields
+from typing import Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from .topology import CFNTopology
+from .vsr import VSRBatch
+
+# Penalty weight for capacity violations (W per unit violation); large enough
+# that any feasible placement beats any infeasible one at paper scale.
+PENALTY = 1.0e4
+# lambda_n > ACTIVE_EPS Mbps counts a network node as activated.
+ACTIVE_EPS = 1.0e-6
+# Incremental-state snapping: after a +/- float32 update, magnitudes below
+# these are residue of exact cancellation, not real load (smallest true
+# demands are ~0.1 GFLOPS / ~5 Mbps).  Mirrored in csrc/fused_anneal.cu and
+# kernels/placement_power.py.
+SNAP_GFLOPS = 1.0e-3
+SNAP_MBPS = 1.0e-2
+# Substrates up to this many processing nodes additionally carry the dense
+# [P*P, N] route incidence table (``PlacementProblem.route_dense``); above the
+# gate the O(P^2*N) operand is exactly what the CSR table avoids.
+DENSE_ROUTE_MAX_P = 64
+
+Device = Union[str, torch.device, None]
+
+
+def resolve_device(device: Device = None) -> torch.device:
+    """``None`` means the CUDA card; raise when it is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class PowerBreakdown(NamedTuple):
+    total: torch.Tensor       # [] W (net + pr, no penalty)
+    net: torch.Tensor         # [] W
+    proc: torch.Tensor        # [] W
+    violation: torch.Tensor   # [] capacity violation magnitude (0 = feasible)
+    per_proc: torch.Tensor    # [P] W
+    per_net: torch.Tensor     # [N] W
+    omega: torch.Tensor       # [P] GFLOPS allocated
+
+    @property
+    def objective(self):
+        return self.total + PENALTY * self.violation
+
+
+@dataclass(frozen=True, eq=False)
+class PlacementProblem:
+    """Immutable tensor bundle: substrate parameters + workload, on one
+    device.  Field names and layouts are the JAX package's."""
+
+    # substrate ----------------------------------------------------------
+    route_idx: torch.Tensor   # [P, P, K] int32 network-node ids, pad = N
+    E: torch.Tensor           # [P] W/GFLOPS
+    C_pr: torch.Tensor        # [P] GFLOPS per server
+    NS: torch.Tensor          # [P] servers
+    pi_pr: torch.Tensor       # [P] W idle per server
+    pue_pr: torch.Tensor      # [P]
+    EL: torch.Tensor          # [P] W/Gbps (LAN)
+    C_lan: torch.Tensor       # [P] Gbps
+    pi_lan: torch.Tensor      # [P] W
+    lan_share: torch.Tensor   # [P]
+    eps: torch.Tensor         # [N] W/Gbps
+    C_net: torch.Tensor       # [N] Gbps
+    pi_net: torch.Tensor      # [N] W
+    pue_net: torch.Tensor     # [N]
+    idle_share: torch.Tensor  # [N]
+    # workload -----------------------------------------------------------
+    F: torch.Tensor           # [R, V] GFLOPS
+    link_src: torch.Tensor    # [L] int32 (flattened r*V+v)
+    link_dst: torch.Tensor    # [L] int32
+    link_h: torch.Tensor      # [L] Mbps
+    fixed_mask: torch.Tensor  # [R, V] bool: True where VM is pinned
+    fixed_node: torch.Tensor  # [R, V] int32: pinned node (src for input VMs)
+    # optional dense route-row cache (small substrates only; see
+    # DENSE_ROUTE_MAX_P): [P*P, N] float32 incidence rows, None above it
+    route_dense: Optional[torch.Tensor] = None
+
+    @property
+    def P(self) -> int:
+        return self.E.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.eps.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.route_idx.shape[2]
+
+    @property
+    def R(self) -> int:
+        return self.F.shape[0]
+
+    @property
+    def V(self) -> int:
+        return self.F.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.E.device
+
+    # int64 / packed views, computed once per problem --------------------
+    @functools.cached_property
+    def route_long(self) -> torch.Tensor:        # [P, P, K] int64
+        return self.route_idx.long()
+
+    @functools.cached_property
+    def route_flat(self) -> torch.Tensor:        # [P*P, K] int64
+        return self.route_long.reshape(self.P * self.P, self.K)
+
+    @functools.cached_property
+    def ls(self) -> torch.Tensor:                # [L] int64
+        return self.link_src.long()
+
+    @functools.cached_property
+    def ld(self) -> torch.Tensor:                # [L] int64
+        return self.link_dst.long()
+
+    @functools.cached_property
+    def F_flat(self) -> torch.Tensor:            # [R*V]
+        return self.F.reshape(-1)
+
+    @functools.cached_property
+    def proc_pack(self) -> torch.Tensor:
+        """[8, P]: E, C_pr, pi_pr, pue_pr, EL, share*pi_lan, NS*C_pr, C_lan
+        -- the per-node operands the delta objective gathers at once."""
+        return torch.stack([self.E, self.C_pr, self.pi_pr, self.pue_pr,
+                            self.EL, self.lan_share * self.pi_lan,
+                            self.NS * self.C_pr, self.C_lan])
+
+
+def problem_from_numpy(arrays: Dict[str, Optional[np.ndarray]],
+                       device: Device = None) -> PlacementProblem:
+    """A ``PlacementProblem`` from numpy arrays keyed by its field names
+    (the JAX package's ``PlacementProblem`` fields; ``route_dense`` may be
+    missing or ``None``).  Dtypes are kept as given."""
+    dev = resolve_device(device)
+    kw = {}
+    for f in fields(PlacementProblem):
+        v = arrays.get(f.name)
+        kw[f.name] = (None if v is None
+                      else to_tensor(v, dev))
+    return PlacementProblem(**kw)
+
+
+def substrate_arrays(topo: CFNTopology,
+                     device: Device = None) -> Dict[str, torch.Tensor]:
+    """Workload-independent problem tensors on ``device``.  Cache and pass to
+    ``build_problem`` when building many problems on one topology."""
+    dev = resolve_device(device)
+    host = {**topo.proc_param_arrays(), **topo.net_param_arrays(),
+            "route_idx": topo.route_idx}
+    out = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    out["route_dense"] = (
+        torch.as_tensor(topo.dense_path_nodes().reshape(topo.P * topo.P,
+                                                        topo.N), device=dev)
+        if topo.P <= DENSE_ROUTE_MAX_P else None)
+    return out
+
+
+def build_problem(topo: CFNTopology, vsrs: VSRBatch,
+                  substrate: Optional[Dict[str, torch.Tensor]] = None,
+                  pad_to_rows: Optional[int] = None,
+                  pad_to_cols: Optional[int] = None,
+                  device: Device = None) -> PlacementProblem:
+    """Build the tensor bundle for one workload on one substrate.
+
+    ``pad_to_rows`` pads the service dimension with zero-demand, link-free
+    dummy services whose every VM is PINNED to node 0; ``pad_to_cols``
+    widens every service with zero-demand, link-free VMs pinned to the
+    row's source node.  Neither changes the objective or the solver move
+    set (shape bucketing, as in the JAX package).  With ``substrate`` given
+    the problem lives on the substrate's device.
+    """
+    if substrate is None:
+        substrate = substrate_arrays(topo, device)
+    dev = substrate["route_idx"].device
+    V_nat = vsrs.V
+    if pad_to_cols is not None and pad_to_cols > V_nat:
+        vsrs = vsrs.widen(pad_to_cols)
+    link_src, link_dst, link_h = vsrs.links()
+    R, V = vsrs.R, vsrs.V
+    fixed_mask = np.zeros((R, V), dtype=bool)
+    fixed_mask[np.arange(R), vsrs.input_vm] = True
+    fixed_node = np.zeros((R, V), dtype=np.int32)
+    fixed_node[np.arange(R), vsrs.input_vm] = vsrs.src
+    if V > V_nat:
+        fixed_mask[:, V_nat:] = True
+        fixed_node[:, V_nat:] = np.asarray(vsrs.src)[:, None]
+    F = np.asarray(vsrs.F)
+    if pad_to_rows is not None and pad_to_rows > R:
+        pad = pad_to_rows - R
+        F = np.concatenate([F, np.zeros((pad, V), F.dtype)])
+        fixed_mask = np.concatenate([fixed_mask, np.ones((pad, V), bool)])
+        fixed_node = np.concatenate(
+            [fixed_node, np.zeros((pad, V), np.int32)])
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return PlacementProblem(
+        **substrate, F=t(F), link_src=t(link_src), link_dst=t(link_dst),
+        link_h=t(link_h), fixed_mask=t(fixed_mask), fixed_node=t(fixed_node))
+
+
+def to_tensor(x, device, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """``x`` (numpy, list or tensor) as a tensor on ``device``."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()    # torch does not wrap read-only numpy memory
+    t = torch.as_tensor(x, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def as_placement(problem: PlacementProblem, X) -> torch.Tensor:
+    """``X`` (numpy, list or tensor) as an int32 tensor on the problem's
+    device."""
+    return to_tensor(X, problem.device, torch.int32)
+
+
+def apply_pins(problem: PlacementProblem, X: torch.Tensor) -> torch.Tensor:
+    """Force pinned VMs (input VMs) onto their source nodes; X [..., R, V]."""
+    return torch.where(problem.fixed_mask, problem.fixed_node,
+                       as_placement(problem, X))
+
+
+# ---------------------------------------------------------------------------
+# Full evaluation
+# ---------------------------------------------------------------------------
+
+def _scatter_rows(n: int, idx: torch.Tensor, val: torch.Tensor):
+    """[..., n] sums of ``val`` at ``idx`` along the last axis (``idx`` and
+    ``val`` share their shape [..., m])."""
+    out = torch.zeros(idx.shape[:-1] + (n,), dtype=val.dtype,
+                      device=val.device)
+    return out.scatter_add_(-1, idx, val)
+
+
+def _lam_from_links(problem: PlacementProblem,
+                    X_flat: torch.Tensor) -> torch.Tensor:
+    """lambda [..., N] for HARD placements X_flat [..., J]: each virtual
+    link's bitrate accumulated along its route's <= K node ids.  Small
+    substrates gather the dense ``route_dense`` incidence rows instead (same
+    values)."""
+    p = problem
+    Xl = X_flat.long()
+    a, b = Xl[..., p.ls], Xl[..., p.ld]                            # [..., L]
+    if p.route_dense is not None:
+        return torch.einsum("l,...ln->...n", p.link_h,
+                            p.route_dense[a * p.P + b])
+    ids = p.route_flat[a * p.P + b]                                # [..., L, K]
+    h = p.link_h[:, None].expand(ids.shape)
+    lam = _scatter_rows(p.N + 1, ids.flatten(-2), h.flatten(-2))
+    return lam[..., :p.N]
+
+
+def _loads(problem: PlacementProblem, X_flat: torch.Tensor,
+           with_tm: bool = False):
+    """Loads of hard placements X_flat [..., J] (pins applied):
+    ``(omega [..., P], tm [P, P] or None, lam [..., N], theta [..., P])``.
+    ``tm`` (the inter-node traffic matrix) is built for a single placement
+    only, when ``with_tm``."""
+    p = problem
+    Xl = X_flat.long()
+    omega = _scatter_rows(p.P, Xl, p.F_flat.expand(Xl.shape))
+    a, b = Xl[..., p.ls], Xl[..., p.ld]                            # [..., L]
+    h = p.link_h.expand(a.shape)
+    # traffic touching node p: out + in, intra-node links counted once
+    theta = _scatter_rows(p.P, torch.cat([a, b], -1),
+                          torch.cat([h, h * (a != b)], -1))
+    lam = _lam_from_links(p, X_flat)
+    tm = None
+    if with_tm:
+        tm = torch.zeros(p.P * p.P, dtype=h.dtype, device=h.device)
+        tm = tm.index_add_(0, a * p.P + b, h).reshape(p.P, p.P)
+    return omega, tm, lam, theta
+
+
+def _hard_terms(problem: PlacementProblem, omega, lam, theta):
+    """Eq.(1)/(2) terms for hard placements; broadcasts over leading dims.
+
+    omega/theta [..., P], lam [..., N] -> (per_net [..., N], per_proc
+    [..., P], violation [...]).
+    """
+    p = problem
+    n_srv = torch.ceil(omega / p.C_pr)
+    beta = (lam > ACTIVE_EPS).float()
+    phi = ((omega > ACTIVE_EPS) | (theta > ACTIVE_EPS)).float()
+    per_net = p.pue_net * (p.eps * lam / 1e3 + beta * p.idle_share * p.pi_net)
+    per_proc = p.pue_pr * (p.E * omega + n_srv * p.pi_pr
+                           + p.EL * theta / 1e3
+                           + phi * p.lan_share * p.pi_lan)
+    relu = torch.relu
+    violation = (relu(omega - p.NS * p.C_pr).sum(-1)
+                 + relu(lam / 1e3 - p.C_net).sum(-1)
+                 + relu(theta / 1e3 - p.C_lan).sum(-1))
+    return per_net, per_proc, violation
+
+
+def evaluate_batch(problem: PlacementProblem, Xb,
+                   hard: bool = True) -> PowerBreakdown:
+    """Power breakdown of placements Xb [..., R, V] (int node indices);
+    every field carries the leading dims."""
+    if not hard:
+        raise NotImplementedError(
+            "the soft (hard=False) surrogate comes with the relax solver "
+            "(ROADMAP Queue 1, item 3)")
+    p = problem
+    X = apply_pins(p, Xb)
+    omega, _, lam, theta = _loads(p, X.flatten(-2))
+    per_net, per_proc, violation = _hard_terms(p, omega, lam, theta)
+    net, proc = per_net.sum(-1), per_proc.sum(-1)
+    return PowerBreakdown(total=net + proc, net=net, proc=proc,
+                          violation=violation, per_proc=per_proc,
+                          per_net=per_net, omega=omega)
+
+
+def evaluate(problem: PlacementProblem, X, hard: bool = True
+             ) -> PowerBreakdown:
+    """Total power for one placement X [R, V] (int node indices)."""
+    return evaluate_batch(problem, X, hard=hard)
+
+
+def objective(problem: PlacementProblem, X) -> torch.Tensor:
+    """Scalar objective (power + capacity penalty) for a hard placement."""
+    return evaluate(problem, X).objective
+
+
+def objective_batch(problem: PlacementProblem, Xb) -> torch.Tensor:
+    """Objectives [B] of placements Xb [B, R, V]."""
+    return evaluate_batch(problem, Xb).objective
+
+
+# ---------------------------------------------------------------------------
+# Incremental delta evaluation
+# ---------------------------------------------------------------------------
+
+class PlacementAux(NamedTuple):
+    """Static per-problem precomputation for the delta engine.
+
+    Per flattened VM ``j = r*V + v``, the incident virtual links padded to the
+    max degree D (padding rows have ``inc_h == 0`` and ``inc_other == j``):
+      * ``inc_other[J, D]`` -- flat index of the link's other endpoint VM
+      * ``inc_h[J, D]``     -- bitrate (Mbps); 0 marks padding
+      * ``inc_src[J, D]``   -- True where VM j is the link's source
+    plus ``free_pos[M, 2]`` -- the (r, v) positions NOT pinned by Eq.(4) --
+    and ``free_flat[M]``, the same positions as flat indices.
+    """
+    inc_other: torch.Tensor
+    inc_h: torch.Tensor
+    inc_src: torch.Tensor
+    free_pos: torch.Tensor
+    free_flat: torch.Tensor
+
+
+class PlacementState(NamedTuple):
+    """Live placement + load tensors, kept consistent by ``apply_move``."""
+    X: torch.Tensor        # [R, V] int32, pins applied
+    omega: torch.Tensor    # [P] GFLOPS
+    tm: torch.Tensor       # [P, P] Mbps inter-node traffic matrix
+    theta: torch.Tensor    # [P] Mbps LAN traffic
+    lam: torch.Tensor      # [N] Mbps network-node traffic
+    obj: torch.Tensor      # [] cached objective (power + penalty)
+
+
+def build_aux(problem: PlacementProblem) -> PlacementAux:
+    """Precompute per-VM incident-link lists (numpy; once per problem)."""
+    src = problem.link_src.cpu().numpy()
+    dst = problem.link_dst.cpu().numpy()
+    h = problem.link_h.cpu().numpy()
+    J = problem.R * problem.V
+    per_vm: list = [[] for _ in range(J)]
+    for l in range(len(src)):
+        s, d = int(src[l]), int(dst[l])
+        if s == d:
+            # self-loop: one entry; its `other` endpoint moves with the VM
+            per_vm[s].append((s, float(h[l]), True))
+        else:
+            per_vm[s].append((d, float(h[l]), True))
+            per_vm[d].append((s, float(h[l]), False))
+    D = max(1, max((len(e) for e in per_vm), default=1))
+    inc_other = np.empty((J, D), dtype=np.int32)
+    inc_other[:] = np.arange(J, dtype=np.int32)[:, None]
+    inc_h = np.zeros((J, D), dtype=np.float32)
+    inc_src = np.zeros((J, D), dtype=bool)
+    for j, entries in enumerate(per_vm):
+        for k, (o, hh, is_src) in enumerate(entries):
+            inc_other[j, k] = o
+            inc_h[j, k] = hh
+            inc_src[j, k] = is_src
+    fixed = problem.fixed_mask.cpu().numpy()
+    free_pos = np.argwhere(~fixed).astype(np.int32)
+    free_flat = (free_pos[:, 0] * problem.V + free_pos[:, 1]).astype(np.int32)
+    t = lambda x: torch.as_tensor(x, device=problem.device)
+    return PlacementAux(inc_other=t(inc_other), inc_h=t(inc_h),
+                        inc_src=t(inc_src), free_pos=t(free_pos),
+                        free_flat=t(free_flat))
+
+
+def _snap(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return torch.where(x.abs() < eps, torch.zeros_like(x), x)
+
+
+def _proc_power_hard(om, th, E, C_pr, pi, pue, EL, share_pi):
+    """Eq.(2) power of processing node(s) under hard activation indicators
+    -- the single source the delta paths share."""
+    phi = ((om > ACTIVE_EPS) | (th > ACTIVE_EPS)).float()
+    return pue * (E * om + torch.ceil(om / C_pr) * pi + EL * th / 1e3
+                  + phi * share_pi)
+
+
+def _objective_from_loads(problem, omega, lam, theta) -> torch.Tensor:
+    per_net, per_proc, viol = _hard_terms(problem, omega, lam, theta)
+    return per_net.sum(-1) + per_proc.sum(-1) + PENALTY * viol
+
+
+def batched_hard_loads(problem: PlacementProblem, Xc):
+    """Loads + objective for a batch of hard placements ``Xc [C, R, V]``
+    (pins applied): ``(omega [C, P], theta [C, P], lam [C, N], obj [C])``.
+    The single source for chain-state initialization, shared by the delta
+    anneal loop and the fused kernel wrapper."""
+    Xc = as_placement(problem, Xc)
+    omega, _, lam, theta = _loads(problem, Xc.flatten(-2))
+    obj = _objective_from_loads(problem, omega, lam, theta)
+    return omega, theta, lam, obj
+
+
+def init_state(problem: PlacementProblem, X) -> PlacementState:
+    """Full from-scratch state build (also the drift-killing refresh)."""
+    X = apply_pins(problem, X)
+    omega, tm, lam, theta = _loads(problem, X.reshape(-1), with_tm=True)
+    obj = _objective_from_loads(problem, omega, lam, theta)
+    return PlacementState(X=X, omega=omega, tm=tm, theta=theta, lam=lam,
+                          obj=obj)
+
+
+def _move_core(problem: PlacementProblem, aux: PlacementAux, X_flat,
+               omega, theta, lam, j, p_new):
+    """Entry-wise effect of moving flat VM ``j[c]`` to ``p_new[c]`` in each
+    of C states (X_flat [C, J], omega/theta [C, P], lam [C, N]; j/p_new [C]
+    int64).
+
+    The theta/omega deltas are supported on {p_old, p_new} only (the q-side
+    contributions of removal and insertion cancel for non-self links), so
+    the move reduces to two per-node scalars plus the [N] route delta.
+    Returns ``(p_old [C], idx [C, 2], om2 [C, 2], th2 [C, 2], lam2 [C, N],
+    link_info)`` where ``om2``/``th2`` are the NEW (snapped) omega/theta at
+    ``idx = [p_old, p_new]``.
+    """
+    p = problem
+    P = p.P
+    C = X_flat.shape[0]
+    p_old = X_flat.gather(1, j[:, None])[:, 0].long()
+    F_j = p.F_flat[j]
+    h = aux.inc_h[j]                                   # [C, D]
+    is_src = aux.inc_src[j]                            # [C, D]
+    other = aux.inc_other[j].long()                    # [C, D]
+    is_self = other == j[:, None]
+    q = X_flat.gather(1, other).long()                 # [C, D]
+    po, pn = p_old[:, None], p_new[:, None]
+    q_rm = torch.where(is_self, po, q)
+    q_in = torch.where(is_self, pn, q)
+    # signed bitrates: -h for the removal leg, +h for the insertion leg
+    hh = torch.cat([-h, h], 1)                         # [C, 2D]
+    q2 = torch.cat([q_rm, q_in], 1)                    # [C, 2D]
+    H_tot = h.sum(1)
+    sr = (h * (q_rm == po)).sum(1)
+    si = (h * (q_in == pn)).sum(1)
+    # theta delta at p_old / p_new (all other entries cancel exactly)
+    alpha = -(H_tot - sr) + (hh * (q2 == po)).sum(1)
+    beta = (H_tot - si) + (hh * (q2 == pn)).sum(1)
+    # lam: the two touched routes per link (ordered pair respects direction)
+    idx_rm = torch.where(is_src, po * P + q_rm, q_rm * P + po)
+    idx_in = torch.where(is_src, pn * P + q_in, q_in * P + pn)
+    idx2 = torch.cat([idx_rm, idx_in], 1)              # [C, 2D]
+    if p.route_dense is not None:
+        d_lam = torch.einsum("cd,cdn->cn", hh, p.route_dense[idx2])
+    else:
+        ids2 = p.route_flat[idx2]                      # [C, 2D, K]
+        d_lam = _scatter_rows(p.N + 1, ids2.reshape(C, -1),
+                              hh[:, :, None].expand(ids2.shape)
+                              .reshape(C, -1))[:, :p.N]
+    lam2 = _snap(lam + d_lam, SNAP_MBPS)
+
+    idx = torch.stack([p_old, p_new], 1)               # [C, 2]
+    sm = (p_old == p_new).float()
+    # degenerate move: fold the (exactly cancelling) deltas together so both
+    # entries see "no change"
+    d_om = torch.stack([-F_j + sm * F_j, F_j - sm * F_j], 1)
+    d_th = torch.stack([alpha + sm * beta, beta + sm * alpha], 1)
+    om2 = _snap(omega.gather(1, idx) + d_om, SNAP_GFLOPS)
+    th2 = _snap(theta.gather(1, idx) + d_th, SNAP_MBPS)
+    return p_old, idx, om2, th2, lam2, (h, is_src, q_rm, q_in)
+
+
+def _delta_objective(p: PlacementProblem, omega, theta, lam,
+                     idx, om2, th2, lam2) -> torch.Tensor:
+    """Objective change [C], summing only changed terms: processing terms
+    at the two entries ``idx``; network terms differenced full-width, where
+    untouched entries give exact zeros."""
+    om, th = omega.gather(1, idx), theta.gather(1, idx)            # [C, 2]
+    E, Cpr, pi, pue, EL, share_pi, cap_pr, C_lan = p.proc_pack[:, idx]
+    relu = torch.relu
+    proc = lambda o, t: _proc_power_hard(o, t, E, Cpr, pi, pue, EL, share_pi)
+    d_proc = (proc(om2, th2) - proc(om, th)).sum(-1)
+    d_viol = (relu(om2 - cap_pr) - relu(om - cap_pr)
+              + relu(th2 / 1e3 - C_lan) - relu(th / 1e3 - C_lan)).sum(-1)
+    beta = (lam > ACTIVE_EPS).float()
+    beta2 = (lam2 > ACTIVE_EPS).float()
+    d_net = (p.pue_net * (p.eps * (lam2 - lam) / 1e3
+                          + (beta2 - beta) * p.idle_share * p.pi_net)).sum(-1)
+    d_viol = d_viol + (relu(lam2 / 1e3 - p.C_net)
+                       - relu(lam / 1e3 - p.C_net)).sum(-1)
+    return d_proc + d_net + PENALTY * d_viol
+
+
+def _one(problem: PlacementProblem, state: PlacementState, r: int, v: int,
+         p_new):
+    """Batch-of-one operands of a single-state move."""
+    dev = problem.device
+    # filled on the device: a host-to-device copy would wait for the queue
+    j = torch.full((1,), r * problem.V + v, device=dev)
+    pn = torch.as_tensor(p_new, device=dev).long().reshape(1)
+    return (state.X.reshape(1, -1), state.omega[None], state.theta[None],
+            state.lam[None], j, pn)
+
+
+def delta_move(problem: PlacementProblem, aux: PlacementAux,
+               state: PlacementState, r: int, v: int, p_new) -> torch.Tensor:
+    """Exact objective change of moving VM (r, v) to node ``p_new``;
+    (r, v) must be a free (non-pinned) position."""
+    Xf, om, th, lm, j, pn = _one(problem, state, r, v, p_new)
+    _, idx, om2, th2, lm2, _ = _move_core(problem, aux, Xf, om, th, lm, j,
+                                          pn)
+    return _delta_objective(problem, om, th, lm, idx, om2, th2, lm2)[0]
+
+
+def apply_move(problem: PlacementProblem, aux: PlacementAux,
+               state: PlacementState, r: int, v: int,
+               p_new) -> PlacementState:
+    """Commit a single-VM move, updating every load tensor incrementally
+    (returns a new state; ``state`` is left as it was)."""
+    Xf, om, th, lm, j, pn = _one(problem, state, r, v, p_new)
+    p_old, idx, om2, th2, lm2, (h, is_src, q_rm, q_in) = _move_core(
+        problem, aux, Xf, om, th, lm, j, pn)
+    delta = _delta_objective(problem, om, th, lm, idx, om2, th2, lm2)[0]
+    po, pn1 = p_old[:, None], pn[:, None]
+    rows = torch.cat([torch.where(is_src, po, q_rm),
+                      torch.where(is_src, pn1, q_in)], 1)[0]
+    cols = torch.cat([torch.where(is_src, q_rm, po),
+                      torch.where(is_src, q_in, pn1)], 1)[0]
+    vals = torch.cat([-h, h], 1)[0]
+    tm2 = _snap(state.tm.index_put((rows, cols), vals, accumulate=True),
+                SNAP_MBPS)
+    X2 = state.X.reshape(-1).scatter(0, j, pn.to(state.X.dtype))
+    return PlacementState(X=X2.reshape(state.X.shape),
+                          omega=om.scatter(1, idx, om2)[0], tm=tm2,
+                          theta=th.scatter(1, idx, th2)[0],
+                          lam=lm2[0], obj=state.obj + delta)
+
+
+def delta_sweep(problem: PlacementProblem, aux: PlacementAux,
+                state: PlacementState, r: int, v: int) -> torch.Tensor:
+    """Absolute objective of moving VM (r, v) to EVERY node: [P].
+
+    Removal once, then touched-entries scoring of all P insertions: placing
+    VM j at candidate ``a`` changes the processing terms at ``a`` only, and
+    the network terms only at the <= D*K route ids of the routes a <-> q_k
+    (``ids [P, D, K]``).  A node shared by several of the candidate's
+    routes sees ONE aggregated traffic delta before the beta/relu
+    nonlinearities (cross-route id matches; only the first occurrence
+    scores).  Entry ``p_old`` reproduces the current objective.
+    """
+    p = problem
+    P, N = p.P, p.N
+    dev = p.device
+    j = r * p.V + v
+    X_flat = state.X.reshape(-1)
+    p_old = X_flat[j].long()
+    F_j = p.F_flat[j]
+    h = aux.inc_h[j]
+    is_src = aux.inc_src[j]
+    other = aux.inc_other[j].long()
+    is_self = other == j
+    q = X_flat[other].long()
+    q_rm = torch.where(is_self, p_old, q)
+    zero = torch.zeros((), device=dev)
+    h_ns = torch.where(is_self, zero, h)      # non-self bitrates
+    h_s = torch.where(is_self, h, zero)
+    nodes = torch.arange(P, device=dev)
+
+    # ---- removal (exact state with VM j taken out) ----------------------
+    e_po = (nodes == p_old).float()
+    oh_qr = (q_rm[:, None] == nodes).float()                    # [D, P]
+    same_r = (q_rm == p_old).float()
+    omega_r = state.omega - F_j * e_po
+    theta_r = (state.theta - (h.sum() - (h * same_r).sum()) * e_po
+               - (h[:, None] * oh_qr).sum(0))
+    idx_rm = torch.where(is_src, p_old * P + q_rm, q_rm * P + p_old)
+    ids_rm = p.route_flat[idx_rm]                               # [D, K]
+    lam_r = state.lam - _scatter_rows(
+        N + 1, ids_rm.reshape(-1), h[:, None].expand(ids_rm.shape)
+        .reshape(-1))[:N]
+
+    # ---- candidate-independent insertion loads --------------------------
+    add_q = (h_ns[:, None] * (q[:, None] == nodes).float()).sum(0)
+    diag_add = h_ns.sum() - add_q + h_s.sum()                   # [P]
+    theta_i = theta_r + add_q                                   # [P]
+    omega_b = _snap(omega_r, SNAP_GFLOPS)
+    theta_b = _snap(theta_i, SNAP_MBPS)
+    lam_b = _snap(lam_r, SNAP_MBPS)
+
+    # ---- base objective (candidate-independent) -------------------------
+    per_net_b, per_proc_b, viol_b = _hard_terms(p, omega_b, lam_b, theta_b)
+    relu = torch.relu
+    base = per_net_b.sum() + per_proc_b.sum() + PENALTY * viol_b
+
+    # ---- processing correction at the candidate node (O(1) each) --------
+    om_new = _snap(omega_r + F_j, SNAP_GFLOPS)
+    th_new = _snap(theta_i + diag_add, SNAP_MBPS)
+    cap_pr = p.NS * p.C_pr
+    d_proc = _proc_power_hard(om_new, th_new, p.E, p.C_pr, p.pi_pr,
+                              p.pue_pr, p.EL,
+                              p.lan_share * p.pi_lan) - per_proc_b
+    d_viol_pr = (relu(om_new - cap_pr) - relu(omega_b - cap_pr)
+                 + relu(th_new / 1e3 - p.C_lan)
+                 - relu(theta_b / 1e3 - p.C_lan))
+
+    # ---- network correction on the touched route ids --------------------
+    ids_src = p.route_long[:, q, :]                             # [P, D, K]
+    ids_dst = p.route_long[q, :, :].transpose(0, 1)             # [P, D, K]
+    ids3 = torch.where(is_src[None, :, None], ids_src, ids_dst)
+    D = ids3.shape[1]
+    valid3 = ids3 < N
+    # each route's own ids are unique, so duplicates occur only ACROSS
+    # routes: pairwise [P, K, K] id matches mark later occurrences and
+    # accumulate the other routes' bitrates onto the first one
+    dup = [torch.zeros_like(valid3[:, 0]) for _ in range(D)]
+    tot = [torch.zeros(ids3[:, 0].shape, device=dev) for _ in range(D)]
+    for d2 in range(D):
+        for d1 in range(d2):
+            eq = ids3[:, d1, :, None] == ids3[:, d2, None, :]   # [P, K, K]
+            in2 = eq.any(dim=2)         # route-d1 entry also on route d2
+            in1 = eq.any(dim=1)         # route-d2 entry also on route d1
+            tot[d1] = tot[d1] + h_ns[d2] * in2
+            tot[d2] = tot[d2] + h_ns[d1] * in1
+            dup[d2] = dup[d2] | in1
+    first = valid3 & ~torch.stack(dup, dim=1)                   # [P, D, K]
+    tot_other = torch.stack(tot, dim=1)                         # [P, D, K]
+
+    # one merged [6, P, D, K] gather (sentinel id N hits the zero column)
+    tbl = torch.stack([lam_r, lam_b, p.eps, p.pue_net,
+                       p.idle_share * p.pi_net, p.C_net])
+    tblp = torch.cat([tbl, torch.zeros((6, 1), device=dev)], dim=1)
+    lam_raw, lam_old, eps_g, pue_g, idle_g, cnet_g = tblp[:, ids3]
+    lam_new = _snap(lam_raw + h_ns[None, :, None] + tot_other, SNAP_MBPS)
+    beta_d = (lam_new > ACTIVE_EPS).float() - (lam_old > ACTIVE_EPS).float()
+    use = first.float()
+    d_net = (use * pue_g * (eps_g * (lam_new - lam_old) / 1e3
+                            + beta_d * idle_g)).sum((-1, -2))   # [P]
+    d_viol_net = (use * (relu(lam_new / 1e3 - cnet_g)
+                         - relu(lam_old / 1e3 - cnet_g))).sum((-1, -2))
+    return (base + d_proc + d_net
+            + PENALTY * (d_viol_pr + d_viol_net))
+
+
+def summarize(problem: PlacementProblem, topo: CFNTopology,
+              X) -> Dict[str, float]:
+    """Human-readable per-layer report (drives the Fig. 3 / Fig. 4 tables)."""
+    bd = evaluate(problem, X)
+    per_proc = bd.per_proc.cpu().numpy()
+    omega = bd.omega.cpu().numpy()
+    out = dict(total_w=float(bd.total), net_w=float(bd.net),
+               proc_w=float(bd.proc), violation=float(bd.violation))
+    for layer in ("iot", "af", "mf", "cdc"):
+        idx = topo.layer_indices(layer)
+        out[f"proc_w_{layer}"] = float(per_proc[idx].sum())
+        out[f"gflops_{layer}"] = float(omega[idx].sum())
+    return out
