@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Builds both placement kernels from ``src/repro_torch/csrc`` with nvcc, then
+Builds the port's three kernels from ``src/repro_torch/csrc`` with nvcc
+(one nvcc per source, in parallel), then
 
-  1. holds each kernel against its plain PyTorch version on the card at
-     city_p468 (P=468, 1024 VSRs of 3 VMs) and times both, at the phase's
-     shapes and at the shapes the main path gives them;
+  1. holds each placement kernel against its plain PyTorch version on the
+     card at city_p468 (P=468, 1024 VSRs of 3 VMs) and times both, at the
+     phase's shapes and at the shapes the main path gives them;
   2. runs the paper's quickstart (paper topology, 10 VSRs, cfn-milp)
      through ``CFNSession`` on the card, with the CDC/AF/MF baselines;
-  3. runs cfn-milp at "standard" effort on city_p468 with 1024 VSRs.
+  3. runs cfn-milp at "standard" effort on city_p468 with 1024 VSRs;
+  4. holds the flash-attention kernel against its plain version on the
+     reference's test shapes and at the serving path's prefill and decode
+     shapes, and times it beside SDPA (timed only, as a yardstick);
+  5. serves qwen3-4b at full width and depth (random bf16 weights from a
+     seed) for 8 requests of 1024 prompt tokens and 32 generated tokens,
+     checks cached decode against the forward pass, and places the served
+     model on the datacenter CFN.
 
 Each phase prints one JSON line; then the kernels line (launches on the
-phase-3 main path, errors and times), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+main paths: the placement kernels' in phase 3, flash attention's in phase
+5; errors and times), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
 
     python3 chip_smoke.py
@@ -28,10 +37,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# float32 rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
+# float32 rate outside the tensor cores, the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -61,8 +71,9 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOP_PER_S
+def bound_ms(n_bytes: float, n_ops: float,
+             flop_per_s: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -83,6 +94,25 @@ def placement_power_bound(Xf, operands):
                    + nn_.numel() + 4 * B)
     n_ops = B * (J + 2 * L + 16 * P + 10 * N) + ids
     return bound_ms(n_bytes, n_ops)
+
+
+def flash_attention_bound(q, k, v, q_pos, kv_pos):
+    """Least time of one causal flash-attention call on these inputs: q
+    and both position vectors read once, the K/V rows of the slots some
+    query attends read once (an unwritten cache slot, position -1, never
+    affects the output, so a kernel need not read it), the output written
+    once; against 2 * (D + Dv) operations per unmasked (query head, kv
+    slot) pair -- the two products -- at the bf16 dense tensor-core rate."""
+    B, Sq, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    rel = q_pos[:, None].long() - kv_pos[None, :].long()
+    mask = (kv_pos >= 0)[None, :] & (rel >= 0)
+    pairs, slots = int(mask.sum()), int(mask.any(0).sum())
+    n_bytes = (q.element_size() * (q.numel() + B * Sq * H * Dv
+                                   + B * slots * KH * (D + Dv))
+               + 4 * (q_pos.numel() + kv_pos.numel()))
+    return bound_ms(n_bytes, 2.0 * (D + Dv) * pairs * B * H,
+                    BF16_FLOP_PER_S)
 
 
 def fused_anneal_bound(args, rows_read, D):
@@ -338,6 +368,287 @@ def phase_city() -> dict:
     return launches
 
 
+# the reference's kernel test shapes (tests/test_kernels.py:12-21):
+# B, H, KH, Sq, Skv, D, causal, window, cap, dtype
+FLASH_CASES = [
+    (2, 4, 2, 64, 64, 32, True, None, None, "float32"),
+    (1, 8, 8, 128, 256, 64, True, None, 50.0, "float32"),
+    (2, 4, 1, 96, 160, 32, True, 32, None, "float32"),
+    (1, 2, 2, 48, 80, 16, False, None, None, "float32"),
+    (2, 8, 4, 200, 200, 64, True, 64, 30.0, "float32"),
+    (1, 4, 2, 64, 128, 32, True, None, None, "bfloat16"),
+    (2, 2, 2, 33, 65, 24, True, None, None, "float32"),
+]
+# the serving phase's shapes: 8 requests, qwen3-4b attention, a 1024-token
+# prompt in a cache of max_len = 1024 + 32 + 8 slots
+SERVE_B, SERVE_S, SERVE_GEN = 8, 1024, 32
+SERVE_SMAX = SERVE_S + SERVE_GEN + 8
+
+
+def sdpa_ms(q, k, v, q_pos, kv_pos, reps: int) -> float:
+    """Time of SDPA on the same inputs (GQA, boolean mask from the
+    positions): the library yardstick, timed here and used nowhere in the
+    port."""
+    import torch
+    import torch.nn.functional as F
+    mask = (kv_pos[None, :] >= 0) & (q_pos[:, None] >= kv_pos[None, :])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+
+
+def phase_flash(kernels: dict) -> None:
+    """Phase 4: the flash-attention kernel against its plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda shape, dt: torch.randn(shape, generator=gen, device=dev,
+                                        dtype=torch.float32).to(dt)
+    out = {"cases": []}
+    for B, H, KH, Sq, Skv, D, causal, window, cap, dtype in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (rnd(s, dt) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                         (B, Skv, KH, D)))
+        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)
+        kp = torch.arange(Skv, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window, logit_cap=cap)
+        got = fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
+        want = fa.attention_plain(q, k, v, q_positions=qp, kv_positions=kp,
+                                  **kw).to(dt)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-2 if dtype == "bfloat16" else 2e-3
+        check(err <= tol, f"flash case {(B, H, KH, Sq, Skv, D)}: {err}")
+        out["cases"].append({"shape": [B, H, KH, Sq, Skv, D],
+                             "dtype": dtype, "max_abs_err": err})
+    # q before every kv position: fully masked rows give 0, not NaN
+    q, k, v = (rnd(s, torch.float32) for s in ((1, 16, 2, 16),
+                                               (1, 32, 2, 16),
+                                               (1, 32, 2, 16)))
+    got = fa.flash_attention_cuda(
+        q, k, v, torch.arange(-64, -48, dtype=torch.int32, device=dev),
+        torch.arange(32, dtype=torch.int32, device=dev))
+    check(bool(torch.isfinite(got).all()) and float(got.abs().max()) == 0.0,
+          "flash: fully masked rows are not 0")
+    out["fully_masked_max_abs"] = float(got.abs().max())
+
+    # the serving path's shapes, positions as the ring-buffer cache holds
+    # them: prefill writes slots 0-1023, decode then writes slot 1024
+    B, H, KH, D, S, Smax = SERVE_B, 32, 8, 128, SERVE_S, SERVE_SMAX
+    bf = torch.bfloat16
+    k, v = rnd((B, Smax, KH, D), bf), rnd((B, Smax, KH, D), bf)
+    for name, Sq, written in (("prefill", S, S), ("decode", 1, S + 1)):
+        q = rnd((B, Sq, H, D), bf)
+        qp = torch.arange(written - Sq, written, dtype=torch.int32,
+                          device=dev)
+        kp = torch.full((Smax,), -1, dtype=torch.int32, device=dev)
+        kp[:written] = torch.arange(written, dtype=torch.int32, device=dev)
+        got = fa.flash_attention_cuda(q, k, v, qp, kp)
+        want = fa.attention_plain(q, k, v, q_positions=qp,
+                                  kv_positions=kp).to(bf)
+        err = float((got.float() - want.float()).abs().max())
+        # prefill: bf16 rounding of the early rows' large values sets the
+        # limit; decode outputs average 1025 slots (|out| ~ 0.05), so a
+        # limit of 2e-2 there would pass a kernel that dropped a slot
+        tol = 2e-2 if name == "prefill" else 2e-3
+        check(err <= tol, f"flash {name}: {err} above {tol}")
+        reps = 20 if name == "prefill" else 200
+        rec = {"shape": [B, H, KH, Sq, Smax, D], "max_abs_err": err,
+               "ms": cuda_ms(lambda: fa.flash_attention_cuda(
+                   q, k, v, qp, kp), reps),
+               "plain_ms": cuda_ms(lambda: fa.attention_plain(
+                   q, k, v, q_positions=qp, kv_positions=kp), 5),
+               "library_ms": sdpa_ms(q, k, v, qp, kp, reps)}
+        rec["bound_ms"], rec["bound_by"] = flash_attention_bound(
+            q, k, v, qp, kp)
+        out[name] = rec
+
+    # planted, at the decode shape of the loop's last pass: the slot decode
+    # writes (position 1024) must reach the output; with its values at 4 it
+    # moves outputs by ~4/1025 each, which the plain version without that
+    # slot shows
+    vp = v.clone()
+    vp[:, S] = 4.0
+    got = fa.flash_attention_cuda(q, k, vp, qp, kp).float()
+    want = fa.attention_plain(q, k, vp, q_positions=qp, kv_positions=kp)
+    kp_drop = kp.clone()
+    kp_drop[S] = -1
+    drop = fa.attention_plain(q, k, vp, q_positions=qp,
+                              kv_positions=kp_drop)
+    err = float((got - want.to(bf).float()).abs().max())
+    gap = float((got - drop.to(bf).float()).abs().max())
+    check(err <= 2e-3 and gap > 5e-3,
+          f"flash decode, planted slot {S}: err {err}, gap without it {gap}")
+    out["decode"]["planted_slot"] = {"max_abs_err": err,
+                                     "max_abs_gap_without_slot": gap}
+    pre = out["prefill"]
+    kernels["flash_attention"].update(
+        max_abs_err=max([c["max_abs_err"] for c in out["cases"]]
+                        + [pre["max_abs_err"], out["decode"]["max_abs_err"]]),
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"],
+        shape="prefill [B, H, KH, Sq, Skv, D] = "
+              f"{pre['shape']}, bf16",
+        decode={k_: out["decode"][k_] for k_ in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+    emit("flash_attention_vs_plain", **out)
+
+
+def serve_profile(model, cfg, tokens, cache) -> dict:
+    """Device activity of one prefill and one decode step of the serving
+    path (under the profiler, whose own host cost is in the wall time):
+    wall ms, CUDA kernels, the share of the wall time the device was busy
+    (summed kernel time; one stream), the flash kernel's share of the
+    device time, and the five kernels that took most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import engine
+    B, S = tokens.shape
+    steps = {"prefill": lambda: engine.prefill(
+                 model, cfg, {"tokens": tokens}, cache),
+             "decode_step": lambda: engine.decode_step(
+                 model, cfg, tokens[:, -1:], S + SERVE_GEN - 1, cache)}
+    out = {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() * 1e-3)
+        busy_ms = sum(sum(v) for v in by_name.values())
+        flash_ms = sum(sum(v) for k, v in by_name.items()
+                       if "flash_attention_kernel" in k)
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+        out[name] = {
+            "wall_ms": wall_s * 1e3,
+            "kernels": sum(len(v) for v in by_name.values()),
+            "device_busy_share": busy_ms / (wall_s * 1e3),
+            "flash_share_of_device_time": (flash_ms / busy_ms if busy_ms
+                                           else None),
+            "top_kernels_ms": [[k[:80], sum(v), len(v)] for k, v in top]}
+    return out
+
+
+def phase_serve() -> int:
+    """Phase 5: serve qwen3-4b at full width and depth, then place it."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.api import CFNSession, PlacementSpec
+    from repro_torch.core import topology, vsr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C, engine
+    cfg = configs.get("qwen3-4b")
+    B, S, GEN, dev = SERVE_B, SERVE_S, SERVE_GEN, "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)), dtype=torch.int32, device=dev)
+    spec = C.cache_spec(cfg, B, SERVE_SMAX)
+
+    # the main path as a user runs it: greedy_generate, synchronized only
+    # around the whole call.  The first call is cold (cuBLAS picks its
+    # kernels, the allocator grows); the second, on a fresh cache, is the
+    # one timed for tokens/s and whose launches are counted
+    for cold in (True, False):
+        cache = None    # free the last call's cache before the fresh one
+        cache = C.zeros(spec, device=dev)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        seq, cache = engine.greedy_generate(model, cfg, {"tokens": tokens},
+                                            cache, GEN)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        if cold:
+            cold_s, cold_seq = total_s, seq
+    launches = fa.LAUNCHES["flash_attention"]
+    check(bool(torch.equal(cold_seq, seq)),
+          "serve: two greedy_generate calls chose different ids")
+    want = cfg.n_layers * GEN
+    check(launches == want, f"serve: {launches} flash-attention launches, "
+                            f"want {want}")
+    check(tuple(seq.shape) == (B, GEN), f"serve: ids {tuple(seq.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # a second pass, step by step on a fresh cache, synchronized around each
+    # step for its time; every step's logits must be finite and its ids
+    # those of the call above
+    times = {"prefill": [], "decode_step": []}
+    cache = C.zeros(spec, device=dev)
+    finite, ids = True, []
+    for i in range(GEN):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 0:
+            logits, cache = engine.prefill(model, cfg, {"tokens": tokens},
+                                           cache)
+        else:
+            logits, cache = engine.decode_step(model, cfg, ids[-1][:, None],
+                                               S + i - 1, cache)
+        torch.cuda.synchronize()
+        times["prefill" if i == 0 else "decode_step"].append(
+            time.perf_counter() - t)
+        finite = finite and bool(torch.isfinite(logits).all())
+        ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    check(finite, "serve: a logit is not finite")
+    check(bool(torch.equal(torch.stack(ids, 1), seq)),
+          "serve: the step-by-step pass chose other ids than greedy_generate")
+    profile = serve_profile(model, cfg, tokens, cache)
+
+    # cached decode of the last prompt token against the uncached forward
+    h = M.forward_hidden(model, cfg, {"tokens": tokens})
+    ref = M.logits_fn(model, cfg, h[:, -1:])[:, 0]
+    del h
+    cache = C.zeros(spec, device=dev)
+    _, cache = engine.prefill(model, cfg, {"tokens": tokens[:, :-1]}, cache)
+    got, _ = engine.decode_step(model, cfg, tokens[:, -1:], S - 1, cache)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and rel < 3e-2,
+          f"serve: cached decode vs forward rel {rel} (bf16 bound 3e-2)")
+    del model, cache
+
+    tok_s = B * GEN / total_s
+    vsrs = vsr.from_architecture(cfg, tokens_per_s=tok_s, n_stages=4)
+    spec_p = PlacementSpec(method="cfn-milp", bucket_rows=False,
+                           bucket_cols=False)
+    session = CFNSession(topology.datacenter_topology(), spec_p,
+                         device=dev)
+    result = session.solve(vsrs)
+    rescore(session, result)
+    sav = session.savings_vs_baseline("cdc")
+    check(sav["saving_frac"] > 0.0,
+          f"serve: no saving vs CDC ({sav['saving_frac']})")
+    emit("serve_qwen3_4b", config=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, params=M.param_count(M.init_model(
+             cfg, device="meta")),
+         batch=B, prompt_len=S, gen=GEN, max_len=SERVE_SMAX,
+         cache_bytes=C.cache_bytes(spec), init_s=init_s,
+         prefill_s=times["prefill"][0],
+         decode_ms_per_step=1e3 * statistics.mean(times["decode_step"]),
+         decode_ms_median=1e3 * statistics.median(times["decode_step"]),
+         cold_total_s=cold_s, total_s=total_s, tokens_per_s=tok_s,
+         max_memory_allocated=peak, first_row_ids=seq[0].tolist(),
+         flash_launches=launches, decode_vs_forward_rel=rel,
+         profile=profile,
+         vsr_F=vsrs.F[0].tolist(), placement_power_w=result.power,
+         placement_feasible=result.feasible, placement_method=result.method,
+         cdc_w=sav["baseline_w"], saving_vs_cdc=sav["saving_frac"])
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -373,13 +684,20 @@ def main() -> int:
             "name": "fused_anneal", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_anneal.cu",
             "replaces": "src/repro/kernels/placement_power.py:377"},
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81"},
     }
     phase_kernels(kernels)
     phase_paper()
     launches = phase_city()
-    for name, rec in kernels.items():
-        rec["launches"] = launches[name]
-        rec["library_ms"] = None   # no single PyTorch call computes either
+    for name in ("placement_power", "fused_anneal"):
+        kernels[name]["launches"] = launches[name]
+        # no single PyTorch call computes either placement function
+        kernels[name]["library_ms"] = None
+    phase_flash(kernels)
+    kernels["flash_attention"]["launches"] = phase_serve()
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ is the reference).
 
 ``repro_torch.api`` is the user surface (``PlacementSpec``, ``CFNSession``);
 ``core`` holds the substrate, workload, power model and solvers;
+``configs`` and ``models`` the architecture configurations and the dense
+transformer stack; ``serve`` the KV cache and the prefill / decode engine;
 ``kernels`` the CUDA kernels for Hopper (``csrc/*.cu``), their launch
-wrappers and plain PyTorch versions, and the float64 oracle.  Importing the
+wrappers and plain PyTorch versions, and the oracles.  Importing the
 package needs neither a GPU nor the CUDA toolkit: the kernels are compiled
 at their first launch.
 """

@@ -1,0 +1,19 @@
+"""qwen3-4b [dense] — qk_norm, GQA [hf:Qwen/Qwen3-8B family].
+
+36L d_model=2560 32H (GQA kv=8) d_ff=9728 vocab=151936, head_dim=128.
+"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-4b",
+    family="dense",
+    n_layers=36,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=9728,
+    vocab=151936,
+    d_head=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)

@@ -1,2 +1,2 @@
-"""CUDA kernels of the placement objective, their wrappers, plain PyTorch
-versions, and the float64 oracle."""
+"""CUDA kernels of the port (placement objective, fused annealing, flash
+attention), their wrappers, plain PyTorch versions, and the oracles."""

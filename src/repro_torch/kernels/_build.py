@@ -25,12 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# exported launcher of each source: (name, pointer args, int args); every
-# launcher takes the CUDA stream last and returns cudaGetLastError()
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# exported launcher of each source: (name, pointer args, int args, float
+# args), in that order; every launcher takes the CUDA stream last and
+# returns cudaGetLastError()
 LAUNCHERS = {
-    "placement_power": ("placement_power_launch", 9, 6),
-    "fused_anneal": ("fused_anneal_launch", 18, 7),
+    "placement_power": ("placement_power_launch", 9, 6, 0),
+    "fused_anneal": ("fused_anneal_launch", 18, 7, 0),
+    "flash_attention": ("flash_attention_launch", 6, 10, 1),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -56,9 +58,9 @@ def _library_path(name: str) -> Path:
 
 def _load(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn_name, n_ptr, n_int = LAUNCHERS[name]
+    fn_name, n_ptr, n_int, n_float = LAUNCHERS[name]
     fn = getattr(lib, fn_name)
-    fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+    fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F] * n_float + [_P]
     fn.restype = ctypes.c_int
     return lib
 

@@ -1,8 +1,9 @@
-"""Public wrappers of the placement kernels.
+"""Public wrappers of the port's kernels.
 
 On tensors that lie on a CUDA device each wrapper launches its CUDA kernel
-(``kernels.placement_power``), which raises if it cannot run; on tensors on
-the CPU it runs the kernel's plain PyTorch version.
+(``kernels.placement_power``, ``kernels.flash_attention``), which raises if
+it cannot run; on tensors on the CPU it runs the kernel's plain PyTorch
+version.
 """
 from __future__ import annotations
 
@@ -12,7 +13,29 @@ import torch
 
 from ..core.power import (PlacementAux, PlacementProblem, apply_pins,
                           as_placement, batched_hard_loads, to_tensor)
+from . import flash_attention as fa
 from . import placement_power as pp
+from . import ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash attention in the TPU kernel's layout: q [B, H, Sq, D], k/v
+    [B, KH, Skv, D] -> [B, H, Sq, D] in q's dtype.  Query i sits at
+    position ``q_offset + i``, kv slot j at position j.  CPU tensors run
+    the plain chunked version (``ref.flash_attention_ref``)."""
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       logit_cap=logit_cap, q_offset=q_offset)
+    Sq, Skv = q.shape[2], k.shape[2]
+    qpos = q_offset + torch.arange(Sq, dtype=torch.int32, device=q.device)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return fa.flash_attention_cuda(qt, kt, vt, qpos, kpos, causal=causal,
+                                   window=window,
+                                   logit_cap=logit_cap).transpose(1, 2)
 
 
 def placement_objective(problem: PlacementProblem, Xb) -> torch.Tensor:

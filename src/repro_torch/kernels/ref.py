@@ -1,4 +1,10 @@
-"""Float64 numpy oracles for the placement kernels (tests assert vs these).
+"""Oracles for the port's kernels (tests assert vs these).
+
+  * flash_attention_ref: the chunked online-softmax attention of the model
+    path (``kernels.flash_attention.flash_attention``, the reference's
+    ``layers.flash_attention``) in the TPU kernel's [B, H, S, D] layout.
+
+Float64 numpy oracles for the placement kernels:
 
   * placement_objective_ref: the Eq.(1)+(2) objective from core.power,
     batched -- the float32 ground truth of the full-evaluation kernel.
@@ -13,11 +19,29 @@ They read a ``core.power.PlacementProblem`` wherever its tensors live.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..core.power import (ACTIVE_EPS, PENALTY, PlacementProblem, apply_pins,
                           evaluate_batch)
+from .flash_attention import flash_attention
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        logit_cap: Optional[float] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q [B, H, Sq, D]; k/v [B, KH, Skv, D] -> [B, H, Sq, D] in q's dtype."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    qpos = q_offset + torch.arange(Sq, dtype=torch.int32, device=q.device)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=q.device)
+    out = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q_positions=qpos, kv_positions=kpos, causal=causal, window=window,
+        logit_cap=logit_cap, kv_chunk=128)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _np(t) -> np.ndarray:

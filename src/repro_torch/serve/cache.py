@@ -1,0 +1,99 @@
+"""Decode-state (KV cache) specifications of the port, attention kinds
+(the reference's ``serve/cache.py``).
+
+Caches mirror the layer plan: a list with one entry per layer group, each a
+dict ``{"b{j}": leaves}`` whose leaves carry the group's ``repeats`` axis
+first.  Leaves are ``TSpec``s (shape, dtype; the reference's logical
+sharding axes have no use on one device); ``zeros`` turns a spec tree into
+torch tensors on a device.
+
+Sizing: a full-attention layer holds ``Smax = max_len`` slots, a
+sliding-window layer ``min(window, max_len)`` (a ring buffer).  The cache
+dtype must be the model's activation dtype: the port writes the cache in
+place.  MLA, SSM and cross-attention states come with their slices.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..core.power import Device, resolve_device
+from ..models.config import ArchConfig
+from ..models.model import ATTN_KINDS, _TODO, block_window, layer_plan
+
+
+@dataclass(frozen=True)
+class TSpec:
+    shape: Tuple[int, ...]
+    dtype: Any
+
+
+def tmap(fn, tree):
+    if isinstance(tree, TSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tmap(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tmap(fn, v) for v in tree)
+    raise TypeError(f"not a spec tree: {type(tree)}")
+
+
+def leaves(tree) -> List:
+    """The spec tree's leaves in the reference's pytree order (dict keys
+    sorted)."""
+    if isinstance(tree, TSpec):
+        return [tree]
+    items = ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+             else tree)
+    return [leaf for sub in items for leaf in leaves(sub)]
+
+
+def zeros(tree, device: Device = None):
+    """Tensors for a spec tree on ``device`` (default CUDA): zeros, and
+    position ids filled with -1 (unwritten)."""
+    dev = resolve_device(device)
+
+    def one(s: TSpec):
+        if s.dtype == torch.int32:
+            return torch.full(s.shape, -1, dtype=torch.int32, device=dev)
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    return tmap(one, tree)
+
+
+def _attn_spec(cfg: ArchConfig, B: int, smax: int, dtype) -> Dict:
+    KH, Dh = cfg.n_kv_heads, cfg.head_dim
+    return dict(k=TSpec((B, smax, KH, Dh), dtype),
+                v=TSpec((B, smax, KH, Dh), dtype),
+                pos_ids=TSpec((smax,), torch.int32))
+
+
+def block_cache_spec(cfg: ArchConfig, kind: str, B: int, max_len: int,
+                     dtype=torch.bfloat16) -> Dict:
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"cache of block kind {kind!r} {_TODO}")
+    window = block_window(cfg, kind)
+    smax = min(window, max_len) if window else max_len
+    return _attn_spec(cfg, B, smax, dtype)
+
+
+def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16) -> List:
+    """Spec tree for the full decode state, one entry per layer group."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"the cross-attention cache {_TODO}")
+    out = []
+    for grp in layer_plan(cfg):
+        unit = {f"b{j}": block_cache_spec(cfg, kind, batch_size, max_len,
+                                          dtype)
+                for j, kind in enumerate(grp.kinds)}
+        out.append(tmap(lambda s: TSpec((grp.repeats,) + s.shape, s.dtype),
+                        unit))
+    return out
+
+
+def cache_bytes(spec: List) -> int:
+    return sum(math.prod(s.shape) * torch.empty((), dtype=s.dtype)
+               .element_size() for s in leaves(spec))

@@ -179,7 +179,10 @@ def test_default_device_is_cuda():
 def test_import_purity():
     """Importing the port loads neither jax nor the JAX package."""
     code = ("import sys, repro_torch, repro_torch.api, "
-            "repro_torch.kernels.ops, repro_torch.core.embed\n"
+            "repro_torch.kernels.ops, repro_torch.core.embed, "
+            "repro_torch.configs, repro_torch.models.model, "
+            "repro_torch.models.costs, repro_torch.serve.engine, "
+            "repro_torch.serve.cache\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

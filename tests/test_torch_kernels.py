@@ -18,8 +18,8 @@ from repro.core import power as jp, solvers as js, topology as jtopo, \
     vsr as jvsr
 from repro.kernels import ops as jops, placement_power as jpp
 from repro_torch.core import power as tp, topology as ttopo, vsr as tvsr
-from repro_torch.kernels import ops as tops, placement_power as tpp, \
-    ref as tref
+from repro_torch.kernels import flash_attention as tfa, ops as tops, \
+    placement_power as tpp, ref as tref
 
 
 def _pair(n_vsrs, seed=0, n_vms=3, topo="paper"):
@@ -145,6 +145,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tpp.placement_power_cuda(X.reshape(2, -1).contiguous(),
                                  *tpp.pack_problem(tprob))
     assert tpp.LAUNCHES == before
+    q = torch.zeros(1, 3, 4, 16)
+    pos = torch.arange(3, dtype=torch.int32)
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, q, q, pos, pos)
+    assert tfa.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,208 @@
+"""Model-serving slice of the PyTorch port against the JAX package: the
+qwen3-4b smoke configuration with the JAX weights carried across
+(``params_from_numpy``), the KV-cache specs, parameter counts, and the
+architecture-to-VSR bridge.
+
+Tolerances: float32 logits and hidden states rtol 1e-4 / atol 1e-4 (the
+same arithmetic, summed in another order); greedy ids equal; bfloat16
+logits within 3e-2 of the largest logit (the reference's own bound for
+cached decode, tests/test_models.py); VSR arrays rtol 1e-6."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import vsr as jvsr
+from repro.models import costs as jcosts, model as JM
+from repro.serve import cache as JC, engine as jengine
+from repro_torch import configs as tconfigs
+from repro_torch.core import vsr as tvsr
+from repro_torch.models import costs as tcosts, model as TM
+from repro_torch.serve import cache as TC, engine as tengine
+
+DENSE = ("qwen3-4b", "h2o-danube-3-4b", "gemma2-27b", "command-r-plus-104b")
+B, S, GEN = 2, 16, 8
+# the reference's entry points, compiled (cfg and n_steps static)
+j_forward = jax.jit(JM.forward_hidden, static_argnums=1)
+j_prefill = jax.jit(jengine.prefill, static_argnums=1)
+j_decode = jax.jit(jengine.decode_step, static_argnums=1)
+j_generate = jax.jit(jengine.greedy_generate, static_argnums=(1, 4))
+
+
+def _with_norm_noise(tree, rng):
+    """The JAX tree as numpy, with random norm scales (the init's are zero,
+    which would hide a wrong ``1 + scale``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _with_norm_noise(v, rng)
+        elif "norm" in k or k in ("ln1", "ln2"):
+            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+def _pair(arch: str, dtype: str):
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), dtype=dtype)
+    tcfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype=dtype)
+    params, _ = JM.init_model(jcfg, jax.random.PRNGKey(1))
+    tree = _with_norm_noise(params, np.random.default_rng(2))
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    return jcfg, jparams, tcfg, TM.params_from_numpy(tcfg, tree, device="cpu")
+
+
+def _tokens(vocab: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)) \
+        .astype(np.int32)
+
+
+def _np(x) -> np.ndarray:
+    return x.float().numpy() if torch.is_tensor(x) else np.asarray(
+        jnp.asarray(x, jnp.float32))
+
+
+def _rel(got, want) -> float:
+    got, want = _np(got), _np(want)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+@pytest.fixture(scope="module")
+def f32_pair():
+    return _pair("qwen3-4b", "float32")
+
+
+def test_params_from_numpy_layout(f32_pair):
+    jcfg, jparams, tcfg, model = f32_pair
+    assert TM.param_count(model) == JM.param_count(jparams)
+    blk = model.groups[0][1]["b0"]
+    np.testing.assert_array_equal(blk["wq"].numpy(),
+                                  np.asarray(jparams["g0"]["b0"]["wq"][1]))
+    assert blk["q_norm"].dtype == torch.float32
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_forward_prefill_decode_match_f32(f32_pair):
+    jcfg, jparams, tcfg, model = f32_pair
+    toks = _tokens(jcfg.vocab)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    h_j = j_forward(jparams, jcfg, {"tokens": jtok})
+    h_t = TM.forward_hidden(model, tcfg, {"tokens": ttok})
+    np.testing.assert_allclose(_np(h_t), _np(h_j), rtol=1e-4, atol=1e-4)
+
+    max_len = S + GEN + 8
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, max_len, dtype=jnp.float32))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                      device="cpu")
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :-1]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :-1]},
+                                 tcache)
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-4, atol=1e-4)
+    dj, _ = j_decode(jparams, jcfg, jtok[:, -1:],
+                     jnp.asarray(S - 1, jnp.int32), jcache)
+    dt, _ = tengine.decode_step(model, tcfg, ttok[:, -1:], S - 1, tcache)
+    np.testing.assert_allclose(_np(dt), _np(dj), rtol=1e-4, atol=1e-4)
+    # cached decode of the last token == the uncached forward's last logits
+    ref = TM.logits_fn(model, tcfg, h_t[:, -1:])[:, 0]
+    np.testing.assert_allclose(_np(dt), _np(ref), rtol=1e-4, atol=1e-4)
+    pos = tcache[0]["b0"]["pos_ids"]
+    assert pos.dtype == torch.int32
+    assert torch.equal(pos[0, :S], torch.arange(S, dtype=torch.int32))
+    assert bool((pos[:, S:] == -1).all())
+
+
+def test_greedy_generate_ids_equal_f32(f32_pair):
+    jcfg, jparams, tcfg, model = f32_pair
+    toks = _tokens(jcfg.vocab, seed=5)
+    max_len = S + GEN + 8
+    jseq, _ = j_generate(
+        jparams, jcfg, {"tokens": jnp.asarray(toks)},
+        JC.zeros(JC.cache_spec(jcfg, B, max_len)), GEN)
+    tseq, _ = tengine.greedy_generate(
+        model, tcfg, {"tokens": torch.as_tensor(toks)},
+        TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                 device="cpu"), GEN)
+    assert tseq.dtype == torch.int32 and tseq.shape == (B, GEN)
+    np.testing.assert_array_equal(tseq.numpy(), np.asarray(jseq))
+
+
+def test_prefill_decode_bf16_within_reference_bound():
+    jcfg, jparams, tcfg, model = _pair("qwen3-4b", "bfloat16")
+    toks = _tokens(jcfg.vocab, seed=3)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, S + 8))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, S + 8), device="cpu")
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :-1]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :-1]},
+                                 tcache)
+    assert lt.dtype == torch.float32
+    assert _rel(lt, lj) < 3e-2
+    dj, _ = j_decode(jparams, jcfg, jtok[:, -1:],
+                     jnp.asarray(S - 1, jnp.int32), jcache)
+    dt, _ = tengine.decode_step(model, tcfg, ttok[:, -1:], S - 1, tcache)
+    assert _rel(dt, dj) < 3e-2
+
+
+@pytest.mark.parametrize("arch,smoke", [(a, s) for a in DENSE
+                                        for s in (True, False)])
+def test_cache_spec_matches_reference(arch, smoke):
+    get_j = jconfigs.get_smoke if smoke else jconfigs.get
+    get_t = tconfigs.get_smoke if smoke else tconfigs.get
+    jspec = JC.cache_spec(get_j(arch), 8, 1064)
+    tspec = TC.cache_spec(get_t(arch), 8, 1064)
+    jl = jax.tree_util.tree_leaves(jspec, is_leaf=lambda x: isinstance(
+        x, JC.TSpec))
+    tl = TC.leaves(tspec)
+    assert [s.shape for s in tl] == [s.shape for s in jl]
+    assert [str(s.dtype).replace("torch.", "") for s in tl] == \
+        [jnp.dtype(s.dtype).name for s in jl]
+    assert TC.cache_bytes(tspec) == JC.cache_bytes(jspec)
+
+
+def test_cache_zeros_fill():
+    cfg = tconfigs.get_smoke("qwen3-4b")
+    c = TC.zeros(TC.cache_spec(cfg, 2, 10), device="cpu")
+    assert c[0]["b0"]["k"].dtype == torch.bfloat16
+    assert bool((c[0]["b0"]["pos_ids"] == -1).all())
+    assert float(c[0]["b0"]["v"].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_count_on_meta_matches_reference(arch):
+    want = jcosts.param_breakdown(jconfigs.get(arch))
+    got = tcosts.param_breakdown(tconfigs.get(arch))
+    assert got == want
+    assert TM.param_count(TM.init_model(tconfigs.get(arch),
+                                        device="meta")) == want["total"]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_from_architecture_matches_reference(arch):
+    kw = dict(tokens_per_s=1234.5, n_stages=4, context=1536, source_node=3)
+    want = jvsr.from_architecture(jconfigs.get(arch), **kw)
+    got = tvsr.from_architecture(tconfigs.get(arch), **kw)
+    for f in ("F", "H", "src", "input_vm"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6)
+
+
+def test_unported_kinds_raise():
+    for arch in ("xlstm-1.3b", "olmoe-1b-7b", "deepseek-v2-236b",
+                 "hymba-1.5b", "whisper-base", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.init_model(tconfigs.get_smoke(arch), device="meta")
+
+
+def test_layer_plan_and_registry_match_reference():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in tconfigs.ARCH_IDS:
+        assert dataclasses.asdict(tconfigs.get(arch)) == \
+            dataclasses.asdict(jconfigs.get(arch))
+        assert dataclasses.asdict(tconfigs.get_smoke(arch)) == \
+            dataclasses.asdict(jconfigs.get_smoke(arch))
+        plan = lambda M, c: [(g.kinds, g.repeats) for g in M.layer_plan(c)]
+        assert plan(TM, tconfigs.get(arch)) == plan(JM, jconfigs.get(arch))
