@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Builds the port's three kernels from ``src/repro_torch/csrc`` with nvcc
-(one nvcc per source, in parallel), then
+Builds the port's kernels from ``src/repro_torch/csrc`` with nvcc (one
+nvcc per source, in parallel), then
 
   1. holds each placement kernel against its plain PyTorch version on the
      card at city_p468 (P=468, 1024 VSRs of 3 VMs) and times both, at the
@@ -10,17 +10,23 @@ Builds the port's three kernels from ``src/repro_torch/csrc`` with nvcc
   2. runs the paper's quickstart (paper topology, 10 VSRs, cfn-milp)
      through ``CFNSession`` on the card, with the CDC/AF/MF baselines;
   3. runs cfn-milp at "standard" effort on city_p468 with 1024 VSRs;
-  4. holds the flash-attention kernel against its plain version on the
-     reference's test shapes and at the serving path's prefill and decode
-     shapes, and times it beside SDPA (timed only, as a yardstick);
+  4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
+     SIMT) against its plain version and the reference's arithmetic on the
+     reference's test shapes, their decode steps and more wgmma shapes,
+     and at the serving path's prefill and decode shapes; times each new
+     kernel there in turns with the SIMT kernel, beside SDPA (timed only,
+     as a yardstick), and counts the wgmma kernel's tensor-core (HGMMA)
+     and TMA (UTMALDG) instructions in its SASS;
   5. serves qwen3-4b at full width and depth (random bf16 weights from a
      seed) for 8 requests of 1024 prompt tokens and 32 generated tokens,
-     checks cached decode against the forward pass, and places the served
-     model on the datacenter CFN.
+     checks that its 36 prefill attention calls went through the wgmma
+     kernel and its 1116 decode calls through the split-KV kernel, checks
+     cached decode against the forward pass, and places the served model
+     on the datacenter CFN.
 
 Each phase prints one JSON line; then the kernels line (launches on the
-main paths: the placement kernels' in phase 3, flash attention's in phase
-5; errors and times), the card's name and power limit, and last
+main paths: the placement kernels' in phase 3, the flash kernels' in
+phase 5; errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
 
@@ -96,22 +102,35 @@ def placement_power_bound(Xf, operands):
     return bound_ms(n_bytes, n_ops)
 
 
+def _attended(q_pos, kv_pos):
+    """[Sq, Skv] bool: the causal pairs some query attends (kv position
+    >= 0 and <= the query's)."""
+    rel = q_pos[:, None].long() - kv_pos[None, :].long()
+    return (kv_pos >= 0)[None, :] & (rel >= 0)
+
+
+def flash_attention_ops(q, k, v, q_pos, kv_pos) -> float:
+    """Operations of one causal flash-attention call on these inputs: the
+    two products, 2 * (D + Dv) per unmasked (query head, kv slot) pair."""
+    B, _, H, D = q.shape
+    pairs = int(_attended(q_pos, kv_pos).sum())
+    return 2.0 * (D + v.shape[-1]) * pairs * B * H
+
+
 def flash_attention_bound(q, k, v, q_pos, kv_pos):
     """Least time of one causal flash-attention call on these inputs: q
     and both position vectors read once, the K/V rows of the slots some
     query attends read once (an unwritten cache slot, position -1, never
     affects the output, so a kernel need not read it), the output written
-    once; against 2 * (D + Dv) operations per unmasked (query head, kv
-    slot) pair -- the two products -- at the bf16 dense tensor-core rate."""
+    once; against ``flash_attention_ops`` at the bf16 dense tensor-core
+    rate."""
     B, Sq, H, D = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
-    rel = q_pos[:, None].long() - kv_pos[None, :].long()
-    mask = (kv_pos >= 0)[None, :] & (rel >= 0)
-    pairs, slots = int(mask.sum()), int(mask.any(0).sum())
+    slots = int(_attended(q_pos, kv_pos).any(0).sum())
     n_bytes = (q.element_size() * (q.numel() + B * Sq * H * Dv
                                    + B * slots * KH * (D + Dv))
                + 4 * (q_pos.numel() + kv_pos.numel()))
-    return bound_ms(n_bytes, 2.0 * (D + Dv) * pairs * B * H,
+    return bound_ms(n_bytes, flash_attention_ops(q, k, v, q_pos, kv_pos),
                     BF16_FLOP_PER_S)
 
 
@@ -385,82 +404,192 @@ SERVE_B, SERVE_S, SERVE_GEN = 8, 1024, 32
 SERVE_SMAX = SERVE_S + SERVE_GEN + 8
 
 
-def sdpa_ms(q, k, v, q_pos, kv_pos, reps: int) -> float:
-    """Time of SDPA on the same inputs (GQA, boolean mask from the
-    positions): the library yardstick, timed here and used nowhere in the
-    port."""
+def graph_ms(fn, reps: int) -> float:
+    """Milliseconds of one ``fn`` as a CUDA graph replays it: the device
+    time of its launches without the host's cost of issuing them (a
+    decode-sized call is shorter than that cost)."""
     import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sdpa_call(q, k, v, q_pos, kv_pos):
+    """SDPA on the same inputs (GQA, boolean mask from the positions): the
+    library yardstick, timed here and used nowhere in the port."""
     import torch.nn.functional as F
     mask = (kv_pos[None, :] >= 0) & (q_pos[:, None] >= kv_pos[None, :])
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def sass_counts(name: str) -> dict:
+    """Instructions of the built library of csrc/<name>.cu, from
+    ``cuobjdump -sass``: tensor-core products (HGMMA) and TMA loads
+    (UTMALDG)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._library_path(
+        name))], capture_output=True, text=True, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA.", "UTMALDG")}
+
+
+# wgmma kernel shapes beside the reference's (which are float32, or bf16 at
+# D = 32): B, H, KH, Sq, Skv, D, causal, window, cap -- bf16
+WGMMA_CASES = [
+    (1, 8, 8, 128, 256, 64, True, None, 50.0),    # G 1, softcap
+    (2, 8, 4, 200, 200, 64, True, 64, 30.0),      # window and softcap
+    (2, 10, 2, 33, 65, 64, True, 16, None),       # G 5 (hymba), ragged
+    (1, 8, 2, 100, 80, 128, False, None, None),   # non-causal
+    (1, 256, 1, 2, 70, 64, True, None, None),     # G > 128
+]
 
 
 def phase_flash(kernels: dict) -> None:
-    """Phase 4: the flash-attention kernel against its plain version."""
+    """Phase 4: each flash-attention kernel against its plain version and
+    the reference's ``attend`` arithmetic; the serving shapes timed in
+    turns beside the SIMT kernel and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     rnd = lambda shape, dt: torch.randn(shape, generator=gen, device=dev,
                                         dtype=torch.float32).to(dt)
-    out = {"cases": []}
+    plains = {"wgmma": fa.tensor_core_attention_plain,
+              "split_kv": fa.split_kv_attention_plain,
+              "simt": fa.attention_plain}
+    errs = {name: [] for name in fa.KERNELS}
+
+    def held(q, k, v, qp, kp, tol, kernel=None, **kw):
+        """Launch (``kernel`` or the dispatch's choice) and hold the result
+        against the kernel's plain version and ``attention_plain``."""
+        name = kernel or fa.choose_kernel(
+            q.dtype, q.shape[-1], v.shape[-1],
+            q.shape[1] * q.shape[2] // k.shape[2])
+        got = fa.flash_attention_cuda(q, k, v, qp, kp, kernel=kernel,
+                                      **kw).float()
+        rec = {"kernel": name}
+        for tag, plain in (("vs_plain", plains[name]),
+                           ("vs_attention_plain", fa.attention_plain)):
+            want = plain(q, k, v, q_positions=qp, kv_positions=kp, **kw)
+            rec[tag] = float((got - want.to(q.dtype).float()).abs().max())
+            check(rec[tag] <= tol, f"flash {name} {tuple(q.shape)}/"
+                                   f"{tuple(k.shape)} {tag}: {rec[tag]}")
+        errs[name].append(max(rec["vs_plain"], rec["vs_attention_plain"]))
+        return rec
+
+    out = {"cases": [], "wgmma_cases": [], "split_kv_cases": []}
     for B, H, KH, Sq, Skv, D, causal, window, cap, dtype in FLASH_CASES:
         dt = getattr(torch, dtype)
-        q, k, v = (rnd(s, dt) for s in ((B, Sq, H, D), (B, Skv, KH, D),
-                                         (B, Skv, KH, D)))
-        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)
+        tol = 2e-2 if dtype == "bfloat16" else 2e-3
+        k, v = rnd((B, Skv, KH, D), dt), rnd((B, Skv, KH, D), dt)
         kp = torch.arange(Skv, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, window=window, logit_cap=cap)
-        got = fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
-        want = fa.attention_plain(q, k, v, q_positions=qp, kv_positions=kp,
-                                  **kw).to(dt)
-        err = float((got.float() - want.float()).abs().max())
-        tol = 2e-2 if dtype == "bfloat16" else 2e-3
-        check(err <= tol, f"flash case {(B, H, KH, Sq, Skv, D)}: {err}")
-        out["cases"].append({"shape": [B, H, KH, Sq, Skv, D],
-                             "dtype": dtype, "max_abs_err": err})
-    # q before every kv position: fully masked rows give 0, not NaN
-    q, k, v = (rnd(s, torch.float32) for s in ((1, 16, 2, 16),
-                                               (1, 32, 2, 16),
-                                               (1, 32, 2, 16)))
-    got = fa.flash_attention_cuda(
-        q, k, v, torch.arange(-64, -48, dtype=torch.int32, device=dev),
-        torch.arange(32, dtype=torch.int32, device=dev))
-    check(bool(torch.isfinite(got).all()) and float(got.abs().max()) == 0.0,
-          "flash: fully masked rows are not 0")
-    out["fully_masked_max_abs"] = float(got.abs().max())
+        # as the reference's test runs it, through the dispatch
+        q = rnd((B, Sq, H, D), dt)
+        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)
+        out["cases"].append({"shape": [B, H, KH, Sq, Skv, D], "dtype": dtype,
+                             **held(q, k, v, qp, kp, tol, **kw)})
+        # its decode step (the last position alone): the split-KV kernel
+        q = rnd((B, 1, H, D), dt)
+        qp = torch.tensor([Skv - 1], dtype=torch.int32, device=dev)
+        out["split_kv_cases"].append(
+            {"shape": [B, H, KH, 1, Skv, D], "dtype": dtype,
+             **held(q, k, v, qp, kp, tol, kernel="split_kv", **kw)})
+    for B, H, KH, Sq, Skv, D, causal, window, cap in WGMMA_CASES:
+        bf = torch.bfloat16
+        q, k, v = (rnd(s, bf) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                        (B, Skv, KH, D)))
+        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)
+        kp = torch.arange(Skv, dtype=torch.int32, device=dev)
+        out["wgmma_cases"].append(
+            {"shape": [B, H, KH, Sq, Skv, D], "dtype": "bfloat16",
+             **held(q, k, v, qp, kp, 2e-2, kernel="wgmma", causal=causal,
+                    window=window, logit_cap=cap)})
+    # q before every kv position: fully masked rows give 0, not NaN, in
+    # every kernel
+    out["fully_masked_max_abs"] = {}
+    for name, dt, Sq in (("simt", torch.float32, 16),
+                         ("wgmma", torch.bfloat16, 16),
+                         ("split_kv", torch.float32, 2)):
+        D = 16 if name == "simt" else 64
+        q, k, v = (rnd(s, dt) for s in ((1, Sq, 2, D), (1, 200, 2, D),
+                                        (1, 200, 2, D)))
+        got = fa.flash_attention_cuda(
+            q, k, v, torch.arange(-64, -64 + Sq, dtype=torch.int32,
+                                  device=dev),
+            torch.arange(200, dtype=torch.int32, device=dev), kernel=name)
+        check(bool(torch.isfinite(got).all())
+              and float(got.abs().max()) == 0.0,
+              f"flash {name}: fully masked rows are not 0")
+        out["fully_masked_max_abs"][name] = float(got.abs().max())
 
     # the serving path's shapes, positions as the ring-buffer cache holds
-    # them: prefill writes slots 0-1023, decode then writes slot 1024
+    # them: prefill writes slots 0-1023, decode then writes slot 1024.  Each
+    # new kernel is timed in turns with the SIMT kernel on the same inputs
+    # (SIMT, new, new, SIMT); "ms" are CUDA events around one call (the
+    # host's issue cost included), "graph_ms" CUDA-graph replays (device
+    # time alone)
     B, H, KH, D, S, Smax = SERVE_B, 32, 8, 128, SERVE_S, SERVE_SMAX
     bf = torch.bfloat16
     k, v = rnd((B, Smax, KH, D), bf), rnd((B, Smax, KH, D), bf)
-    for name, Sq, written in (("prefill", S, S), ("decode", 1, S + 1)):
+    for name, Sq, written, kernel in (("prefill", S, S, "wgmma"),
+                                      ("decode", 1, S + 1, "split_kv")):
         q = rnd((B, Sq, H, D), bf)
         qp = torch.arange(written - Sq, written, dtype=torch.int32,
                           device=dev)
         kp = torch.full((Smax,), -1, dtype=torch.int32, device=dev)
         kp[:written] = torch.arange(written, dtype=torch.int32, device=dev)
-        got = fa.flash_attention_cuda(q, k, v, qp, kp)
-        want = fa.attention_plain(q, k, v, q_positions=qp,
-                                  kv_positions=kp).to(bf)
-        err = float((got.float() - want.float()).abs().max())
+        check(fa.choose_kernel(bf, D, D, Sq * H // KH) == kernel,
+              f"flash {name}: the dispatch does not choose {kernel}")
         # prefill: bf16 rounding of the early rows' large values sets the
         # limit; decode outputs average 1025 slots (|out| ~ 0.05), so a
         # limit of 2e-2 there would pass a kernel that dropped a slot
         tol = 2e-2 if name == "prefill" else 2e-3
-        check(err <= tol, f"flash {name}: {err} above {tol}")
+        rec = {"shape": [B, H, KH, Sq, Smax, D], "kernel": kernel,
+               kernel: held(q, k, v, qp, kp, tol),
+               "simt": held(q, k, v, qp, kp, tol, kernel="simt")}
         reps = 20 if name == "prefill" else 200
-        rec = {"shape": [B, H, KH, Sq, Smax, D], "max_abs_err": err,
-               "ms": cuda_ms(lambda: fa.flash_attention_cuda(
-                   q, k, v, qp, kp), reps),
-               "plain_ms": cuda_ms(lambda: fa.attention_plain(
-                   q, k, v, q_positions=qp, kv_positions=kp), 5),
-               "library_ms": sdpa_ms(q, k, v, qp, kp, reps)}
+        call = {kn: (lambda kn=kn: fa.flash_attention_cuda(
+                    q, k, v, qp, kp, kernel=kn)) for kn in (kernel, "simt")}
+        times = {kn: {"ms": [], "graph_ms": []} for kn in call}
+        for kn in ("simt", kernel, kernel, "simt"):
+            times[kn]["ms"].append(cuda_ms(call[kn], reps))
+            times[kn]["graph_ms"].append(graph_ms(call[kn], reps))
+        for kn in call:
+            rec[kn].update(times[kn])
+        sdpa = sdpa_call(q, k, v, qp, kp)
+        rec["library_ms"] = cuda_ms(sdpa, reps)
+        rec["library_graph_ms"] = graph_ms(sdpa, reps)
+        rec["plain_ms"] = cuda_ms(lambda: plains[kernel](
+            q, k, v, q_positions=qp, kv_positions=kp), 5)
+        rec["simt_plain_ms"] = cuda_ms(lambda: fa.attention_plain(
+            q, k, v, q_positions=qp, kv_positions=kp), 5)
         rec["bound_ms"], rec["bound_by"] = flash_attention_bound(
             q, k, v, qp, kp)
+        n_ops = flash_attention_ops(q, k, v, qp, kp)
+        for kn in call:
+            best = min(rec[kn]["graph_ms"])
+            rec[kn]["tflop_per_s"] = n_ops / (best * 1e-3) / 1e12
+            check(max(rec[kn]["graph_ms"]) > 0, f"flash {name}: no time")
+        check(max(rec[kernel]["graph_ms"]) < min(rec["simt"]["graph_ms"]),
+              f"flash {name}: {kernel} not faster than the SIMT kernel")
         out[name] = rec
 
     # planted, at the decode shape of the loop's last pass: the slot decode
@@ -481,17 +610,20 @@ def phase_flash(kernels: dict) -> None:
           f"flash decode, planted slot {S}: err {err}, gap without it {gap}")
     out["decode"]["planted_slot"] = {"max_abs_err": err,
                                      "max_abs_gap_without_slot": gap}
-    pre = out["prefill"]
-    kernels["flash_attention"].update(
-        max_abs_err=max([c["max_abs_err"] for c in out["cases"]]
-                        + [pre["max_abs_err"], out["decode"]["max_abs_err"]]),
-        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
-        bound_by=pre["bound_by"], library_ms=pre["library_ms"],
-        shape="prefill [B, H, KH, Sq, Skv, D] = "
-              f"{pre['shape']}, bf16",
-        decode={k_: out["decode"][k_] for k_ in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+    out["sass_flash_attention_wgmma"] = sass_counts("flash_attention_wgmma")
+    check(all(out["sass_flash_attention_wgmma"].values()),
+          f"flash wgmma: SASS {out['sass_flash_attention_wgmma']}")
+    for name, shape, kn in (("prefill", "prefill", "wgmma"),
+                            ("decode", "decode", "split_kv"),
+                            ("prefill", "prefill", "simt")):
+        rec = out[name]
+        kernels[f"flash_attention_{kn}"].update(
+            max_abs_err=max(errs[kn]), ms=min(rec[kn]["graph_ms"]),
+            event_ms=min(rec[kn]["ms"]),
+            plain_ms=rec["simt_plain_ms" if kn == "simt" else "plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_graph_ms"],
+            shape=f"{shape} [B, H, KH, Sq, Skv, D] = {rec['shape']}, bf16")
     emit("flash_attention_vs_plain", **out)
 
 
@@ -499,8 +631,9 @@ def serve_profile(model, cfg, tokens, cache) -> dict:
     """Device activity of one prefill and one decode step of the serving
     path (under the profiler, whose own host cost is in the wall time):
     wall ms, CUDA kernels, the share of the wall time the device was busy
-    (summed kernel time; one stream), the flash kernel's share of the
-    device time, and the five kernels that took most device time."""
+    (summed kernel time; one stream), the flash kernels' share of the
+    device time (every kernel named flash_attention*: wgmma, split and
+    combine, SIMT), and the five kernels that took most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine
@@ -525,7 +658,7 @@ def serve_profile(model, cfg, tokens, cache) -> dict:
                     e.time_range.elapsed_us() * 1e-3)
         busy_ms = sum(sum(v) for v in by_name.values())
         flash_ms = sum(sum(v) for k, v in by_name.items()
-                       if "flash_attention_kernel" in k)
+                       if "flash_attention" in k)
         top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
         out[name] = {
             "wall_ms": wall_s * 1e3,
@@ -537,7 +670,7 @@ def serve_profile(model, cfg, tokens, cache) -> dict:
     return out
 
 
-def phase_serve() -> int:
+def phase_serve() -> dict:
     """Phase 5: serve qwen3-4b at full width and depth, then place it."""
     import torch
     from repro_torch import configs
@@ -574,12 +707,18 @@ def phase_serve() -> int:
         total_s = time.perf_counter() - t0
         if cold:
             cold_s, cold_seq = total_s, seq
-    launches = fa.LAUNCHES["flash_attention"]
+    launches = {kn: fa.LAUNCHES[f"flash_attention_{kn}"]
+                for kn in fa.KERNELS}
+    calls = fa.LAUNCHES["flash_attention"]
     check(bool(torch.equal(cold_seq, seq)),
           "serve: two greedy_generate calls chose different ids")
-    want = cfg.n_layers * GEN
-    check(launches == want, f"serve: {launches} flash-attention launches, "
-                            f"want {want}")
+    # every layer's prefill through the wgmma kernel, every decode step's
+    # through the split-KV kernel, none through the SIMT kernel
+    want = {"wgmma": cfg.n_layers, "split_kv": cfg.n_layers * (GEN - 1),
+            "simt": 0}
+    check(launches == want and calls == cfg.n_layers * GEN,
+          f"serve: flash-attention launches {launches} of {calls} calls, "
+          f"want {want}")
     check(tuple(seq.shape) == (B, GEN), f"serve: ids {tuple(seq.shape)}")
     peak = torch.cuda.max_memory_allocated()
 
@@ -641,7 +780,8 @@ def phase_serve() -> int:
          decode_ms_median=1e3 * statistics.median(times["decode_step"]),
          cold_total_s=cold_s, total_s=total_s, tokens_per_s=tok_s,
          max_memory_allocated=peak, first_row_ids=seq[0].tolist(),
-         flash_launches=launches, decode_vs_forward_rel=rel,
+         flash_launches=calls,
+         flash_launches_by_kernel=launches, decode_vs_forward_rel=rel,
          profile=profile,
          vsr_F=vsrs.F[0].tolist(), placement_power_w=result.power,
          placement_feasible=result.feasible, placement_method=result.method,
@@ -672,7 +812,8 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     build_s = _build.build_all()
     emit("build", seconds=build_s, ptxas={
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        name: [ln.strip()[:160] for ln in log.splitlines()
+               if "registers" in ln or "Performance Loss" in ln]
         for name, log in _build.BUILD_LOG.items()})
 
     kernels = {
@@ -684,10 +825,13 @@ def main() -> int:
             "name": "fused_anneal", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_anneal.cu",
             "replaces": "src/repro/kernels/placement_power.py:377"},
-        "flash_attention": {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:81"},
+        **{f"flash_attention_{kn}": {
+            "name": f"flash_attention_{kn}", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81"}
+           for kn, src in (("wgmma", "flash_attention_wgmma"),
+                           ("split_kv", "flash_attention_decode"),
+                           ("simt", "flash_attention"))},
     }
     phase_kernels(kernels)
     phase_paper()
@@ -697,7 +841,8 @@ def main() -> int:
         # no single PyTorch call computes either placement function
         kernels[name]["library_ms"] = None
     phase_flash(kernels)
-    kernels["flash_attention"]["launches"] = phase_serve()
+    for kn, n in phase_serve().items():
+        kernels[f"flash_attention_{kn}"]["launches"] = n
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,40 @@
-"""Attention kernel of the model path: the CUDA kernel's launch wrapper and
-its plain PyTorch versions.
+"""Attention kernels of the model path: the CUDA kernels' launch wrapper and
+their plain PyTorch versions.
 
-  * ``flash_attention_cuda`` (``csrc/flash_attention.cu``) -- online-softmax
-    attention with GQA folding, causal masking by positions, a sliding
-    window and a tanh logit cap; float32 accumulation over float32 or
-    bfloat16 inputs.  Replaces ``flash_attention_tpu``
-    (src/repro/kernels/flash_attention.py:81), and serves every attention
-    call of the port's model (prefill and decode against the cache).
+  * ``flash_attention_cuda`` -- online-softmax attention with GQA folding,
+    causal masking by positions, a sliding window and a tanh logit cap;
+    float32 accumulation over float32 or bfloat16 inputs.  Replaces
+    ``flash_attention_tpu`` (src/repro/kernels/flash_attention.py:81) and
+    serves every attention call of the port's model.  It launches one of
+    three kernels, chosen by ``choose_kernel`` from (dtype, D, Dv, Sq * G):
+      - ``split_kv`` (``csrc/flash_attention_decode.cu``): at most
+        ``SPLIT_KV_MAX_ROWS`` rows per (batch, kv head) -- decode against
+        the cache; the kv axis split into 64-slot chunks across blocks,
+        then a combine pass;
+      - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with
+        D == Dv in {64, 128} -- prefill on the tensor cores, K/V through a
+        TMA ring;
+      - ``simt`` (``csrc/flash_attention.cu``): everything else (float32
+        prefill, head dims such as 16, 24, 48 or 256), on the CUDA cores.
   * ``flash_attention`` (chunked online softmax) and ``direct_attention``
     (one pass over all slots, for short q) -- the plain versions, line for
     line the reference's ``models/layers.py`` functions; ``attention_plain``
     chooses between them as the reference's ``attend`` does.
+  * ``tensor_core_attention_plain`` and ``split_kv_attention_plain`` -- the
+    plain versions of the wgmma and split-KV kernels' own arithmetic (P
+    rounded to the input dtype before P . V; per-chunk partials and their
+    log-sum-exp combine).
 
 Layout ``[B, S, heads, D]``; query head h reads kv head ``h // G``.  The
 positions decide the mask: a kv slot with a negative position is masked
 (padding, or an unwritten ring-buffer cache slot), and with ``causal`` a
 pair needs ``0 <= q_pos - kv_pos < window``.  A row with no unmasked slot
 gives 0.  The wrapper launches the kernel for CUDA tensors and raises on
-what the kernel does not take; ``models.layers.attend`` and
+what the kernels do not take; ``models.layers.attend`` and
 ``kernels.ops.flash_attention`` pick the plain version only for tensors on
-the CPU.  ``LAUNCHES`` counts kernel launches.
+the CPU.  ``LAUNCHES["flash_attention"]`` counts wrapper calls that
+launched a kernel, ``LAUNCHES["flash_attention_<kernel>"]`` each kernel's
+share of them.
 """
 from __future__ import annotations
 
@@ -31,8 +46,23 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+KERNELS = ("wgmma", "split_kv", "simt")
+# kernel launches since the last reset: all, and per kernel
+LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                            **{f"flash_attention_{n}": 0 for n in KERNELS}}
+# the split-KV kernel takes calls of at most this many rows (Sq * G) per
+# (batch, kv head) (csrc/flash_attention_decode.cu: kMaxRows)
+SPLIT_KV_MAX_ROWS = 16
+# kv slots per chunk of the split-KV kernel (csrc/flash_attention_decode.cu:
+# kChunk); a split is a few chunks, sized for about SPLIT_KV_TARGET_BLOCKS
+# blocks, at most SPLIT_KV_MAX_CHUNKS chunks
+SPLIT_KV_CHUNK = 64
+SPLIT_KV_TARGET_BLOCKS = 512
+SPLIT_KV_MAX_CHUNKS = 16
+# kv slots per tile of the wgmma kernel (csrc/flash_attention_wgmma.cu:
+# kSlots) and the head dims it takes
+WGMMA_KV_TILE = 64
+WGMMA_HEAD_DIMS = (64, 128)
 # Q sequence lengths up to this use the direct (unchunked) plain path
 DECODE_DIRECT_MAX_Q = 8
 # kv chunk of the chunked plain path when ``attention_plain`` dispatches to
@@ -70,23 +100,18 @@ def _mask(q_positions, kv_positions, causal: bool, window: Optional[int]):
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
-                    window: Optional[int] = None,
-                    logit_cap: Optional[float] = None,
-                    kv_chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention over kv chunks (the reference's
-    ``layers.flash_attention``): q [B, Sq, H, D], k/v [B, Skv, KH, D(v)]
-    -> [B, Sq, H, Dv] float32.  q is scaled in its own dtype, then cast."""
-    B, Sq, H, D = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    G = H // KH
-    scale = 1.0 / math.sqrt(D)
-    qg = (q * scale).reshape(B, Sq, KH, G, D).float()
-    neg_inf = torch.tensor(-math.inf, device=q.device)
-    m = torch.full((B, Sq, KH, G), -math.inf, device=q.device)
-    l = torch.zeros((B, Sq, KH, G), device=q.device)
-    acc = torch.zeros((B, Sq, KH, G, Dv), device=q.device)
+def _online_softmax(qg, k, v, q_positions, kv_positions, causal, window,
+                    logit_cap, kv_chunk: int, p_dtype) -> torch.Tensor:
+    """Online softmax over kv chunks: qg [B, Sq, KH, G, D] float32, already
+    scaled -> [B, Sq, KH, G, Dv] float32.  P is rounded to ``p_dtype``
+    before P . V; the row sums take it unrounded."""
+    B, Sq, KH, G, _ = qg.shape
+    Skv, Dv = k.shape[1], v.shape[-1]
+    dev = qg.device
+    neg_inf = torch.tensor(-math.inf, device=dev)
+    m = torch.full((B, Sq, KH, G), -math.inf, device=dev)
+    l = torch.zeros((B, Sq, KH, G), device=dev)
+    acc = torch.zeros((B, Sq, KH, G, Dv), device=dev)
     for c0 in range(0, Skv, kv_chunk):
         kj = k[:, c0:c0 + kv_chunk].float()
         vj = v[:, c0:c0 + kv_chunk].float()
@@ -100,10 +125,24 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
         corr = torch.exp(torch.where(torch.isneginf(m), 0.0, m) - m_safe)
         corr = torch.where(torch.isneginf(m), 0.0, corr)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bqhgc,bchv->bqhgv", p,
-                                                   vj)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhgc,bchv->bqhgv", p.to(p_dtype).float(), vj)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-20)[..., None]
+    return acc / torch.clamp_min(l, 1e-20)[..., None]
+
+
+def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
+                    window: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over kv chunks (the reference's
+    ``layers.flash_attention``): q [B, Sq, H, D], k/v [B, Skv, KH, D(v)]
+    -> [B, Sq, H, Dv] float32.  q is scaled in its own dtype, then cast."""
+    B, Sq, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Sq, KH, H // KH, D).float()
+    out = _online_softmax(qg, k, v, q_positions, kv_positions, causal,
+                          window, logit_cap, kv_chunk, torch.float32)
     return out.reshape(B, Sq, H, Dv)
 
 
@@ -142,6 +181,98 @@ def attention_plain(q, k, v, *, q_positions, kv_positions, causal=True,
     return flash_attention(q, k, v, kv_chunk=PLAIN_KV_CHUNK, **kw)
 
 
+def tensor_core_attention_plain(q, k, v, *, q_positions, kv_positions,
+                                causal=True, window: Optional[int] = None,
+                                logit_cap: Optional[float] = None
+                                ) -> torch.Tensor:
+    """The wgmma kernel's arithmetic (``csrc/flash_attention_wgmma.cu``):
+    online softmax over ``WGMMA_KV_TILE``-slot tiles, q cast to float32
+    and scaled, P rounded to q's dtype (bfloat16 on the kernel's path)
+    before P . V, the row sums of the unrounded P.  -> float32."""
+    B, Sq, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    qg = (q.float() / math.sqrt(D)).reshape(B, Sq, KH, H // KH, D)
+    out = _online_softmax(qg, k, v, q_positions, kv_positions, causal,
+                          window, logit_cap, WGMMA_KV_TILE, q.dtype)
+    return out.reshape(B, Sq, H, Dv)
+
+
+def split_kv_chunks_per_split(B: int, KH: int, Skv: int) -> int:
+    """Chunks of ``SPLIT_KV_CHUNK`` slots in one split of the split-KV
+    kernel: enough splits for about ``SPLIT_KV_TARGET_BLOCKS`` blocks of
+    (split, kv head, batch), at most one per chunk, at most
+    ``SPLIT_KV_MAX_CHUNKS`` chunks each."""
+    chunks = max(1, -(-Skv // SPLIT_KV_CHUNK))
+    splits = min(chunks, -(-SPLIT_KV_TARGET_BLOCKS // (B * KH)))
+    return min(-(-chunks // splits), SPLIT_KV_MAX_CHUNKS)
+
+
+def split_kv_attention_plain(q, k, v, *, q_positions, kv_positions,
+                             causal=True, window: Optional[int] = None,
+                             logit_cap: Optional[float] = None
+                             ) -> torch.Tensor:
+    """The split-KV kernel's arithmetic (``csrc/flash_attention_decode.cu``):
+    per split (``split_kv_chunks_per_split`` chunks of ``SPLIT_KV_CHUNK``
+    slots) the partials (m, l, acc) of each row (m = -inf, l = 0 where the
+    split has no unmasked slot), then out = sum_s e^(m_s - M) acc_s /
+    sum_s e^(m_s - M) l_s, 0 for a row with no unmasked slot at all.
+    -> float32."""
+    B, Sq, H, D = q.shape
+    Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KH
+    if Skv == 0:
+        return torch.zeros((B, Sq, H, Dv), device=q.device)
+    qg = (q.float() / math.sqrt(D)).reshape(B, Sq, KH, G, D)
+    neg_inf = torch.tensor(-math.inf, device=q.device)
+    ms, ls, accs = [], [], []
+    width = SPLIT_KV_CHUNK * split_kv_chunks_per_split(B, KH, Skv)
+    for c0 in range(0, Skv, width):
+        kj = k[:, c0:c0 + width].float()
+        vj = v[:, c0:c0 + width].float()
+        pj = kv_positions[c0:c0 + width]
+        s = softcap(torch.einsum("bqhgd,bchd->bqhgc", qg, kj), logit_cap)
+        mask = _mask(q_positions, pj, causal, window)
+        s = torch.where(mask, s, neg_inf)
+        m = s.amax(-1)
+        m_safe = torch.where(torch.isneginf(m), 0.0, m)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bqhgc,bchv->bqhgv", p, vj))
+    m = torch.stack(ms)
+    M = m.amax(0)
+    w = torch.exp(m - torch.where(torch.isneginf(M), 0.0, M))
+    L = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    out = acc / torch.clamp_min(L, 1e-20)[..., None]
+    return out.reshape(B, Sq, H, Dv)
+
+
+def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
+    """Whether ``kernel`` takes a call of these inputs (rows = Sq * G per
+    (batch, kv head)); D, Dv <= MAX_HEAD_DIM is checked before."""
+    if kernel == "split_kv":
+        return (rows <= SPLIT_KV_MAX_ROWS and (D * dtype.itemsize) % 16 == 0
+                and (Dv * dtype.itemsize) % 16 == 0)
+    if kernel == "wgmma":
+        return dtype == torch.bfloat16 and D == Dv and D in WGMMA_HEAD_DIMS
+    if kernel == "simt":
+        return True
+    raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+
+
+def choose_kernel(dtype, D: int, Dv: int, rows: int) -> str:
+    """The kernel ``flash_attention_cuda`` launches: ``split_kv`` for at
+    most ``SPLIT_KV_MAX_ROWS`` rows per (batch, kv head) with 16-byte K/V
+    rows, else ``wgmma`` for bfloat16 at D == Dv in {64, 128}, else
+    ``simt``."""
+    if _takes("split_kv", dtype, D, Dv, rows):
+        return "split_kv"
+    if _takes("wgmma", dtype, D, Dv, rows):
+        return "wgmma"
+    return "simt"
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch wrapper
 # ---------------------------------------------------------------------------
@@ -162,11 +293,13 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
 
 def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                          causal: bool = True, window: Optional[int] = None,
-                         logit_cap: Optional[float] = None) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu``: q [B, Sq, H, D], k [B, Skv, KH,
-    D], v [B, Skv, KH, Dv] (float32 or bfloat16, one dtype), q_positions
-    [Sq] and kv_positions [Skv] int32 -> [B, Sq, H, Dv] in q's dtype.
-    D, Dv <= 256."""
+                         logit_cap: Optional[float] = None,
+                         kernel: Optional[str] = None) -> torch.Tensor:
+    """Launch a flash-attention kernel: q [B, Sq, H, D], k [B, Skv, KH, D],
+    v [B, Skv, KH, Dv] (float32 or bfloat16, one dtype), q_positions [Sq]
+    and kv_positions [Skv] int32 -> [B, Sq, H, Dv] in q's dtype.  D, Dv <=
+    256.  ``kernel`` (one of ``KERNELS``) overrides ``choose_kernel``, and
+    raises if that kernel does not take the inputs."""
     dev = q.device
     if q.dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -192,18 +325,42 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
         raise ValueError(f"window must be positive, got {window}")
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be positive, got {logit_cap}")
+    rows = Sq * (H // KH)
+    name = kernel or choose_kernel(q.dtype, D, Dv, rows)
+    if not _takes(name, q.dtype, D, Dv, rows):
+        raise ValueError(f"the {name} kernel does not take {q.dtype} at "
+                         f"D {D}, Dv {Dv}, {rows} rows per kv head")
+    if name != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"the {name} kernel needs 16-byte aligned q, k, v")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.library("flash_attention")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     p = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = lib.flash_attention_launch(
-        p(q), p(k), p(v), p(q_positions), p(kv_positions), p(out), B, Sq,
-        Skv, H, KH, D, Dv, int(causal), 0 if window is None else int(window),
-        _DTYPES[q.dtype], 0.0 if logit_cap is None else float(logit_cap),
-        ctypes.c_void_p(stream))
+    ptrs = (p(q), p(k), p(v), p(q_positions), p(kv_positions), p(out))
+    win = 0 if window is None else int(window)
+    cap = 0.0 if logit_cap is None else float(logit_cap)
+    if name == "wgmma":
+        err = _build.library("flash_attention_wgmma") \
+            .flash_attention_wgmma_launch(*ptrs, B, Sq, Skv, H, KH, D,
+                                          int(causal), win, cap, stream)
+    elif name == "split_kv":
+        cps = split_kv_chunks_per_split(B, KH, Skv)
+        splits = -(-Skv // (SPLIT_KV_CHUNK * cps))
+        ml = torch.empty((B, KH, splits, rows, 2), device=dev)
+        acc = torch.empty((B, KH, splits, rows, Dv), device=dev)
+        err = _build.library("flash_attention_decode") \
+            .flash_attention_decode_launch(*ptrs, p(ml), p(acc), B, Sq, Skv,
+                                           H, KH, D, Dv, int(causal), win,
+                                           _DTYPES[q.dtype], cps, cap,
+                                           stream)
+    else:
+        err = _build.library("flash_attention").flash_attention_launch(
+            *ptrs, B, Sq, Skv, H, KH, D, Dv, int(causal), win,
+            _DTYPES[q.dtype], cap, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash attention ({name}) launch failed: error "
+                           f"{err}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{name}"] += 1
     return out

@@ -1,8 +1,8 @@
-"""Attention kernel of the PyTorch port: its plain PyTorch versions against
-the JAX package (the Pallas kernel in interpret mode, as
+"""Attention kernels of the PyTorch port: their plain PyTorch versions
+against the JAX package (the Pallas kernel in interpret mode, as
 tests/test_kernels.py runs it, its jnp oracle, and the model stack's
-``attend``), and -- on a Hopper card only -- the CUDA kernel against its
-plain version.
+``attend``), the rule that picks a kernel, and -- on a Hopper card only --
+each CUDA kernel (SIMT, wgmma, split-KV) against its plain version.
 
 Tolerances: atol 2e-3 in float32 and 2e-2 in bfloat16 against the kernel
 and its oracle (tests/test_kernels.py: the Pallas kernel casts q before
@@ -199,3 +199,218 @@ def test_flash_kernel_vs_plain_on_ring_buffer(hopper, B, H, KH, Sq, D, Dv,
     want = tfa.attention_plain(q, k, v, **kw)
     assert got.shape == (B, Sq, H, Dv)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The plain versions of the wgmma and split-KV kernels against the JAX
+# package; the dispatch rule; on the card, each kernel against its plain
+# version
+# ---------------------------------------------------------------------------
+
+NEW_PLAINS = {"tensor_core": tfa.tensor_core_attention_plain,
+              "split_kv": tfa.split_kv_attention_plain}
+
+
+def _port_layout(case, seed=0):
+    """A reference case as the port's [B, S, heads, D] tensors and
+    positions (query i at position Skv - Sq + i, slot j at j)."""
+    B, H, KH, Sq, Skv, D, causal, window, cap, dtype = case
+    q, k, v = (torch.as_tensor(a).transpose(1, 2).contiguous()
+               .to(getattr(torch, dtype))
+               for a in _qkv(B, H, KH, Sq, Skv, D, seed))
+    qpos = torch.arange(Skv - Sq, Skv, dtype=torch.int32)
+    kpos = torch.arange(Skv, dtype=torch.int32)
+    return q, k, v, dict(q_positions=qpos, kv_positions=kpos, causal=causal,
+                         window=window, logit_cap=cap)
+
+
+@pytest.mark.parametrize("plain", sorted(NEW_PLAINS))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=IDS)
+def test_kernel_plains_vs_pallas_and_oracle(case, plain):
+    """tensor_core_attention_plain (P rounded to bf16 before P . V) and
+    split_kv_attention_plain (per-split partials, log-sum-exp combine)
+    against the Pallas kernel in interpret mode and its jnp oracle."""
+    B, H, KH, Sq, Skv, D, causal, window, cap, dtype = case
+    arrs = _qkv(B, H, KH, Sq, Skv, D)
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+    jkw = dict(causal=causal, window=window, logit_cap=cap,
+               q_offset=Skv - Sq)
+    q, k, v, kw = _port_layout(case)
+    got = NEW_PLAINS[plain](q, k, v, **kw).transpose(1, 2)
+    assert got.dtype == torch.float32 and got.shape == (B, H, Sq, D)
+    got = _f32(got.to(q.dtype))
+    np.testing.assert_allclose(got, _f32(jops.flash_attention(
+        jq, jk, jv, **jkw)), atol=_atol(dtype))
+    np.testing.assert_allclose(got, _f32(jref.flash_attention_ref(
+        jq, jk, jv, **jkw)), atol=_atol(dtype))
+
+
+@pytest.mark.parametrize("plain", sorted(NEW_PLAINS))
+@pytest.mark.parametrize("Sq,window,cap", [
+    (1, None, None), (4, 10, None), (8, None, 30.0),
+    (9, None, None), (16, 10, 50.0), (24, 6, None)],
+    ids=lambda x: str(x))
+def test_kernel_plains_match_reference_on_ring_buffer(Sq, window, cap,
+                                                      plain):
+    B, H, KH, D = 2, 4, 2, 16
+    r = np.random.default_rng(Sq)
+    q = r.standard_normal((B, Sq, H, D), dtype=np.float32)
+    k = r.standard_normal((B, RING.size, KH, D), dtype=np.float32)
+    v = r.standard_normal((B, RING.size, KH, D), dtype=np.float32)
+    qpos = np.arange(28 - Sq, 28, dtype=np.int32)
+    kw = dict(causal=True, window=window, logit_cap=cap)
+    want = _jattend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    q_positions=jnp.asarray(qpos),
+                    kv_positions=jnp.asarray(RING), **kw)
+    got = NEW_PLAINS[plain](*map(torch.as_tensor, (q, k, v)),
+                            q_positions=torch.as_tensor(qpos),
+                            kv_positions=torch.as_tensor(RING), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
+
+
+def test_split_kv_plain_dead_splits_and_masked_rows():
+    """Splits whose slots are all -1 contribute nothing; a row masked in
+    every split gives 0, not NaN."""
+    B, H, KH, D, Skv = 1, 4, 2, 16, 3 * tfa.SPLIT_KV_CHUNK
+    r = np.random.default_rng(11)
+    q, k, v = (torch.as_tensor(r.standard_normal(s, dtype=np.float32))
+               for s in ((B, 2, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    kpos = torch.full((Skv,), -1, dtype=torch.int32)
+    c = tfa.SPLIT_KV_CHUNK
+    kpos[c:c + 20] = torch.arange(100, 120, dtype=torch.int32)
+    # row 0 sees slots c..c+9 of split 1 only; row 1 (position 50) sees none
+    qpos = torch.tensor([109, 50], dtype=torch.int32)
+    kw = dict(q_positions=qpos, kv_positions=kpos)
+    got = tfa.split_kv_attention_plain(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, tfa.attention_plain(q, k, v, **kw),
+                               rtol=0, atol=1e-6)
+    assert float(got[:, 1].abs().max()) == 0.0
+    assert float(got[:, 0].abs().max()) > 0.0
+    # no unmasked slot anywhere: every row 0
+    none = tfa.split_kv_attention_plain(
+        q, k, v, q_positions=qpos,
+        kv_positions=torch.full((Skv,), -1, dtype=torch.int32))
+    assert float(none.abs().max()) == 0.0
+    assert float(tfa.tensor_core_attention_plain(
+        q, k, v, q_positions=qpos,
+        kv_positions=torch.full((Skv,), -1, dtype=torch.int32)
+    ).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,D,Dv,rows,want", [
+    # the serving path: qwen3-4b prefill (Sq 1024 x G 4) and decode (G 4)
+    (torch.bfloat16, 128, 128, 4096, "wgmma"),
+    (torch.bfloat16, 128, 128, 4, "split_kv"),
+    # hymba's 64-wide heads, G 5
+    (torch.bfloat16, 64, 64, 5 * 512, "wgmma"),
+    (torch.bfloat16, 64, 64, 5, "split_kv"),
+    # float32 prefill and odd head dims go to the SIMT kernel
+    (torch.float32, 128, 128, 4096, "simt"),
+    (torch.float32, 64, 64, 128, "simt"),
+    (torch.bfloat16, 16, 16, 128, "simt"),
+    (torch.bfloat16, 24, 24, 64, "simt"),
+    (torch.bfloat16, 48, 48, 400, "simt"),
+    (torch.bfloat16, 256, 256, 100, "simt"),
+    (torch.bfloat16, 128, 64, 4096, "simt"),      # Dv != D
+    # few rows: split-KV in either dtype, up to 16 rows and 256 wide
+    (torch.float32, 128, 128, 4, "split_kv"),
+    (torch.bfloat16, 256, 256, 16, "split_kv"),
+    (torch.float32, 48, 24, 16, "split_kv"),
+    (torch.bfloat16, 128, 128, 17, "wgmma"),
+    (torch.float32, 128, 128, 17, "simt"),
+    # rows of K/V not a whole number of 16 bytes: SIMT
+    (torch.bfloat16, 20, 20, 4, "simt"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_dispatch_rule(dtype, D, Dv, rows, want):
+    assert tfa.choose_kernel(dtype, D, Dv, rows) == want
+
+
+def test_launch_counts_have_one_key_per_kernel():
+    assert set(tfa.LAUNCHES) == {"flash_attention"} | {
+        f"flash_attention_{n}" for n in tfa.KERNELS}
+    tfa.reset_launches()
+    assert not any(tfa.LAUNCHES.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,D,window,cap,causal", [
+    (2, 8, 2, 64, 64, 128, None, None, True),       # one kv tile
+    (1, 8, 8, 128, 256, 64, None, 50.0, True),      # G 1, softcap
+    (2, 10, 2, 33, 65, 64, 16, None, True),         # G 5 (hymba), window
+    (1, 8, 2, 100, 80, 128, None, None, False),     # non-causal
+    (1, 256, 1, 2, 70, 64, None, None, True),       # G > 128
+    (2, 8, 2, 300, 700, 128, 100, None, True),      # skipped tiles
+])
+def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, window, cap,
+                               causal):
+    g = torch.Generator(device=hopper).manual_seed(Sq)
+    q, k, v = (torch.randn(s, generator=g, device=hopper).bfloat16()
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    kw = dict(q_positions=torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                                       device=hopper),
+              kv_positions=torch.arange(Skv, dtype=torch.int32,
+                                        device=hopper),
+              causal=causal, window=window, logit_cap=cap)
+    n = tfa.LAUNCHES["flash_attention_wgmma"]
+    got = tfa.flash_attention_cuda(q, k, v, kw.pop("q_positions"),
+                                   kw.pop("kv_positions"), **kw).float()
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_wgmma"] == n + 1
+    kw.update(q_positions=torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                                       device=hopper),
+              kv_positions=torch.arange(Skv, dtype=torch.int32,
+                                        device=hopper))
+    want = tfa.tensor_core_attention_plain(q, k, v, **kw).bfloat16().float()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+    ref = tfa.attention_plain(q, k, v, **kw).bfloat16().float()
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,Sq,D,Dv,window,cap", [
+    (2, 4, 2, 1, 32, 32, None, None),
+    (1, 8, 8, 1, 64, 64, None, 50.0),
+    (2, 4, 2, 5, 48, 24, 10, 20.0),          # Dv != D, window, softcap
+    (2, 8, 2, 2, 256, 256, None, None),       # the widest head
+    (2, 16, 4, 4, 128, 128, None, None),      # 16 rows per kv head
+])
+def test_split_kv_kernel_vs_plain_on_ring_buffer(hopper, dtype, B, H, KH,
+                                                 Sq, D, Dv, window, cap):
+    """Ring-buffer positions: a split of -1 slots and wrapped positions."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=hopper).manual_seed(Sq)
+    ring = torch.as_tensor(np.concatenate([RING, np.full(
+        tfa.SPLIT_KV_CHUNK, -1, np.int32), RING]), device=hopper)
+    Skv = ring.numel()
+    q, k, v = (torch.randn(s, generator=g, device=hopper).to(dt)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, Dv)))
+    qpos = torch.arange(28 - Sq, 28, dtype=torch.int32, device=hopper)
+    kw = dict(causal=True, window=window, logit_cap=cap)
+    n = tfa.LAUNCHES["flash_attention_split_kv"]
+    got = tfa.flash_attention_cuda(q, k, v, qpos, ring, **kw).float()
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_split_kv"] == n + 1
+    for plain in (tfa.split_kv_attention_plain, tfa.attention_plain):
+        want = plain(q, k, v, q_positions=qpos, kv_positions=ring, **kw)
+        torch.testing.assert_close(got, want.to(dt).float(), rtol=0,
+                                   atol=_atol(dtype))
+
+
+@pytest.mark.gpu
+def test_new_kernels_fully_masked_rows_are_zero(hopper):
+    for Sq, dt, kernel in ((16, torch.bfloat16, "wgmma"),
+                           (1, torch.float32, "split_kv"),
+                           (2, torch.bfloat16, "split_kv")):
+        g = torch.Generator(device=hopper).manual_seed(Sq)
+        q, k, v = (torch.randn(s, generator=g, device=hopper).to(dt)
+                   for s in ((1, Sq, 4, 64), (1, 200, 2, 64),
+                             (1, 200, 2, 64)))
+        got = tfa.flash_attention_cuda(
+            q, k, v, torch.arange(-64, -64 + Sq, dtype=torch.int32,
+                                  device=hopper),
+            torch.arange(200, dtype=torch.int32, device=hopper),
+            kernel=kernel)
+        assert bool(torch.isfinite(got).all())
+        assert float(got.abs().max()) == 0.0
