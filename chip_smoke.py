@@ -5,8 +5,14 @@ Builds the port's kernels from ``src/repro_torch/csrc`` with nvcc (one
 nvcc per source, in parallel), then
 
   1. holds each placement kernel against its plain PyTorch version on the
-     card at city_p468 (P=468, 1024 VSRs of 3 VMs) and times both, at the
-     phase's shapes and at the shapes the main path gives them;
+     card at city_p468 (P=468, 1024 VSRs of 3 VMs): placement_power at
+     B = 1, 32, 33, 300, 4096 and the main path's re-score (B = 32), also
+     against the float64 oracle; fused_anneal at C = 1, 5, 33, 141 chains and
+     T = 1, 300 steps, on star VSRs (140 route slots), and at the main
+     path's 32 chains x 4000 steps (every chain's best placement equal to
+     the plain version's at T = 256 and below), and T = 12000 (the "high"
+     effort) self-consistent; times each at the main path's shapes as a
+     CUDA-graph replay (device time) and with CUDA events;
   2. runs the paper's quickstart (paper topology, 10 VSRs, cfn-milp)
      through ``CFNSession`` on the card, with the CDC/AF/MF baselines;
   3. runs cfn-milp at "standard" effort on city_p468 with 1024 VSRs;
@@ -160,11 +166,44 @@ def city_workload():
                                  source_nodes=sources)
 
 
+def ptxas_usage(log: str) -> list:
+    """Registers and spill bytes of each entry function in an nvcc
+    ``-Xptxas -v`` log: [{function, registers, spill_stores, spill_loads}],
+    the function as "name<template args>" from its mangled name."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)"
+                      r"(I((?:Li-?\d+E)+)E)?", line)
+        if m:
+            args = re.findall(r"Li(-?\d+)E", m.group(3) or "")
+            out.append({"function": m.group(1) + (
+                f"<{', '.join(args)}>" if args else "")})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_stores"] = int(m.group(1))
+            out[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def timed_pair(launch, reps: int) -> dict:
+    """``ms``: one call as a CUDA graph replays it (the device time);
+    ``event_ms``: CUDA events around one call (its host cost included)."""
+    return {"ms": graph_ms(launch, reps), "event_ms": cuda_ms(launch, reps)}
+
+
 def phase_kernels(kernels: dict) -> None:
-    """Phase 1: each kernel against its plain version at city_p468."""
+    """Phase 1: each placement kernel against its plain version at
+    city_p468, at the main path's shapes and at the shapes its design has
+    to take (cluster sizes 8, 4-8 and 1; chain counts that do not fill a
+    block; one step; a star VSR's 140 route slots)."""
     import torch
-    from repro_torch.core import power, solvers
-    from repro_torch.kernels import placement_power as pp, ref
+    from repro_torch.core import power, solvers, topology, vsr
+    from repro_torch.kernels import _build, placement_power as pp, ref
     topo, vsrs = city_workload()
     prob = power.build_problem(topo, vsrs, device="cuda")
     P, R, V = prob.P, prob.R, prob.V
@@ -172,94 +211,167 @@ def phase_kernels(kernels: dict) -> None:
     rng = np.random.default_rng(1)
     out = {"P": P, "N": prob.N, "K": prob.K, "R": R, "V": V}
 
-    # ---- placement_power on 4096 random pinned candidates ---------------
-    B = 4096
-    Xb = torch.as_tensor(rng.integers(0, P, (B, R, V), dtype=np.int32),
-                         device="cuda")
-    Xf = power.apply_pins(prob, Xb).reshape(B, -1).contiguous()
-    got = pp.placement_power_cuda(Xf, *operands)
-    want = pp.placement_power_ref(Xf, *operands)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-2)
-    f64 = np.array([ref.placement_objective_f64(prob, Xb[i])
-                    for i in range(16)])
-    np.testing.assert_allclose(got[:16, 0].cpu().numpy(), f64, rtol=2e-5,
-                               atol=1e-2)
-    out["placement_power_B4096"] = {
-        "max_abs_err_vs_plain": float((got - want).abs().max()),
-        "max_rel_err_vs_f64": float(np.max(np.abs(
-            got[:16, 0].cpu().numpy() - f64) / np.abs(f64))),
-        "ms": cuda_ms(lambda: pp.placement_power_cuda(Xf, *operands), 20),
-        "plain_ms": cuda_ms(lambda: pp.placement_power_ref(Xf, *operands),
-                            3),
-        "bound_ms": placement_power_bound(Xf, operands)[0]}
-    del got, want
+    def held_power(Xf, n_f64=0):
+        """placement_power on Xf against its plain version (rtol 2e-5,
+        atol 1e-2) and, on its first n_f64 rows, the float64 oracle."""
+        got = pp.placement_power_cuda(Xf, *operands)
+        want = pp.placement_power_ref(Xf, *operands)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-2)
+        rec = {"cluster_size": pp.placement_power_cluster_size(Xf.shape[0]),
+               "max_abs_err_vs_plain": float((got - want).abs().max())}
+        if n_f64:
+            Xr = Xf[:n_f64].reshape(n_f64, R, V)
+            f64 = np.array([ref.placement_objective_f64(prob, X)
+                            for X in Xr])
+            np.testing.assert_allclose(got[:n_f64, 0].cpu().numpy(), f64,
+                                       rtol=2e-5, atol=1e-2)
+            rec["max_rel_err_vs_f64"] = float(np.max(np.abs(
+                got[:n_f64, 0].cpu().numpy() - f64) / np.abs(f64)))
+        return rec
 
-    # ---- fused_anneal: 32 chains, shared proposals ----------------------
-    aux = power.build_aux(prob)
-    iot = solvers.fixed_layer(prob, topo, "iot").X
-    C = 32
+    def timed_power(Xf):
+        res = torch.empty((Xf.shape[0], 4), device="cuda")
+        rec = timed_pair(lambda: pp.placement_power_launch(res, Xf,
+                                                           *operands), 50)
+        rec["plain_ms"] = cuda_ms(lambda: pp.placement_power_ref(
+            Xf, *operands), 5)
+        rec["bound_ms"], rec["bound_by"] = placement_power_bound(Xf,
+                                                                 operands)
+        return rec
 
-    def fused_args(T, seed):
+    # ---- placement_power on random pinned candidates ---------------------
+    for B in (1, 32, 33, 300, 4096):
+        Xb = torch.as_tensor(rng.integers(0, P, (B, R, V), dtype=np.int32),
+                             device="cuda")
+        Xf = power.apply_pins(prob, Xb).reshape(B, -1).contiguous()
+        rec = held_power(Xf, n_f64=16 if B == 4096 else 0)
+        check((rec["cluster_size"] > 1) == (B <= 132),
+              f"placement_power B={B}: cluster size {rec['cluster_size']}")
+        if B == 4096:
+            rec.update(timed_power(Xf))
+        out[f"placement_power_B{B}"] = rec
+
+    # ---- fused_anneal: chains from the IoT first-fit placement ----------
+    def fused_args(problem, C, T, seed, t_hi=50.0):
         # every chain starts at the IoT first-fit placement and follows its
         # own proposal stream (objectives near 2e4 W: the float32 drift of
         # the carried objective stays inside the self-consistency check)
         r = np.random.default_rng(seed)
-        Xc = power.apply_pins(prob, np.broadcast_to(iot, (C, R, V)))
-        M = aux.free_flat.shape[0]
-        fi = torch.as_tensor(r.integers(0, M, (C, T)), device="cuda")
+        aux = power.build_aux(problem)
+        iot = solvers.fixed_layer(problem, topo, "iot").X
+        Xc = power.apply_pins(problem, np.broadcast_to(
+            iot, (C, problem.R, problem.V)))
+        fi = torch.as_tensor(r.integers(0, aux.free_flat.shape[0], (C, T)),
+                             device="cuda")
         j = aux.free_flat[fi].to(torch.int32).contiguous()
-        p = torch.as_tensor(r.integers(0, P, (C, T), dtype=np.int32),
-                            device="cuda")
+        p = torch.as_tensor(r.integers(0, problem.P, (C, T),
+                                       dtype=np.int32), device="cuda")
         u = torch.as_tensor(r.random((C, T), dtype=np.float32),
                             device="cuda")
-        temps = torch.as_tensor((50.0 * (0.05 / 50.0) ** (
-            np.arange(T) / (T - 1))).astype(np.float32), device="cuda")
-        loads = [t.contiguous() for t in power.batched_hard_loads(prob, Xc)]
-        _, _, F, _, route, pp_, nn_ = operands
+        temps = torch.as_tensor((t_hi * (0.05 / t_hi) ** (
+            np.arange(T) / max(1, T - 1))).astype(np.float32),
+            device="cuda")
+        loads = [t.contiguous() for t in power.batched_hard_loads(problem,
+                                                                  Xc)]
+        _, _, F, _, route, pp_, nn_ = pp.pack_problem(problem)
         return (Xc.reshape(C, -1).contiguous(), j, p, u, temps,
                 *pp.pack_aux(aux), *loads, F, route, pp_, nn_)
 
-    D = int(aux.inc_h.shape[1])
-    for T in (256, 4000):
-        args = fused_args(T, seed=T)
+    def self_consistent(problem, bX, st, what):
+        C = bX.shape[0]
+        exact = power.objective_batch(problem, bX.reshape(C, problem.R,
+                                                          problem.V))
+        err = float((st[:, 0] - exact).abs().max())
+        torch.testing.assert_close(st[:, 0], exact, rtol=1e-5, atol=5e-2,
+                                   msg=f"fused_anneal {what}: best is not "
+                                       f"the objective of best X")
+        return err
+
+    def held_anneal(problem, args, what, every_chain=True, rows_read=None):
+        """The kernel's chains against its plain version's: best == exact
+        objective of best X, best within 5e-2 of the plain version's; with
+        every_chain, each chain's best placement equal to the plain's.
+        rows_read, if given, is marked with the route rows the plain
+        version reads."""
+        C = args[0].shape[0]
         bk, sk = pp.fused_anneal_cuda(*args)
-        rows_read = torch.zeros(P * P, dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         br, sr = pp.fused_anneal_ref(*args, rows_read=rows_read)
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        for bX, st in ((bk, sk), (br, sr)):
-            exact = power.objective_batch(prob, bX.reshape(C, R, V))
-            torch.testing.assert_close(st[:, 0], exact, rtol=1e-5, atol=5e-2)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = int((bk == br).all(1).sum())
         err = float((sk[:, 0].min() - sr[:, 0].min()).abs())
-        check(err <= 5e-2, f"fused_anneal T={T}: best {float(sk[:, 0].min())}"
-                           f" vs plain {float(sr[:, 0].min())}")
-        rec = {"min_best": float(sk[:, 0].min()),
-               "min_best_abs_err_vs_plain": err,
-               "chains_equal_to_plain": int((bk == br).all(1).sum()),
-               "ms": cuda_ms(lambda: pp.fused_anneal_cuda(*args),
-                             10 if T == 256 else 5),
-               "plain_ms": plain_s * 1e3}
-        rec["bound_ms"], rec["bound_by"] = fused_anneal_bound(
-            args, rows_read, D)
+        check(err <= 5e-2, f"fused_anneal {what}: best "
+                           f"{float(sk[:, 0].min())} vs plain "
+                           f"{float(sr[:, 0].min())}")
+        check(not every_chain or equal == C,
+              f"fused_anneal {what}: {equal} of {C} chains equal the "
+              f"plain version's")
+        return {"chains": C, "chains_equal_to_plain": equal,
+                "plain_ms": plain_ms, "min_best": float(sk[:, 0].min()),
+                "min_best_abs_err_vs_plain": err,
+                "self_consistency_err": self_consistent(problem, bk, sk,
+                                                        what)}, bk
+
+    D = int(power.build_aux(prob).inc_h.shape[1])
+    for C in (1, 5, 33, 141):   # 141: two chains a block, one in the last
+        for T in (1, 300):
+            out[f"fused_anneal_C{C}_T{T}"] = held_anneal(
+                prob, fused_args(prob, C, T, seed=C + T, t_hi=5.0),
+                f"C={C} T={T}")[0]
+    # star VSRs of 6 VMs: D = 5, M = 2 D K = 140 route slots (> 64)
+    star = power.build_problem(topo, vsr.random_vsrs(
+        128, rng=0, n_vms=6, source_nodes=range(64), topology="star"),
+        device="cuda")
+    args = fused_args(star, 8, 300, seed=3, t_hi=5.0)
+    M = 2 * args[6].shape[1] * args[13].shape[1]
+    check(M > 64, f"fused_anneal star: M = {M}")
+    out["fused_anneal_star_C8_T300"] = {
+        "route_slots": M, **held_anneal(star, args, "star")[0]}
+
+    C = 32
+    for T in (256, 4000, 12000):
+        args = fused_args(prob, C, T, seed=T)
+        st = torch.empty((C, 2), device="cuda")
+        bX = torch.empty((C, R * V), dtype=torch.int32, device="cuda")
+        if T == 12000:  # the "high" effort's schedule: self-consistency
+            bk, sk = pp.fused_anneal_cuda(*args)
+            rec = {"min_best": float(sk[:, 0].min()),
+                   "self_consistency_err": self_consistent(prob, bk, sk,
+                                                           f"T={T}")}
+        else:
+            rows_read = torch.zeros(P * P, dtype=torch.bool, device="cuda")
+            rec, bk = held_anneal(prob, args, f"T={T}",
+                                  every_chain=T == 256, rows_read=rows_read)
+            rec["bound_ms"], rec["bound_by"] = fused_anneal_bound(
+                args, rows_read, D)
+        rec.update(timed_pair(lambda: pp.fused_anneal_launch(bX, st, *args),
+                              10 if T == 256 else 3))
+        rec["us_per_step"] = rec["ms"] / T * 1e3
         out[f"fused_anneal_C32_T{T}"] = rec
         if T == 4000:   # the main path's shape: 32 chains x 4000 steps
             kernels["fused_anneal"].update(
-                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
-                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"])
+                max_abs_err=rec["min_best_abs_err_vs_plain"], ms=rec["ms"],
+                event_ms=rec["event_ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                us_per_step=rec["us_per_step"],
+                chains_equal_to_plain=rec["chains_equal_to_plain"],
+                shape="C=32 chains, T=4000 steps, city_p468",
+                ptxas=ptxas_usage(_build.BUILD_LOG.get("fused_anneal", "")))
             # the main path re-scores the 32 chains' best placements
             Xm = bk.contiguous()
-            got = pp.placement_power_cuda(Xm, *operands)
-            want = pp.placement_power_ref(Xm, *operands)
-            torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-2)
-            b_ms, b_by = placement_power_bound(Xm, operands)
+            rec_m = held_power(Xm, n_f64=C)
+            rec_m.update(timed_power(Xm))
+            out["placement_power_main_B32"] = rec_m
             kernels["placement_power"].update(
-                max_abs_err=float((got - want).abs().max()),
-                ms=cuda_ms(lambda: pp.placement_power_cuda(Xm, *operands),
-                           50),
-                plain_ms=cuda_ms(
-                    lambda: pp.placement_power_ref(Xm, *operands), 10),
-                bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=rec_m["max_abs_err_vs_plain"], ms=rec_m["ms"],
+                event_ms=rec_m["event_ms"], plain_ms=rec_m["plain_ms"],
+                bound_ms=rec_m["bound_ms"], bound_by=rec_m["bound_by"],
+                cluster_size=rec_m["cluster_size"],
+                shape="B=32 best placements of the anneal, city_p468",
+                ptxas=ptxas_usage(_build.BUILD_LOG.get("placement_power",
+                                                       "")))
     emit("kernels_vs_plain", **out)
 
 

@@ -30,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # args), in that order; every launcher takes the CUDA stream last and
 # returns cudaGetLastError()
 LAUNCHERS = {
-    "placement_power": ("placement_power_launch", 9, 6, 0),
-    "fused_anneal": ("fused_anneal_launch", 18, 7, 0),
+    "placement_power": ("placement_power_launch", 9, 7, 0),
+    "fused_anneal": ("fused_anneal_launch", 18, 8, 0),
     "flash_attention": ("flash_attention_launch", 6, 10, 1),
     "flash_attention_wgmma": ("flash_attention_wgmma_launch", 6, 8, 1),
     "flash_attention_decode": ("flash_attention_decode_launch", 8, 11, 1),

@@ -3,11 +3,15 @@ plain PyTorch versions.
 
   * ``placement_power_cuda`` (``csrc/placement_power.cu``) -- batched FULL
     evaluation of B candidate placements -> [B, 4] (objective, net W, proc
-    W, violation).  Replaces ``placement_power_tpu``
+    W, violation); a thread-block cluster of
+    ``placement_power_cluster_size(B)`` CTAs per candidate, reduced through
+    distributed shared memory.  Replaces ``placement_power_tpu``
     (src/repro/kernels/placement_power.py:160).
   * ``fused_anneal_cuda`` (``csrc/fused_anneal.cu``) -- whole Metropolis
-    chains, one launch for the whole schedule, chain state kept on chip.
-    Replaces ``fused_anneal_tpu`` (src/repro/kernels/placement_power.py:377).
+    chains, one launch for the whole schedule, one warp per chain with its
+    state in shared memory (``fused_anneal_chains_per_block`` chains a
+    block).  Replaces ``fused_anneal_tpu``
+    (src/repro/kernels/placement_power.py:377).
 
 ``placement_power_ref`` and ``fused_anneal_ref`` compute the same functions
 in plain PyTorch over the same operands; the CPU tests run them, and the
@@ -39,6 +43,16 @@ PENALTY = 1.0e4
 SNAP_GFLOPS = 1.0e-3
 SNAP_MBPS = 1.0e-2
 
+# the H100's streaming multiprocessors, and the shared memory one block may
+# use (bytes)
+N_SMS = 132
+SMEM_PER_BLOCK = 232448
+# the fused kernel's limits: 2D <= 64 routes (two 32-bit words of route
+# bits), at most 32 slots a lane
+FUSED_MAX_D = 32
+FUSED_MAX_SLOTS = 1024
+FUSED_LOG = 128
+
 # kernel launches since the last reset, per kernel
 LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0}
 
@@ -46,6 +60,46 @@ LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def placement_power_cluster_size(B: int) -> int:
+    """CTAs per candidate of ``placement_power_cuda``: the largest power of
+    two up to 8 that keeps B * cs within two CTAs per SM, so a small batch
+    (the main path re-scores B = 32) still spreads over the 132 SMs, and a
+    batch of 133 or more runs one CTA per candidate."""
+    cs = 1
+    while cs < 8 and B * 2 * cs <= 2 * N_SMS:
+        cs *= 2
+    return cs
+
+
+def fused_anneal_smem_bytes(J: int, P: int, N: int, D: int,
+                            chains: int) -> int:
+    """Dynamic shared memory of one ``csrc/fused_anneal.cu`` block of
+    ``chains`` chains (its ``param_bytes + chains * chain_bytes``)."""
+    up16 = lambda b: (b + 15) // 16 * 16
+    params = up16(4 * (8 * P + 4 * (N + 1)))
+    words = (2 * D + 31) // 32          # route bits per node id
+    chain = up16(4 * ((N + 1) * words + 2 * J + 2 * P + (N + 1) + 4 * D
+                      + FUSED_LOG))
+    return params + chains * chain
+
+
+def fused_anneal_chains_per_block(C: int, J: int, P: int, N: int,
+                                  D: int) -> int:
+    """Chains (warps) per block of ``fused_anneal_cuda``: one while the
+    chains fit one to an SM (a step's latency is then the warp's alone),
+    more once C exceeds the 132 SMs, as many as the block's shared memory
+    holds.  Raises if not even one chain fits."""
+    fit = 0
+    while fit < 32 and fused_anneal_smem_bytes(J, P, N, D,
+                                               fit + 1) <= SMEM_PER_BLOCK:
+        fit += 1
+    if fit == 0:
+        raise ValueError(f"one chain (J={J}, P={P}, N={N}, D={D}) needs "
+                         f"{fused_anneal_smem_bytes(J, P, N, D, 1)} bytes "
+                         f"of shared memory, more than {SMEM_PER_BLOCK}")
+    return min(fit, max(1, -(-C // N_SMS)))
 
 
 def mask_proposals(j_prop: torch.Tensor, p_prop: torch.Tensor,
@@ -133,12 +187,31 @@ def placement_power_ref(X, link_src, link_dst, F, H, route, proc_params,
     return _terms(omega, theta, lam[:, :N], proc_params, net_params)
 
 
+def _warp_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (M slots) in the kernel's order: lane l sums
+    slots l, l + 32, ... in turn, then a butterfly over the 32 lanes
+    (``__shfl_xor_sync`` at offsets 16, 8, 4, 2, 1)."""
+    C, M = v.shape
+    v = torch.nn.functional.pad(v, (0, (-M) % 32)).reshape(C, -1, 32)
+    lanes = torch.zeros_like(v[:, 0])
+    for i in range(v.shape[1]):
+        lanes = lanes + v[:, i]
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ o]
+    return lanes[:, 0]
+
+
 def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
                      inc_src, omega0, theta0, lam0, obj0, F, route,
                      proc_params, net_params,
                      rows_read: Optional[torch.Tensor] = None):
     """Plain version of ``fused_anneal_cuda``: the same per-step arithmetic,
-    vectorized over the C chains.
+    vectorized over the C chains, with every sum taken in the kernel's
+    order (the D- and 2D-term sums in turn, a node id's signed bitrates in
+    route order, d_net and d_viol as one warp sums them: ``_warp_sum``), so
+    the two accept the same moves.  A route row's ids are distinct (the
+    router's shortest paths), so an id is shared only across routes.
 
     X [C, J] int32 starting placements (pins applied); j_prop/p_prop/u_prop
     [C, T]; temps [T]; inc_* [J, D]; omega0/theta0 [C, P], lam0 [C, N],
@@ -163,7 +236,7 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     route_l = route.long()
     inc_o, inc_s = inc_other.long(), inc_src.bool()
     M = 2 * D * K
-    earlier = torch.ones(M, M, dtype=torch.bool, device=dev).tril(-1)
+    earlier = torch.ones(2 * D, 2 * D, dtype=torch.bool, device=dev).tril(-1)
     relu = torch.relu
     snap = lambda x, e: torch.where(x.abs() < e, torch.zeros_like(x), x)
 
@@ -190,11 +263,17 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
         # ---- processing terms at p_old / p_new --------------------------
         hh = torch.cat([-h, h], 1)                                 # [C, 2D]
         q2 = torch.cat([q_rm, q_in], 1)
-        H_tot = h.sum(1)
-        sr = (h * (q_rm == po[:, None])).sum(1)
-        si = (h * (q_in == pn[:, None])).sum(1)
-        alpha = -(H_tot - sr) + (hh * (q2 == po[:, None])).sum(1)
-        beta = (H_tot - si) + (hh * (q2 == pn[:, None])).sum(1)
+        H_tot = sr = si = torch.zeros_like(F_j)
+        for d in range(D):
+            H_tot = H_tot + h[:, d]
+            sr = sr + h[:, d] * (q_rm[:, d] == po)
+            si = si + h[:, d] * (q_in[:, d] == pn)
+        s_old = s_new = torch.zeros_like(F_j)
+        for r in range(2 * D):
+            s_old = s_old + hh[:, r] * (q2[:, r] == po)
+            s_new = s_new + hh[:, r] * (q2[:, r] == pn)
+        alpha = -(H_tot - sr) + s_old
+        beta = (H_tot - si) + s_new
         sm = (po == pn).float()
         idx = torch.stack([po, pn], 1)                             # [C, 2]
         d_om = torch.stack([-F_j + sm * F_j, F_j - sm * F_j], 1)
@@ -216,21 +295,27 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
             rows_read[ridx[hh != 0]] = True
         ids = route_l[ridx]                                        # [C,2D,K]
         ids = torch.where((hh != 0)[:, :, None], ids, N).reshape(C, M)
-        hs = hh[:, :, None].expand(-1, -1, K).reshape(C, M)
         valid = ids < N
-        match = (ids[:, :, None] == ids[:, None, :]) & valid[:, None, :]
-        # one aggregated signed bitrate per node id, scored at its first slot
-        tot = (match.float() * hs[:, None, :]).sum(-1)             # [C, M]
-        first = valid & ~(match & earlier).any(-1)
+        # on[c, s, r]: slot s's id lies on route r (slot s = r * K + k)
+        on = ((ids[:, :, None] == ids[:, None, :]) & valid[:, None, :]
+              ).reshape(C, M, 2 * D, K).any(-1)
+        r_of = torch.arange(M, device=dev) // K
+        # one aggregated signed bitrate per node id, summed in route order
+        # and scored at its first slot (no earlier route holds the id)
+        tot = torch.zeros(C, M, dtype=hh.dtype, device=dev)
+        for r in range(2 * D):
+            tot = tot + torch.where(on[:, :, r], hh[:, r:r + 1], 0.0)
+        first = valid & ~(on & earlier[r_of]).any(-1)
         lam_old = lam.gather(1, ids)
         lam_new = snap(lam_old + tot, SNAP_MBPS)
         eps_g, pue_g, idle_g, cnet_g = nk[:, ids]                  # [4, C, M]
         b_d = (lam_new > ACTIVE_EPS).float() - (lam_old > ACTIVE_EPS).float()
-        use = first.float()
-        d_net = (use * pue_g * (eps_g * (lam_new - lam_old) / 1e3
-                                + b_d * idle_g)).sum(1)
-        d_viol = d_viol + (use * (relu(lam_new / 1e3 - cnet_g)
-                                  - relu(lam_old / 1e3 - cnet_g))).sum(1)
+        zero = torch.zeros_like(lam_new)
+        d_net = _warp_sum(torch.where(first, pue_g * (
+            eps_g * (lam_new - lam_old) / 1e3 + b_d * idle_g), zero))
+        d_viol = d_viol + _warp_sum(torch.where(first, (
+            relu(lam_new / 1e3 - cnet_g) - relu(lam_old / 1e3 - cnet_g)),
+            zero))
         delta = d_proc + d_net + PENALTY * d_viol
         # ---- Metropolis accept, commit, best tracking -------------------
         Tt = torch.clamp_min(temps[t], 1e-9)
@@ -308,19 +393,33 @@ def placement_power_cuda(X, link_src, link_dst, F, H, route, proc_params,
     out = torch.empty((B, 4), dtype=f32, device=X.device)
     if B == 0:
         return out
+    placement_power_launch(out, X, link_src, link_dst, F, H, route,
+                           proc_params, net_params)
+    LAUNCHES["placement_power"] += 1
+    return out
+
+
+def placement_power_launch(out, X, link_src, link_dst, F, H, route,
+                           proc_params, net_params) -> None:
+    """The launch of ``placement_power_cuda`` into ``out`` [B, 4], without
+    its checks, its host sync or its count (so a CUDA graph can capture
+    it); B >= 1."""
+    B, J = X.shape
+    P, N, K = proc_params.shape[1], net_params.shape[1], route.shape[1]
     lib = _build.library("placement_power")
     _launch(lib.placement_power_launch, _ptr(X), _ptr(link_src),
             _ptr(link_dst), _ptr(F), _ptr(H), _ptr(route), _ptr(proc_params),
-            _ptr(net_params), _ptr(out), B, J, L, P, N, K)
-    LAUNCHES["placement_power"] += 1
-    return out
+            _ptr(net_params), _ptr(out), B, J, link_src.shape[0], P, N, K,
+            placement_power_cluster_size(B))
 
 
 def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
                       inc_src, omega0, theta0, lam0, obj0, F, route,
                       proc_params, net_params):
-    """Launch ``csrc/fused_anneal.cu`` (one block per chain).  Operands as
-    ``fused_anneal_ref``; returns (best_X [C, J] int32, stats [C, 2])."""
+    """Launch ``csrc/fused_anneal.cu`` (one warp per chain).  Operands as
+    ``fused_anneal_ref``; returns (best_X [C, J] int32, stats [C, 2]).
+    Takes D <= 32 incident links per VM and M = 2 * D * K <= 1024 route
+    slots."""
     C, J = X.shape
     T = temps.shape[0]
     D = inc_h.shape[1]
@@ -346,15 +445,30 @@ def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     _check_range(X, P, "X")
     _check_range(p_prop, P, "p_prop")
     _check_range(j_prop, J, "j_prop")
+    if D > FUSED_MAX_D or 2 * D * K > FUSED_MAX_SLOTS:
+        raise ValueError(f"fused_anneal_cuda takes D <= {FUSED_MAX_D} and "
+                         f"2 * D * K <= {FUSED_MAX_SLOTS}, got D={D}, K={K}")
     bX = torch.empty((C, J), dtype=i32, device=X.device)
     stats = torch.empty((C, 2), dtype=f32, device=X.device)
     if C == 0:
         return bX, stats
-    lib = _build.library("fused_anneal")
-    _launch(lib.fused_anneal_launch, _ptr(X), _ptr(j_prop), _ptr(p_prop),
-            _ptr(u_prop), _ptr(temps), _ptr(inc_other), _ptr(inc_h),
-            _ptr(inc_src), _ptr(omega0), _ptr(theta0), _ptr(lam0),
-            _ptr(obj0), _ptr(F), _ptr(route), _ptr(proc_params),
-            _ptr(net_params), _ptr(bX), _ptr(stats), C, J, T, D, P, N, K)
+    fused_anneal_launch(bX, stats, X, j_prop, p_prop, u_prop, temps,
+                        inc_other, inc_h, inc_src, omega0, theta0, lam0,
+                        obj0, F, route, proc_params, net_params)
     LAUNCHES["fused_anneal"] += 1
     return bX, stats
+
+
+def fused_anneal_launch(bX, stats, *args) -> None:
+    """The launch of ``fused_anneal_cuda`` into ``bX`` [C, J] and ``stats``
+    [C, 2], without its checks, its host syncs or its count (so a CUDA
+    graph can capture it); ``args`` as ``fused_anneal_cuda``'s, C >= 1."""
+    X, temps, inc_h, route, proc_params, net_params = (
+        args[0], args[4], args[6], args[13], args[14], args[15])
+    C, J = X.shape
+    T, D, K = temps.shape[0], inc_h.shape[1], route.shape[1]
+    P, N = proc_params.shape[1], net_params.shape[1]
+    lib = _build.library("fused_anneal")
+    _launch(lib.fused_anneal_launch, *(_ptr(t) for t in args), _ptr(bX),
+            _ptr(stats), C, J, T, D, P, N, K,
+            fused_anneal_chains_per_block(C, J, P, N, D))

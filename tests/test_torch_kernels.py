@@ -22,13 +22,13 @@ from repro_torch.kernels import flash_attention as tfa, ops as tops, \
     placement_power as tpp, ref as tref
 
 
-def _pair(n_vsrs, seed=0, n_vms=3, topo="paper"):
+def _pair(n_vsrs, seed=0, n_vms=3, topo="paper", vtopo="chain"):
     if topo == "paper":
         jt, tt = jtopo.paper_topology(), ttopo.paper_topology()
     else:
         kw = dict(n_olt=2, onus_per_olt=4, iot_per_onu=8)
         jt, tt = jtopo.city_scale(**kw), ttopo.city_scale(**kw)
-    kw = dict(rng=seed, n_vms=n_vms, source_nodes=[0, 1])
+    kw = dict(rng=seed, n_vms=n_vms, source_nodes=[0, 1], topology=vtopo)
     return (jp.build_problem(jt, jvsr.random_vsrs(n_vsrs, **kw)),
             tp.build_problem(tt, tvsr.random_vsrs(n_vsrs, **kw),
                              device="cpu"))
@@ -166,9 +166,10 @@ def hopper():
     return torch.device("cuda")
 
 
-def _city_on(device, n_vsrs=256):
+def _city_on(device, n_vsrs=256, n_vms=3, vtopo="chain"):
     topo = ttopo.city_scale(n_olt=16, onus_per_olt=4, iot_per_onu=7)
-    vs = tvsr.random_vsrs(n_vsrs, rng=0, source_nodes=range(64))
+    vs = tvsr.random_vsrs(n_vsrs, rng=0, n_vms=n_vms, source_nodes=range(64),
+                          topology=vtopo)
     return topo, tp.build_problem(topo, vs, device=device)
 
 
