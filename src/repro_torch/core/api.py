@@ -121,7 +121,7 @@ class PlacementSpec:
         if self.health is not None:
             raise NotImplementedError(
                 "PlacementSpec(health=...) needs SubstrateHealth, which "
-                "comes with the fault plane (ROADMAP Queue 1, item 2)")
+                "comes with the fault plane (ROADMAP Queue 1, item 5 (c))")
 
     def replace(self, **changes) -> "PlacementSpec":
         """A copy with ``changes`` applied (validation re-runs)."""

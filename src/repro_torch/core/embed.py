@@ -7,10 +7,12 @@
 
 ``_embed`` is the spec-driven dispatch every batch path goes through;
 "cfn-milp" is the portfolio stand-in for the paper's CPLEX run, and
-"cdc"/"af"/"mf" are the paper's Fig. 3 baselines.
+"cdc"/"af"/"mf" are the paper's Fig. 3 baselines.  ``embed_latency_bounded``
+remains as a deprecated shim.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -83,6 +85,33 @@ def embed(topo: CFNTopology, vsrs: VSRBatch, spec=None,
     ``spec`` (default ``PlacementSpec()``: cfn-milp, standard effort)."""
     spec = _spec() if spec is None else spec
     return _embed(topo, vsrs, spec, gen=gen, problem=problem, device=device)
+
+
+def embed_latency_bounded(topo: CFNTopology, vsrs: VSRBatch,
+                          max_hops: int, method: str = "cfn-milp",
+                          gen: Optional[torch.Generator] = None,
+                          device: Device = None) -> solvers.SolveResult:
+    """Latency-constrained embedding (paper Sec. 2: "latency can easily be
+    added"): every VM placed within ``max_hops`` network nodes of its
+    VSR's source.
+
+    Deprecated shim keeping the historical semantics: an unconstrained
+    solve, then ``solvers.repair_to_eligible`` of each violating VM onto
+    the hop mask of ``PlacementSpec.masks``.  New code sets
+    ``PlacementSpec(max_hops=...)``, which threads the mask through every
+    solver instead of repairing afterwards.
+    """
+    warnings.warn(
+        "embed_latency_bounded() is deprecated; set "
+        "repro_torch.api.PlacementSpec(max_hops=...) and use "
+        "repro_torch.api.CFNSession", DeprecationWarning, stacklevel=2)
+    spec = _spec(method=method, max_hops=max_hops)
+    problem = build_problem(topo, vsrs, device=device)
+    base = _embed(topo, vsrs, spec.replace(max_hops=None), gen=gen,
+                  problem=problem)
+    res = solvers.repair_to_eligible(problem, base, spec.masks(problem))
+    return solvers._result(problem, res.X,
+                           f"latency<={max_hops}({base.method})")
 
 
 def savings_vs_baseline(topo: CFNTopology, vsrs: VSRBatch,

@@ -315,16 +315,40 @@ def _loads(problem: PlacementProblem, X_flat: torch.Tensor,
     return omega, tm, lam, theta
 
 
-def _hard_terms(problem: PlacementProblem, omega, lam, theta):
-    """Eq.(1)/(2) terms for hard placements; broadcasts over leading dims.
-
-    omega/theta [..., P], lam [..., N] -> (per_net [..., N], per_proc
-    [..., P], violation [...]).
-    """
+def _lam_from_tm(problem: PlacementProblem,
+                 tm: torch.Tensor) -> torch.Tensor:
+    """lambda [..., N] from traffic matrices tm [..., P, P]: each (a, b)
+    entry added at the <= K node ids of route (a, b) (sentinel ids land in
+    the dropped N-th slot).  Takes soft (fractional) traffic and is
+    differentiable."""
     p = problem
-    n_srv = torch.ceil(omega / p.C_pr)
-    beta = (lam > ACTIVE_EPS).float()
-    phi = ((omega > ACTIVE_EPS) | (theta > ACTIVE_EPS)).float()
+    lead = tm.shape[:-2]
+    w = tm[..., None].expand(*lead, p.P, p.P, p.K)
+    lam = torch.zeros(*lead, p.N + 1, dtype=tm.dtype, device=tm.device)
+    lam.index_add_(-1, p.route_flat.reshape(-1), w.reshape(*lead, -1))
+    return lam[..., :p.N]
+
+
+def _soft_loads(problem: PlacementProblem, onehot: torch.Tensor):
+    """Loads of (soft) assignments onehot [..., R, V, P], pins applied:
+    ``(omega [..., P], tm [..., P, P], lam [..., N], theta [..., P])``."""
+    p = problem
+    omega = torch.einsum("...rvp,rv->...p", onehot, p.F)
+    flat = onehot.flatten(-3, -2)                                # [..., J, P]
+    u = flat[..., p.ls, :]                                       # [..., L, P]
+    w = flat[..., p.ld, :]
+    tm = torch.einsum("l,...lp,...lq->...pq", p.link_h, u, w)
+    intra = torch.einsum("l,...lp,...lp->...p", p.link_h, u, w)
+    lam = _lam_from_tm(p, tm)                                    # Mbps
+    theta = (torch.einsum("...lp,l->...p", u, p.link_h)
+             + torch.einsum("...lp,l->...p", w, p.link_h) - intra)
+    return omega, tm, lam, theta
+
+
+def _assemble_terms(p: PlacementProblem, omega, lam, theta, n_srv, beta,
+                    phi):
+    """Eq.(1)/(2) term assembly shared by the hard and soft branches:
+    (per_net [..., N], per_proc [..., P], violation [...])."""
     per_net = p.pue_net * (p.eps * lam / 1e3 + beta * p.idle_share * p.pi_net)
     per_proc = p.pue_pr * (p.E * omega + n_srv * p.pi_pr
                            + p.EL * theta / 1e3
@@ -336,28 +360,58 @@ def _hard_terms(problem: PlacementProblem, omega, lam, theta):
     return per_net, per_proc, violation
 
 
-def evaluate_batch(problem: PlacementProblem, Xb,
-                   hard: bool = True) -> PowerBreakdown:
-    """Power breakdown of placements Xb [..., R, V] (int node indices);
-    every field carries the leading dims."""
-    if not hard:
-        raise NotImplementedError(
-            "the soft (hard=False) surrogate comes with the relax solver "
-            "(ROADMAP Queue 1, item 3)")
+def _hard_terms(problem: PlacementProblem, omega, lam, theta):
+    """Eq.(1)/(2) terms for hard placements; broadcasts over leading dims.
+
+    omega/theta [..., P], lam [..., N] -> (per_net [..., N], per_proc
+    [..., P], violation [...]).
+    """
     p = problem
-    X = apply_pins(p, Xb)
-    omega, _, lam, theta = _loads(p, X.flatten(-2))
-    per_net, per_proc, violation = _hard_terms(p, omega, lam, theta)
+    n_srv = torch.ceil(omega / p.C_pr)
+    beta = (lam > ACTIVE_EPS).float()
+    phi = ((omega > ACTIVE_EPS) | (theta > ACTIVE_EPS)).float()
+    return _assemble_terms(p, omega, lam, theta, n_srv, beta, phi)
+
+
+def evaluate_batch(problem: PlacementProblem, Xb, hard: bool = True,
+                   temp: float = 1.0) -> PowerBreakdown:
+    """Power breakdown of placements Xb [..., R, V] (int node indices);
+    every field carries the leading dims.
+
+    ``hard=False`` computes the differentiable surrogate of the relaxation
+    solver: Xb is then [..., R, V, P] soft assignment probabilities (pins
+    forced one-hot on their nodes), ceil() becomes a smooth overcount
+    (omega / C + sigmoid(omega / temp)) and each activation indicator a
+    saturating gate (1 - exp(-load / temp)).
+    """
+    p = problem
+    if hard:
+        X = apply_pins(p, Xb)
+        omega, _, lam, theta = _loads(p, X.flatten(-2))
+        per_net, per_proc, violation = _hard_terms(p, omega, lam, theta)
+    else:
+        soft = to_tensor(Xb, p.device, torch.float32)
+        pin_oh = torch.nn.functional.one_hot(p.fixed_node.long(),
+                                             p.P).to(soft.dtype)
+        onehot = torch.where(p.fixed_mask[..., None], pin_oh, soft)
+        omega, _, lam, theta = _soft_loads(p, onehot)
+        n_srv = omega / p.C_pr + torch.sigmoid(omega / temp)
+        beta = 1.0 - torch.exp(-lam / temp)
+        phi = 1.0 - torch.exp(-(omega + theta) / temp)
+        per_net, per_proc, violation = _assemble_terms(
+            p, omega, lam, theta, n_srv, beta, phi)
     net, proc = per_net.sum(-1), per_proc.sum(-1)
     return PowerBreakdown(total=net + proc, net=net, proc=proc,
                           violation=violation, per_proc=per_proc,
                           per_net=per_net, omega=omega)
 
 
-def evaluate(problem: PlacementProblem, X, hard: bool = True
-             ) -> PowerBreakdown:
-    """Total power for one placement X [R, V] (int node indices)."""
-    return evaluate_batch(problem, X, hard=hard)
+def evaluate(problem: PlacementProblem, X, hard: bool = True,
+             temp: float = 1.0) -> PowerBreakdown:
+    """Total power for one placement X [R, V] (int node indices), or with
+    ``hard=False`` the soft surrogate of assignments X [R, V, P]
+    (``evaluate_batch``)."""
+    return evaluate_batch(problem, X, hard=hard, temp=temp)
 
 
 def objective(problem: PlacementProblem, X) -> torch.Tensor:

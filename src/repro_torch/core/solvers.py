@@ -11,6 +11,8 @@ kernels of ``kernels``:
                      plain version on the CPU), ``full`` (full objective per
                      step, the baseline).
   genetic         -- population crossover/mutation search.
+  relax           -- softmax relaxation on the soft power surrogate, Adam
+                     descent on autograd, argmax + coordinate repair.
   solve_portfolio -- spec-driven best-of portfolio, the "CFN MILP" stand-in.
 
 Every solver takes an optional ``eligible`` [R, P] mask (the constraint
@@ -21,6 +23,7 @@ the tests feed them the JAX package's streams.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -332,7 +335,8 @@ def anneal(problem: PlacementProblem, gen: Optional[torch.Generator], X0,
            backend: str = "auto",
            eligible: Optional[np.ndarray] = None,
            record_conv: bool = False,
-           proposals: Optional[tuple] = None) -> SolveResult:
+           proposals: Optional[tuple] = None,
+           restarts=None) -> SolveResult:
     """Batched Metropolis chains on incremental (delta-evaluated) state.
 
     backend:
@@ -343,23 +347,36 @@ def anneal(problem: PlacementProblem, gen: Optional[torch.Generator], X0,
         version on the CPU.  The chains' best placements are re-scored
         exactly (``ops.placement_objective``) to pick the winner.
       * ``"full"``  -- full ``objective_batch`` per step (the baseline).
-      * ``"auto"``  -- fused when the problem lives on CUDA, delta elsewhere.
+      * ``"auto"``  -- fused when the problem lives on CUDA and a variant of
+        the kernel takes its shape, delta elsewhere.  The choice is
+        ``kernels.placement_power.fused_anneal_variant``'s, made before any
+        launch: on the card it is "delta" for D > 32 incident links a VM or
+        2 * D * K > 1024 route slots (the result's method is then
+        ``"anneal"``, not ``"anneal(fused)"``).  An explicit ``"fused"``
+        raises for those shapes.
 
     Chain 0 starts at the warm start ``X0``; the others restart at random
     placements.  ``eligible`` [R, P] projects the warm start, samples the
     restarts and draws every proposal from the mask.  ``proposals``
-    injects ``(fi, p_prop, u)`` streams (see ``_anneal_proposals``).
+    injects ``(fi, p_prop, u)`` streams (see ``_anneal_proposals``) and
+    ``restarts`` [n_chains, R, V] the chains' random starting placements
+    (chain 0's gives way to the warm start), as the tests inject the JAX
+    package's draws.
     ``record_conv=True`` attaches the per-step convergence trace (delta
     and full backends).
     """
-    from ..kernels import ops as kops
+    from ..kernels import ops as kops, placement_power as kpp
     R, V, P = problem.R, problem.V, problem.P
     dev = problem.device
-    if backend == "auto":
-        backend = "fused" if dev.type == "cuda" else "delta"
-    if backend not in ("delta", "fused", "full"):
+    if backend not in ("auto", "delta", "fused", "full"):
         raise ValueError(f"unknown anneal backend {backend!r}")
     aux = build_aux(problem)
+    if backend == "auto":
+        backend = "delta"
+        if dev.type == "cuda" and kpp.fused_anneal_variant(
+                n_chains, R * V, P, problem.N, aux.inc_h.shape[1],
+                problem.K)[0] != "delta":
+            backend = "fused"
     if aux.free_pos.shape[0] == 0:
         # every VM is pinned (e.g. single-VM VSRs): nothing to anneal
         return _result(problem, X0, "anneal")
@@ -371,7 +388,9 @@ def anneal(problem: PlacementProblem, gen: Optional[torch.Generator], X0,
         X = apply_pins(problem, Xp)
     Xc = X.expand(n_chains, R, V)
     # randomize all but chain 0 (keep one chain at the warm start)
-    if el_np is None:
+    if restarts is not None:
+        rand = to_tensor(np.asarray(restarts), dev, torch.int32)
+    elif el_np is None:
         rand = torch.randint(0, P, (n_chains, R, V), generator=gen,
                              dtype=torch.int32).to(dev)
     else:
@@ -538,10 +557,67 @@ def genetic(problem: PlacementProblem, gen: Optional[torch.Generator], X0,
                    [float(h) for h in hist[:: max(1, gens // 50)]])
 
 
-def relax(problem: PlacementProblem, *args, **kwargs) -> SolveResult:
-    raise NotImplementedError(
-        "the differentiable relaxation solver is not ported yet (ROADMAP "
-        "Queue 1, item 3: relax on autograd with the soft evaluate)")
+# ---------------------------------------------------------------------------
+# Differentiable relaxation
+# ---------------------------------------------------------------------------
+
+PENALTY_W = 100.0  # relative weight of violation in the relaxed loss
+
+
+def relax(problem: PlacementProblem, gen: Optional[torch.Generator] = None,
+          steps: int = 800, lr: float = 0.3,
+          temp0: float = 5.0, temp1: float = 0.05,
+          eligible: Optional[np.ndarray] = None,
+          logits0=None) -> SolveResult:
+    """Soft placement: logits -> softmax assignment, smooth power surrogate
+    (``evaluate(hard=False)``), Adam descent with an annealed temperature,
+    then argmax + a 4-sweep coordinate repair.  ``eligible`` [R, P]
+    (optional) biases ineligible nodes' logits by -1e9 (zero probability
+    mass) and masks the repair.
+
+    The starting logits are ``0.01 * randn((R, V, P), generator=gen)``
+    unless ``logits0`` [R, V, P] is given (the tests pass the JAX
+    package's own draw).  The gradient comes from autograd; the Adam steps
+    are written out as the JAX package writes them (b1 0.9, b2 0.999, eps
+    1e-8, bias correction at step i + 1).  ``history`` holds the loss
+    every ``steps // 40`` steps, then the repair's history."""
+    R, V, P = problem.R, problem.V, problem.P
+    dev = problem.device
+    if logits0 is None:
+        gen = default_generator() if gen is None else gen
+        logits0 = 0.01 * torch.randn((R, V, P), generator=gen)
+    logits = to_tensor(logits0, dev, torch.float32)
+    el_np, _, _ = _eligible_np(eligible)
+    bias = (0.0 if el_np is None else torch.where(
+        torch.as_tensor(el_np, device=dev)[:, None, :], 0.0, -1e9))
+
+    def loss_fn(logits, temp):
+        soft = torch.softmax((logits + bias) / max(temp, 1e-3), dim=-1)
+        bd = evaluate(problem, soft, hard=False, temp=temp)
+        # entropy push towards one-hot as temp decays
+        ent = -(soft * torch.log(soft + 1e-9)).sum(-1).mean()
+        return bd.total + 10.0 * PENALTY_W * bd.violation + 0.1 * ent
+
+    m = torch.zeros_like(logits)
+    v = torch.zeros_like(logits)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    history = []
+    for i in range(steps):
+        temp = temp0 * (temp1 / temp0) ** (i / max(1, steps - 1))
+        leaf = logits.detach().requires_grad_(True)
+        loss = loss_fn(leaf, temp)
+        g, = torch.autograd.grad(loss, leaf)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mh = m / (1 - b1 ** (i + 1))
+        vh = v / (1 - b2 ** (i + 1))
+        logits = logits - lr * mh / (torch.sqrt(vh) + eps)
+        if i % max(1, steps // 40) == 0:
+            history.append(float(loss.detach()))
+    X = torch.argmax(logits + bias, dim=-1).to(torch.int32)
+    res = coordinate(problem, X, max_sweeps=4, eligible=eligible)
+    return SolveResult(X=res.X, breakdown=res.breakdown, method="relax",
+                       history=history + res.history)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +656,21 @@ def solve_portfolio(problem: PlacementProblem, topo: CFNTopology,
     best = min(candidates, key=lambda r: r.objective)
     return SolveResult(X=best.X, breakdown=best.breakdown,
                        method=f"cfn-milp({best.method})", history=best.history)
+
+
+def solve_cfn(problem: PlacementProblem, topo: CFNTopology,
+              gen: Optional[torch.Generator] = None,
+              effort: str = "standard") -> SolveResult:
+    """Deprecated shim: builds a ``PlacementSpec(effort=effort)`` and routes
+    through ``solve_portfolio`` (use ``repro_torch.api.CFNSession`` or
+    ``solve_portfolio`` directly); the results are ``solve_portfolio``'s."""
+    from . import api
+    warnings.warn(
+        "solve_cfn() is deprecated; build a repro_torch.api.PlacementSpec "
+        "and call solve_portfolio() (or use repro_torch.api.CFNSession)",
+        DeprecationWarning, stacklevel=2)
+    return solve_portfolio(problem, topo, api.PlacementSpec(effort=effort),
+                           gen)
 
 
 def _pow2(n: int, lo: int = 2) -> int:

@@ -11,7 +11,7 @@
 //   * ONE WARP RUNS ONE CHAIN.  A step has no block barrier: __syncwarp and
 //     warp shuffles only.  The chain's placement X[J], its best placement
 //     bX[J] and its loads omega[P], theta[P], lambda[N] stay in shared
-//     memory for all T steps; chains_per_block warps share one block.
+//     memory for all T steps; cpb chains (warps) share one block.
 //   * The per-node parameters are staged in shared memory once per block
 //     (8 x P and 4 x (N + 1) floats), so no step reads them from global
 //     memory.
@@ -45,6 +45,15 @@
 //   * The best placement follows the live one through a log of the moves
 //     accepted since the last improvement: an improvement replays the log
 //     onto bX (a full copy only when the log overflowed).
+//   * Variant GX (global state): when a chain's X and bX do not fit in
+//     shared memory (at city_p468, J > 26267 VMs), they live in global
+//     memory -- X in a [C, J] scratch the wrapper allocates, bX in the
+//     output itself -- and everything else stays in shared memory.  A step
+//     reads X only at the moved VM and its D neighbours and writes it only
+//     at the moved VM, so the variant adds about D + 1 L1/L2 accesses a
+//     step; the warp that writes X is the only one that reads it, so
+//     __syncwarp orders it as it orders shared memory.  The arithmetic and
+//     its order are those of the shared variant.
 //
 // The arithmetic is that of fused_anneal_ref, operation for operation and
 // in its order, with products and sums rounded separately (__fmul_rn /
@@ -125,8 +134,8 @@ __device__ __forceinline__ float proc_viol(float om, float om2, float th,
 
 struct ChainSmem {
   unsigned* tab;            // [N + 1][W] route bits per node id
-  int* X;                   // [J] live placement
-  int* bX;                  // [J] best placement
+  int* X;                   // [J] live placement (global memory under GX)
+  int* bX;                  // [J] best placement (global memory under GX)
   float* omega;             // [P]
   float* theta;             // [P]
   float* lam;               // [N + 1] (entry N is never written)
@@ -138,9 +147,11 @@ struct ChainSmem {
 // 32-bit words of route bits per node id (2D routes)
 __host__ __device__ inline int words(int D) { return (2 * D + 31) / 32; }
 
-__host__ __device__ inline size_t chain_bytes(int J, int P, int N, int D) {
-  const size_t b = 4 * (size_t)((N + 1) * words(D) + 2 * J + 2 * P +
-                                (N + 1) + 4 * D + kLog);
+// Shared memory of one chain; X and bX only when they live there (!gx).
+__host__ __device__ inline size_t chain_bytes(int J, int P, int N, int D,
+                                              bool gx) {
+  const size_t b = 4 * ((size_t)(N + 1) * words(D) + (gx ? 0 : 2 * (size_t)J)
+                        + 2 * P + (N + 1) + 4 * D + kLog);
   return (b + 15) & ~(size_t)15;
 }
 
@@ -149,12 +160,16 @@ __host__ __device__ inline size_t param_bytes(int P, int N) {
   return (b + 15) & ~(size_t)15;
 }
 
-__device__ ChainSmem carve(unsigned char* base, int J, int P, int N, int D) {
+// Chain c's state: under gx, X and bX are its rows of the global scratch
+// Xg and of the output bXg, and the shared memory holds the rest.
+__device__ ChainSmem carve(unsigned char* base, int J, int P, int N, int D,
+                           bool gx, int* Xg, int* bXg) {
   ChainSmem m;
   m.tab = reinterpret_cast<unsigned*>(base);
-  m.X = reinterpret_cast<int*>(m.tab + (N + 1) * words(D));
-  m.bX = m.X + J;
-  m.omega = reinterpret_cast<float*>(m.bX + J);
+  int* rest = reinterpret_cast<int*>(m.tab + (N + 1) * words(D));
+  m.X = gx ? Xg : rest;
+  m.bX = gx ? bXg : rest + J;
+  m.omega = reinterpret_cast<float*>(gx ? rest : rest + 2 * J);
   m.theta = m.omega + P;
   m.lam = m.theta + P;
   m.inc_o = reinterpret_cast<int*>(m.lam + (N + 1));
@@ -220,8 +235,9 @@ __device__ __forceinline__ void route_ids(
 }
 
 // SPL: slots a lane holds (M <= 32 * SPL); DT: D when it is known at
-// compile time (the chains' D = 1, 2), 0 otherwise.
-template <int SPL, int DT>
+// compile time (the chains' D = 1, 2), 0 otherwise; GX: X and bX in global
+// memory (Xs the [C, J] scratch of X), else in shared memory.
+template <int SPL, int DT, bool GX>
 __global__ void fused_anneal_kernel(
     const int* __restrict__ X0, const int* __restrict__ jprop,
     const int* __restrict__ pprop, const float* __restrict__ uprop,
@@ -231,8 +247,9 @@ __global__ void fused_anneal_kernel(
     const float* __restrict__ lam0, const float* __restrict__ obj0,
     const float* __restrict__ F, const int* __restrict__ route,
     const float* __restrict__ pp, const float* __restrict__ nn,
-    int* __restrict__ bX_out, float* __restrict__ stats, int C, int J, int T,
-    int D_arg, int P, int N, int K) {
+    int* __restrict__ bX_out, float* __restrict__ stats,
+    int* __restrict__ Xs, int C, int J, int T, int D_arg, int P, int N,
+    int K) {
   const int D = DT > 0 ? DT : D_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* pk = reinterpret_cast<float*>(smem_raw);  // [kProcRows][P]
@@ -262,8 +279,9 @@ __global__ void fused_anneal_kernel(
   const int c = blockIdx.x * (blockDim.x >> 5) + warp;
   if (c >= C) return;
   ChainSmem m = carve(smem_raw + param_bytes(P, N) +
-                          (size_t)warp * chain_bytes(J, P, N, D),
-                      J, P, N, D);
+                          (size_t)warp * chain_bytes(J, P, N, D, GX),
+                      J, P, N, D, GX, GX ? Xs + (size_t)c * J : nullptr,
+                      bX_out + (size_t)c * J);
   const int M = 2 * D * K, W = words(D);
 
   for (int i = lane; i < J; i += 32) {
@@ -542,30 +560,33 @@ __global__ void fused_anneal_kernel(
     }
   }
 
-  for (int i = lane; i < J; i += 32) bX_out[(size_t)c * J + i] = m.bX[i];
+  if (!GX)  // under GX, bX is the output row itself
+    for (int i = lane; i < J; i += 32) bX_out[(size_t)c * J + i] = m.bX[i];
   if (lane == 0) {
     stats[2 * c] = bobj;
     stats[2 * c + 1] = obj;
   }
 }
 
-template <int SPL, int DT>
+template <int SPL, int DT, bool GX>
 int launch(int cpb, size_t smem, cudaStream_t stream, const int* X0,
            const int* jprop, const int* pprop, const float* uprop,
            const float* temps, const int* inc_other, const float* inc_h,
            const int* inc_src, const float* omega0, const float* theta0,
            const float* lam0, const float* obj0, const float* F,
            const int* route, const float* pp, const float* nn, int* bX,
-           float* stats, int C, int J, int T, int D, int P, int N, int K) {
+           float* stats, int* Xs, int C, int J, int T, int D, int P, int N,
+           int K) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_anneal_kernel<SPL, DT>,
+      fused_anneal_kernel<SPL, DT, GX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (C + cpb - 1) / cpb;
-  fused_anneal_kernel<SPL, DT><<<grid, 32 * cpb, smem, stream>>>(
+  fused_anneal_kernel<SPL, DT, GX><<<grid, 32 * cpb, smem, stream>>>(
       X0, jprop, pprop, uprop, temps, inc_other, inc_h, inc_src, omega0,
-      theta0, lam0, obj0, F, route, pp, nn, bX, stats, C, J, T, D, P, N, K);
+      theta0, lam0, obj0, F, route, pp, nn, bX, stats, Xs, C, J, T, D, P, N,
+      K);
   return (int)cudaGetLastError();
 }
 
@@ -575,29 +596,39 @@ int launch(int cpb, size_t smem, cudaStream_t stream, const int* X0,
 // inc_other/inc_h/inc_src [J, D]; omega0/theta0 [C, P], lam0 [C, N],
 // obj0 [C]; F [J]; route [P*P, K] int32 (a row's ids distinct); pp [9, P];
 // nn [5, N] -> bX [C, J] int32, stats [C, 2] = (best objective, final
-// objective).  cpb chains (warps) per block; needs D <= 32 and
-// M = 2 * D * K <= 1024.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes it does not take).
+// objective).  cpb chains (warps) per block; global_x: the chains' X and bX
+// in global memory, Xs a [C, J] int32 scratch (unused otherwise); needs
+// D <= 32 and M = 2 * D * K <= 1024.  Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for shapes it does not take).
 extern "C" int fused_anneal_launch(
     const int* X0, const int* jprop, const int* pprop, const float* uprop,
     const float* temps, const int* inc_other, const float* inc_h,
     const int* inc_src, const float* omega0, const float* theta0,
     const float* lam0, const float* obj0, const float* F, const int* route,
-    const float* pp, const float* nn, int* bX, float* stats, int C, int J,
-    int T, int D, int P, int N, int K, int cpb, void* stream) {
+    const float* pp, const float* nn, int* bX, float* stats, int* Xs, int C,
+    int J, int T, int D, int P, int N, int K, int cpb, int global_x,
+    void* stream) {
   const int M = 2 * D * K;
-  if (D > 32 || M > 1024 || cpb < 1 || cpb > 32)
+  if (D > 32 || M > 1024 || cpb < 1 || cpb > 32 ||
+      (global_x && Xs == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = param_bytes(P, N) + (size_t)cpb * chain_bytes(J, P, N, D);
+  const size_t smem =
+      param_bytes(P, N) + (size_t)cpb * chain_bytes(J, P, N, D, global_x);
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_ARGS                                                              \
   cpb, smem, s, X0, jprop, pprop, uprop, temps, inc_other, inc_h, inc_src,   \
-      omega0, theta0, lam0, obj0, F, route, pp, nn, bX, stats, C, J, T, D, P, \
-      N, K
-  if (M <= 64 && D == 1) return launch<2, 1>(FA_ARGS);
-  if (M <= 64 && D == 2) return launch<2, 2>(FA_ARGS);
-  if (M <= 64) return launch<2, 0>(FA_ARGS);
-  if (M <= 256) return launch<8, 0>(FA_ARGS);
-  return launch<32, 0>(FA_ARGS);
+      omega0, theta0, lam0, obj0, F, route, pp, nn, bX, stats, Xs, C, J, T,  \
+      D, P, N, K
+#define FA_DISPATCH(GX)                                        \
+  do {                                                         \
+    if (M <= 64 && D == 1) return launch<2, 1, GX>(FA_ARGS);   \
+    if (M <= 64 && D == 2) return launch<2, 2, GX>(FA_ARGS);   \
+    if (M <= 64) return launch<2, 0, GX>(FA_ARGS);             \
+    if (M <= 256) return launch<8, 0, GX>(FA_ARGS);            \
+    return launch<32, 0, GX>(FA_ARGS);                         \
+  } while (0)
+  if (global_x) FA_DISPATCH(true);
+  FA_DISPATCH(false);
+#undef FA_DISPATCH
 #undef FA_ARGS
 }

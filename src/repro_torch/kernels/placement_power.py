@@ -9,8 +9,9 @@ plain PyTorch versions.
     (src/repro/kernels/placement_power.py:160).
   * ``fused_anneal_cuda`` (``csrc/fused_anneal.cu``) -- whole Metropolis
     chains, one launch for the whole schedule, one warp per chain with its
-    state in shared memory (``fused_anneal_chains_per_block`` chains a
-    block).  Replaces ``fused_anneal_tpu``
+    state in shared memory, or with its placements X and best X in global
+    memory where one chain's do not fit (``fused_anneal_variant`` picks
+    the variant and the chains a block).  Replaces ``fused_anneal_tpu``
     (src/repro/kernels/placement_power.py:377).
 
 ``placement_power_ref`` and ``fused_anneal_ref`` compute the same functions
@@ -18,8 +19,9 @@ in plain PyTorch over the same operands; the CPU tests run them, and the
 card's smoke run holds each kernel against its plain version.  A wrapper
 given CUDA tensors launches its kernel or raises; ``kernels.ops`` picks the
 plain version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
-launches (one per wrapper call that launched), so a run can show that its
-main path went through the kernels.
+launches (one per wrapper call that launched; the fused anneal's per
+variant, ``fused_anneal`` and ``fused_anneal_global``), so a run can show
+that its main path went through the kernels.
 
 Operands (``pack_problem`` / ``pack_aux``): ``route`` is the int32 CSR
 route table ``[P*P, K]`` (sentinel N), read directly by both kernels --
@@ -53,8 +55,10 @@ FUSED_MAX_D = 32
 FUSED_MAX_SLOTS = 1024
 FUSED_LOG = 128
 
-# kernel launches since the last reset, per kernel
-LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0}
+# kernel launches since the last reset, per kernel (the fused anneal's per
+# variant: state in shared memory, X and best X in global memory)
+LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0,
+                            "fused_anneal_global": 0}
 
 
 def reset_launches() -> None:
@@ -74,32 +78,54 @@ def placement_power_cluster_size(B: int) -> int:
 
 
 def fused_anneal_smem_bytes(J: int, P: int, N: int, D: int,
-                            chains: int) -> int:
+                            chains: int, global_x: bool = False) -> int:
     """Dynamic shared memory of one ``csrc/fused_anneal.cu`` block of
-    ``chains`` chains (its ``param_bytes + chains * chain_bytes``)."""
+    ``chains`` chains (its ``param_bytes + chains * chain_bytes``); with
+    ``global_x`` the chains' X and best X are in global memory instead."""
     up16 = lambda b: (b + 15) // 16 * 16
     params = up16(4 * (8 * P + 4 * (N + 1)))
     words = (2 * D + 31) // 32          # route bits per node id
-    chain = up16(4 * ((N + 1) * words + 2 * J + 2 * P + (N + 1) + 4 * D
-                      + FUSED_LOG))
+    chain = up16(4 * ((N + 1) * words + (0 if global_x else 2 * J) + 2 * P
+                      + (N + 1) + 4 * D + FUSED_LOG))
     return params + chains * chain
 
 
-def fused_anneal_chains_per_block(C: int, J: int, P: int, N: int,
-                                  D: int) -> int:
-    """Chains (warps) per block of ``fused_anneal_cuda``: one while the
-    chains fit one to an SM (a step's latency is then the warp's alone),
-    more once C exceeds the 132 SMs, as many as the block's shared memory
-    holds.  Raises if not even one chain fits."""
+def _chains_that_fit(J: int, P: int, N: int, D: int, global_x: bool) -> int:
     fit = 0
-    while fit < 32 and fused_anneal_smem_bytes(J, P, N, D,
-                                               fit + 1) <= SMEM_PER_BLOCK:
+    while fit < 32 and fused_anneal_smem_bytes(
+            J, P, N, D, fit + 1, global_x) <= SMEM_PER_BLOCK:
         fit += 1
-    if fit == 0:
-        raise ValueError(f"one chain (J={J}, P={P}, N={N}, D={D}) needs "
-                         f"{fused_anneal_smem_bytes(J, P, N, D, 1)} bytes "
-                         f"of shared memory, more than {SMEM_PER_BLOCK}")
-    return min(fit, max(1, -(-C // N_SMS)))
+    return fit
+
+
+def fused_anneal_variant(C: int, J: int, P: int, N: int, D: int,
+                         K: int) -> Tuple[str, int]:
+    """Which ``fused_anneal_cuda`` variant runs C chains of J VMs (P
+    processing nodes, N network nodes, D incident links a VM, K route
+    slots), and how many chains a block: ``("shared", cpb)`` while one
+    chain's state fits a block's shared memory (at P = 468, N = 126, D = 2:
+    J <= 26267), else ``("global", cpb)``, the chains' X and best X in
+    global memory.  cpb is one while the chains fit one to an SM (a
+    step's latency is then the warp's alone), more once C exceeds the
+    132 SMs, as many as the block's shared memory holds.
+
+    ``("delta", 0)`` where no variant takes the shape: D > 32 or
+    2 * D * K > 1024 (two 32-bit words of route bits, at most 32 slots a
+    lane), or a block's per-node parameters and one chain's tables over
+    the shared memory even without X.  ``anneal(backend="auto")`` then
+    takes its ``"delta"`` backend, and ``fused_anneal_cuda`` raises.
+    Raises ValueError only for a negative size."""
+    if min(C, J, P, N, D, K) < 0:
+        raise ValueError(f"negative size in C={C}, J={J}, P={P}, N={N}, "
+                         f"D={D}, K={K}")
+    if D > FUSED_MAX_D or 2 * D * K > FUSED_MAX_SLOTS:
+        return "delta", 0
+    per_sm = max(1, -(-C // N_SMS))
+    for variant, global_x in (("shared", False), ("global", True)):
+        fit = _chains_that_fit(J, P, N, D, global_x)
+        if fit:
+            return variant, min(fit, per_sm)
+    return "delta", 0
 
 
 def mask_proposals(j_prop: torch.Tensor, p_prop: torch.Tensor,
@@ -187,6 +213,14 @@ def placement_power_ref(X, link_src, link_dst, F, H, route, proc_params,
     return _terms(omega, theta, lam[:, :N], proc_params, net_params)
 
 
+def _div1e3(x: torch.Tensor) -> torch.Tensor:
+    """x / 1000 rounded as IEEE division, on any device.  On CUDA, PyTorch
+    divides by a Python number as a product with its float reciprocal,
+    which can differ from the quotient in the last bit; dividing by a
+    tensor divides exactly, as the kernel does (``div1e3``)."""
+    return x / torch.full((), 1e3, dtype=x.dtype, device=x.device)
+
+
 def _warp_sum(v: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis (M slots) in the kernel's order: lane l sums
     slots l, l + 32, ... in turn, then a butterfly over the 32 lanes
@@ -243,7 +277,7 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     def proc(om, th, g):
         Ep, Cp, pip, puep, ELp, spp = g[:6]
         phi = ((om > ACTIVE_EPS) | (th > ACTIVE_EPS)).float()
-        return puep * (Ep * om + torch.ceil(om / Cp) * pip + ELp * th / 1e3
+        return puep * (Ep * om + torch.ceil(om / Cp) * pip + _div1e3(ELp * th)
                        + phi * spp)
 
     Xc = X.clone()
@@ -285,7 +319,7 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
         d_proc = (proc(om2, th2, g) - proc(om, th, g)).sum(1)
         cap, Cl = g[6], g[7]
         d_viol = (relu(om2 - cap) - relu(om - cap)
-                  + relu(th2 / 1e3 - Cl) - relu(th / 1e3 - Cl)).sum(1)
+                  + relu(_div1e3(th2) - Cl) - relu(_div1e3(th) - Cl)).sum(1)
         # ---- network terms on the touched route ids ---------------------
         a2 = torch.cat([po[:, None].expand(-1, D),
                         pn[:, None].expand(-1, D)], 1)
@@ -312,9 +346,9 @@ def fused_anneal_ref(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
         b_d = (lam_new > ACTIVE_EPS).float() - (lam_old > ACTIVE_EPS).float()
         zero = torch.zeros_like(lam_new)
         d_net = _warp_sum(torch.where(first, pue_g * (
-            eps_g * (lam_new - lam_old) / 1e3 + b_d * idle_g), zero))
+            _div1e3(eps_g * (lam_new - lam_old)) + b_d * idle_g), zero))
         d_viol = d_viol + _warp_sum(torch.where(first, (
-            relu(lam_new / 1e3 - cnet_g) - relu(lam_old / 1e3 - cnet_g)),
+            relu(_div1e3(lam_new) - cnet_g) - relu(_div1e3(lam_old) - cnet_g)),
             zero))
         delta = d_proc + d_net + PENALTY * d_viol
         # ---- Metropolis accept, commit, best tracking -------------------
@@ -416,10 +450,11 @@ def placement_power_launch(out, X, link_src, link_dst, F, H, route,
 def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
                       inc_src, omega0, theta0, lam0, obj0, F, route,
                       proc_params, net_params):
-    """Launch ``csrc/fused_anneal.cu`` (one warp per chain).  Operands as
-    ``fused_anneal_ref``; returns (best_X [C, J] int32, stats [C, 2]).
-    Takes D <= 32 incident links per VM and M = 2 * D * K <= 1024 route
-    slots."""
+    """Launch ``csrc/fused_anneal.cu`` (one warp per chain) in the variant
+    ``fused_anneal_variant`` picks.  Operands as ``fused_anneal_ref``;
+    returns (best_X [C, J] int32, stats [C, 2]).  Raises where no variant
+    takes the shape: D > 32 incident links per VM or M = 2 * D * K > 1024
+    route slots."""
     C, J = X.shape
     T = temps.shape[0]
     D = inc_h.shape[1]
@@ -445,9 +480,11 @@ def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     _check_range(X, P, "X")
     _check_range(p_prop, P, "p_prop")
     _check_range(j_prop, J, "j_prop")
-    if D > FUSED_MAX_D or 2 * D * K > FUSED_MAX_SLOTS:
+    variant, _ = fused_anneal_variant(C, J, P, N, D, K)
+    if variant == "delta":
         raise ValueError(f"fused_anneal_cuda takes D <= {FUSED_MAX_D} and "
-                         f"2 * D * K <= {FUSED_MAX_SLOTS}, got D={D}, K={K}")
+                         f"2 * D * K <= {FUSED_MAX_SLOTS}, got D={D}, K={K} "
+                         f"(P={P}, N={N})")
     bX = torch.empty((C, J), dtype=i32, device=X.device)
     stats = torch.empty((C, 2), dtype=f32, device=X.device)
     if C == 0:
@@ -455,20 +492,27 @@ def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     fused_anneal_launch(bX, stats, X, j_prop, p_prop, u_prop, temps,
                         inc_other, inc_h, inc_src, omega0, theta0, lam0,
                         obj0, F, route, proc_params, net_params)
-    LAUNCHES["fused_anneal"] += 1
+    LAUNCHES["fused_anneal" if variant == "shared"
+             else "fused_anneal_global"] += 1
     return bX, stats
 
 
 def fused_anneal_launch(bX, stats, *args) -> None:
     """The launch of ``fused_anneal_cuda`` into ``bX`` [C, J] and ``stats``
     [C, 2], without its checks, its host syncs or its count (so a CUDA
-    graph can capture it); ``args`` as ``fused_anneal_cuda``'s, C >= 1."""
+    graph can capture it); ``args`` as ``fused_anneal_cuda``'s, C >= 1, a
+    shape some variant takes.  The global variant's X lives in a [C, J]
+    scratch allocated here."""
     X, temps, inc_h, route, proc_params, net_params = (
         args[0], args[4], args[6], args[13], args[14], args[15])
     C, J = X.shape
     T, D, K = temps.shape[0], inc_h.shape[1], route.shape[1]
     P, N = proc_params.shape[1], net_params.shape[1]
+    variant, cpb = fused_anneal_variant(C, J, P, N, D, K)
+    global_x = variant == "global"
+    scratch = torch.empty_like(bX) if global_x else None
     lib = _build.library("fused_anneal")
     _launch(lib.fused_anneal_launch, *(_ptr(t) for t in args), _ptr(bX),
-            _ptr(stats), C, J, T, D, P, N, K,
-            fused_anneal_chains_per_block(C, J, P, N, D))
+            _ptr(stats),
+            ctypes.c_void_p(scratch.data_ptr() if global_x else None),
+            C, J, T, D, P, N, K, cpb, int(global_x))

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.core import power as tp, solvers as tsolvers
+from repro_torch.core import power as tp, solvers as tsolvers, \
+    topology as ttopo, vsr as tvsr
 from repro_torch.kernels import ops as tops, placement_power as tpp, \
     ref as tref
 from test_torch_kernels import _city_on, _pair, _streams, hopper  # noqa: F401
@@ -41,18 +42,83 @@ def test_placement_power_cluster_size(B, cs):
 
 def test_fused_anneal_chains_per_block():
     # city_p468, R = 1024 chains of 3 VMs: one chain a block up to 132
-    J, P, N, D = 3072, 468, 126, 2
-    assert tpp.fused_anneal_chains_per_block(32, J, P, N, D) == 1
-    assert tpp.fused_anneal_chains_per_block(132, J, P, N, D) == 1
-    assert tpp.fused_anneal_chains_per_block(133, J, P, N, D) == 2
+    J, P, N, D, K = 3072, 468, 126, 2, 14
+    cpb = lambda C, J=J: tpp.fused_anneal_variant(C, J, P, N, D, K)
+    assert cpb(32) == ("shared", 1)
+    assert cpb(132) == ("shared", 1)
+    assert cpb(133) == ("shared", 2)
     # capped by the shared memory a block holds (~30 KB a chain here)
-    cpb = tpp.fused_anneal_chains_per_block(4096, J, P, N, D)
-    assert cpb == 7
-    assert tpp.fused_anneal_smem_bytes(J, P, N, D, cpb) <= tpp.SMEM_PER_BLOCK
-    assert (tpp.fused_anneal_smem_bytes(J, P, N, D, cpb + 1)
+    many = cpb(4096)[1]
+    assert many == 7
+    assert tpp.fused_anneal_smem_bytes(J, P, N, D, many) <= tpp.SMEM_PER_BLOCK
+    assert (tpp.fused_anneal_smem_bytes(J, P, N, D, many + 1)
             > tpp.SMEM_PER_BLOCK)
-    with pytest.raises(ValueError, match="shared memory"):
-        tpp.fused_anneal_chains_per_block(1, 40000, P, N, D)
+    # a chain too large for the shared memory takes the global variant
+    assert cpb(1, J=40000)[0] == "global"
+
+
+@pytest.mark.parametrize("J,variant", [(3072, "shared"), (26267, "shared"),
+                                       (26268, "global"), (27000, "global"),
+                                       (200000, "global")])
+def test_fused_anneal_variant_at_city_scale(J, variant):
+    """city_p468 chains of 3 VMs (P = 468, N = 126, D = 2, K = 14): one
+    chain's X and best X fit a block's shared memory up to J = 26267 VMs
+    (8755 VSRs), and past it they live in global memory."""
+    P, N, D, K = 468, 126, 2, 14
+    got, cpb = tpp.fused_anneal_variant(32, J, P, N, D, K)
+    assert (got, cpb) == (variant, 1)
+    gx = variant == "global"
+    assert tpp.fused_anneal_smem_bytes(J, P, N, D, 1, gx) \
+        <= tpp.SMEM_PER_BLOCK
+    assert (tpp.fused_anneal_smem_bytes(J, P, N, D, 1)
+            > tpp.SMEM_PER_BLOCK) == gx
+    # past 132 chains a block holds two, where two fit (not at the cap)
+    two = tpp.fused_anneal_smem_bytes(J, P, N, D, 2, gx) \
+        <= tpp.SMEM_PER_BLOCK
+    assert two == (J != 26267)
+    assert tpp.fused_anneal_variant(141, J, P, N, D, K)[1] == 1 + two
+    many = tpp.fused_anneal_variant(4096, J, P, N, D, K)[1]
+    assert tpp.fused_anneal_smem_bytes(J, P, N, D, many, gx) \
+        <= tpp.SMEM_PER_BLOCK
+    assert many == 32 or tpp.fused_anneal_smem_bytes(
+        J, P, N, D, many + 1, gx) > tpp.SMEM_PER_BLOCK
+
+
+def test_fused_anneal_variant_delta_where_no_kernel_applies():
+    """``("delta", 0)`` for D > 32 (a star VSR of 34 VMs has D = 33) or
+    2 * D * K > 1024, and for per-node tables over the shared memory;
+    ValueError only for a negative size."""
+    prob = tp.build_problem(ttopo.paper_topology(), tvsr.random_vsrs(
+        2, rng=0, n_vms=34, source_nodes=[0], topology="star"),
+        device="cpu")
+    D = int(tp.build_aux(prob).inc_h.shape[1])
+    assert D == 33
+    assert tpp.fused_anneal_variant(32, prob.R * prob.V, prob.P, prob.N,
+                                    D, prob.K) == ("delta", 0)
+    assert tpp.fused_anneal_variant(32, 100, 468, 126, 32, 16)[0] == \
+        "shared"                                      # 2 D K = 1024
+    assert tpp.fused_anneal_variant(32, 100, 468, 126, 32, 17) == \
+        ("delta", 0)                                  # 2 D K = 1088
+    assert tpp.fused_anneal_variant(1, 10, 8000, 126, 2, 14) == \
+        ("delta", 0)                                  # 8 P floats > cap
+    with pytest.raises(ValueError, match="negative"):
+        tpp.fused_anneal_variant(-1, 10, 468, 126, 2, 14)
+
+
+def test_anneal_auto_off_the_card_is_delta():
+    """Off the card ``"auto"`` is the delta backend whatever the shape; an
+    explicit ``"fused"`` runs the kernel's plain version on the CPU."""
+    topo = ttopo.paper_topology()
+    prob = tp.build_problem(topo, tvsr.random_vsrs(
+        2, rng=0, n_vms=34, source_nodes=[0], topology="star"),
+        device="cpu")
+    X0 = tsolvers.fixed_layer(prob, topo, "iot").X
+    res = tsolvers.anneal(prob, tsolvers.default_generator(0), X0,
+                          n_chains=4, n_steps=20)
+    assert res.method == "anneal"
+    fused = tsolvers.anneal(prob, tsolvers.default_generator(0), X0,
+                            n_chains=4, n_steps=20, backend="fused")
+    assert fused.method == "anneal(fused)"
 
 
 @pytest.mark.parametrize("M", [1, 28, 56, 70, 140])
@@ -188,12 +254,12 @@ def _fused_args(topo, prob, C, T, seed):
             *tpp.pack_aux(aux), *loads, F, route, pp_, nn_)
 
 
-def _held(prob, args):
+def _held(prob, args, key="fused_anneal"):
     C = args[0].shape[0]
-    n = tpp.LAUNCHES["fused_anneal"]
+    n = tpp.LAUNCHES[key]
     bk, sk = tpp.fused_anneal_cuda(*args)
     torch.cuda.synchronize()
-    assert tpp.LAUNCHES["fused_anneal"] == n + 1
+    assert tpp.LAUNCHES[key] == n + 1
     br, sr = tpp.fused_anneal_ref(*args)
     assert int((bk == br).all(1).sum()) == C
     torch.testing.assert_close(sk, sr, rtol=1e-5, atol=5e-2)
@@ -220,6 +286,20 @@ def test_fused_anneal_warp_kernel_star(hopper):
     D, K = args[6].shape[1], args[13].shape[1]
     assert 2 * D * K > 64
     _held(prob, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [5, 33])
+def test_fused_anneal_global_kernel_vs_plain(hopper, C):
+    """9000 VSRs of 3 VMs at city_p468: J = 27000 VMs, past the shared
+    memory's cap, so the chains' X and best X live in global memory; every
+    chain equal to the plain version's."""
+    topo, prob = _city_on(hopper, n_vsrs=9000)
+    args = _fused_args(topo, prob, C, 300, seed=C)
+    J, D, K = args[0].shape[1], args[6].shape[1], args[13].shape[1]
+    assert tpp.fused_anneal_variant(C, J, prob.P, prob.N, D, K)[0] == \
+        "global"
+    _held(prob, args, key="fused_anneal_global")
 
 
 @pytest.mark.gpu

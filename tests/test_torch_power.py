@@ -235,7 +235,17 @@ def test_summarize_matches_jax(pair):
 
 
 def test_soft_evaluate_not_ported():
-    tt = ttopo.paper_topology()
+    """The soft surrogate (``hard=False``), once unported, now equals the
+    JAX package's on a uniform assignment (rtol 1e-5; the gradient is
+    held in tests/test_torch_relax.py)."""
+    jt, tt = jtopo.paper_topology(), ttopo.paper_topology()
+    jprob = jp.build_problem(jt, jvsr.random_vsrs(2))
     prob = tp.build_problem(tt, tvsr.random_vsrs(2), device=CPU)
-    with pytest.raises(NotImplementedError):
-        tp.evaluate(prob, np.zeros((prob.R, prob.V), np.int32), hard=False)
+    soft = np.full((prob.R, prob.V, prob.P), 1.0 / prob.P, np.float32)
+    for temp in (1.0, 0.05):
+        want = jp.evaluate(jprob, jnp.asarray(soft), hard=False, temp=temp)
+        got = tp.evaluate(prob, soft, hard=False, temp=temp)
+        for name in ("total", "violation", "per_net", "per_proc"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)),
+                                       rtol=1e-5, atol=1e-6)

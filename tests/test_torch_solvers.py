@@ -217,5 +217,17 @@ def test_pow2_and_relax():
     assert [ts._pow2(n) for n in (0, 1, 2, 3, 5, 16, 17)] == \
         [js._pow2(n) for n in (0, 1, 2, 3, 5, 16, 17)]
     assert ts._pow2(3, lo=8) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.relax(None)
+    # relax (200 steps) on the reference's starting logits: the loss
+    # history within rtol 1e-3, the repaired placement equal
+    kw = dict(rng=2, n_vms=2, source_nodes=[0])
+    jt = jtopo.paper_topology(n_iot=4, n_zones=2)
+    tt = ttopo.paper_topology(n_iot=4, n_zones=2)
+    jprob = jp.build_problem(jt, jvsr.random_vsrs(2, **kw))
+    tprob = tp.build_problem(tt, tvsr.random_vsrs(2, **kw), device="cpu")
+    key = jax.random.PRNGKey(2)
+    want = js.relax(jprob, key, steps=200)
+    got = ts.relax(tprob, None, steps=200, logits0=np.asarray(
+        0.01 * jax.random.normal(key, (tprob.R, tprob.V, tprob.P))))
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-3)
+    np.testing.assert_array_equal(got.X, want.X)
+    assert got.method == "relax"
