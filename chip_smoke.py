@@ -26,6 +26,11 @@ nvcc per source, in parallel), then
   3c. runs the default anneal on 9000 VSRs (J = 27000 VMs, past the
      shared-memory cap) through the fused kernel's global-state variant,
      and on star VSRs with D = 33 links, where it takes the delta backend;
+  3d. replays churn through the online engine (``CFNSession``) at
+     city_p468: 64 services bootstrapped, then eight departures and
+     arrivals, each an incremental re-solve re-scored by placement_power,
+     the eighth with the periodic full solve; each event held to the
+     float64 oracle and to its warm start, its seconds split by stage;
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
@@ -40,10 +45,10 @@ nvcc per source, in parallel), then
      cached decode against the forward pass, and places the served model
      on the datacenter CFN.
 
-Each phase prints one JSON line (3a-3c also their seconds); then the
+Each phase prints one JSON line (3a-3d also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
-3, the global anneal variant's in phase 3c, the flash kernels' in phase
-5; errors and times), the card's name and power limit, and last
+3 and, as ``launches_churn``, in phase 3d, the global anneal variant's in
+phase 3c, the flash kernels' in phase 5; errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
 
@@ -167,13 +172,21 @@ def fused_anneal_bound(args, rows_read, D):
     return bound_ms(n_bytes, n_ops)
 
 
-def city_workload(n_vsrs: int = 1024):
-    """city_p468 with ``n_vsrs`` VSRs of 3 VMs, sources 64 IoT nodes (numpy
-    seed 0)."""
-    from repro_torch.core import topology, vsr
+def city_sources():
+    """city_p468, its 64 IoT source nodes (numpy seed 0) and the numpy
+    generator after that draw."""
+    from repro_torch.core import topology
     topo = topology.city_scale(n_olt=16, onus_per_olt=4, iot_per_onu=7)
     rng = np.random.default_rng(0)
     sources = rng.choice(topo.layer_indices("iot"), size=64, replace=False)
+    return topo, sources, rng
+
+
+def city_workload(n_vsrs: int = 1024):
+    """city_p468 with ``n_vsrs`` VSRs of 3 VMs, sources 64 IoT nodes (numpy
+    seed 0)."""
+    from repro_torch.core import vsr
+    topo, sources, rng = city_sources()
     return topo, vsr.random_vsrs(n_vsrs, rng=rng, n_vms=3,
                                  source_nodes=sources)
 
@@ -763,6 +776,181 @@ def phase_anneal_past_cap() -> dict:
     return launches
 
 
+# phase 3d: live services and churn events.  Cut from phase 3's 1024
+# services: an event's polish sweeps every free VM (padded to R x (V - 1)
+# positions) twice, at ~10 ms a position
+CHURN_R = 64
+CHURN_EVENTS = 8
+
+
+def phase_churn() -> dict:
+    """Phase 3d: the online churn engine at city_p468, through
+    ``CFNSession``.  Bootstrap 64 services of ``city_workload`` (one
+    cfn-milp solve), then replay ``churn_trace(64, 8, rng=0)``'s eight
+    events (departures and arrivals in turn; an arrival's VSR from seed
+    1000 + sid at source ``sources[sid % 64]``) under
+    ``PlacementSpec(defrag_every=8)``: each event detaches or attaches one
+    service's loads, re-solves incrementally (targeted sweeps, a 600-step
+    x 8-chain delta anneal, the placement_power re-score, two polish
+    sweeps), and the eighth also runs the periodic full solve against its
+    incremental incumbent.  After every event the committed objective
+    must be the float64 oracle's (5e-2 + 1e-5 |obj|) and no more than
+    1e-3 above the exact objective of the event's warm start; then the
+    live sids must be the trace's, the per-tenant watts must sum to the
+    fleet's (1e-6 relative), and a detach / attach round trip must give
+    back ``init_state``'s loads (rtol 1e-5, atol 1e-2)."""
+    import torch
+    from repro_torch.api import CFNSession, PlacementSpec
+    from repro_torch.core import dynamic, embed, power, solvers, vsr
+    from repro_torch.kernels import ops, placement_power as pp, ref
+    t_all = time.perf_counter()
+    topo, batch = city_workload(CHURN_R)
+    sources = city_sources()[1]
+    events = dynamic.churn_trace(CHURN_R, CHURN_EVENTS, rng=0)[CHURN_R:]
+
+    def make_vsr(sid):
+        return vsr.random_vsrs(1, rng=1000 + sid, n_vms=3,
+                               source_nodes=[sources[sid % CHURN_R]])
+
+    # each event's seconds split by stage: wrappers that time the
+    # re-solve's stages (and the eighth event's full solve) on the card
+    split: dict = {}
+    where = {"in_resolve": False, "rescored": False}
+    resolves = []          # (problem, warm-start X, result) per re-solve
+    originals = {"resolve_incremental": solvers.resolve_incremental,
+                 "_sweep": solvers._sweep,
+                 "_anneal_scan_delta": solvers._anneal_scan_delta,
+                 "placement_objective": ops.placement_objective,
+                 "_embed": embed._embed}
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            if stage != "full_solve" and not where["in_resolve"]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            name = stage
+            if stage == "sweep":
+                name = "polish" if where["rescored"] else "targeted_sweep"
+            where["rescored"] |= stage == "rescore"
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def resolve(problem, **kwargs):
+        where.update(in_resolve=True, rescored=False)
+        try:
+            res = originals["resolve_incremental"](problem, **kwargs)
+        finally:
+            where["in_resolve"] = False
+        resolves.append((problem, kwargs["state"].X, res))
+        return res
+
+    per_event = []
+    clock = {}
+
+    def on_event(ev, res):
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - clock["t0"]
+        check(res is not None and len(resolves) == len(per_event) + 1,
+              f"churn: event {ev} gave {res} after {len(resolves)} "
+              "re-solves")
+        obj = session.objective()
+        f64 = ref.placement_objective_f64(session.problem, session.X)
+        check(abs(obj - f64) <= 5e-2 + 1e-5 * abs(f64),
+              f"churn: {ev}: objective {obj} vs float64 oracle {f64}")
+        prob, X_warm, inc = resolves[-1]
+        warm = float(power.objective(prob, X_warm))
+        check(obj <= warm + 1e-3,
+              f"churn: {ev}: objective {obj} above its warm start {warm}")
+        per_event.append(dict(
+            kind=ev.kind, sid=ev.sid, method=res.method, objective=obj,
+            power_w=session.power_w(), f64_objective=f64,
+            warm_objective=warm, incremental_objective=inc.objective,
+            n_live=session.n_live, seconds=seconds,
+            split_s=dict(split),
+            other_s=seconds - sum(split.values())))
+        split.clear()
+        clock["t0"] = time.perf_counter()
+
+    spec = PlacementSpec(defrag_every=CHURN_EVENTS)
+    pp.reset_launches()
+    t0 = time.perf_counter()
+    session = CFNSession(topo, spec, device="cuda")
+    boot = session.solve(batch)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    boot_launches = dict(pp.LAUNCHES)
+    solvers.resolve_incremental = resolve
+    solvers._sweep = timed("sweep", originals["_sweep"])
+    solvers._anneal_scan_delta = timed("anneal",
+                                       originals["_anneal_scan_delta"])
+    ops.placement_objective = timed("rescore",
+                                    originals["placement_objective"])
+    embed._embed = timed("full_solve", originals["_embed"])
+    try:
+        clock["t0"] = t_events = time.perf_counter()
+        session.replay(events, make_vsr, on_event=on_event)
+        events_s = time.perf_counter() - t_events
+        launches = dict(pp.LAUNCHES)
+    finally:
+        solvers.resolve_incremental = originals["resolve_incremental"]
+        solvers._sweep = originals["_sweep"]
+        solvers._anneal_scan_delta = originals["_anneal_scan_delta"]
+        ops.placement_objective = originals["placement_objective"]
+        embed._embed = originals["_embed"]
+
+    check(len(per_event) == CHURN_EVENTS,
+          f"churn: {len(per_event)} of {CHURN_EVENTS} events ran")
+    live = set(range(CHURN_R))
+    for ev in events:
+        (live.add if ev.kind == "arrive" else live.discard)(ev.sid)
+    check(sorted(session.sids) == sorted(live),
+          f"churn: live sids {sorted(session.sids)} != {sorted(live)}")
+    last = per_event[-1]
+    check(last["method"].startswith(("cfn-milp", "defrag-kept"))
+          and session.stats[-1].objective <= last["incremental_objective"]
+          + 1e-6, f"churn: the eighth event's full solve: {last}")
+    check(launches["placement_power"] >= CHURN_EVENTS + 1
+          and launches["fused_anneal"] >= 2,
+          f"churn: launches {launches}")
+    per = session.attribute()
+    check(set(per) == set(session.sids)
+          and abs(sum(per.values()) - session.power_w())
+          <= 1e-6 * max(1.0, session.power_w()),
+          f"churn: per-tenant watts sum {sum(per.values())} vs "
+          f"{session.power_w()}")
+    prob, X = session.problem, session.X
+    st0 = power.init_state(prob, X)
+    back = power.attach_vsrs(prob, power.detach_vsrs(prob, st0, [5]), [5])
+    rt_err = {}
+    for name in ("omega", "tm", "theta", "lam"):
+        a, b = getattr(back, name), getattr(st0, name)
+        rt_err[name] = float((a - b).abs().max())
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-2)),
+              f"churn: round trip {name} off by {rt_err[name]}")
+    rescore(session, session.result)
+    polish = [e["split_s"].get("polish", 0.0) for e in per_event]
+    emit("churn_city_p468_R64",
+         cut=f"R={CHURN_R} live services (phase 3 runs 1024): an event's "
+             "polish sweeps every free VM, padded to R x (V - 1) "
+             "positions, twice, at ~10 ms a position",
+         P=prob.P, N=prob.N, K=prob.K, R=prob.R, V=prob.V,
+         bootstrap_s=boot_s, bootstrap_objective=boot.objective,
+         bootstrap_method=boot.method, bootstrap_launches=boot_launches,
+         events=per_event, events_s=events_s,
+         polish_positions=2 * prob.R * (prob.V - 1),
+         polish_ms_per_position_median=statistics.median(polish) * 1e3
+         / (2 * prob.R * (prob.V - 1)),
+         launches=launches, live_sids=sorted(session.sids),
+         attribute_sum_w=sum(per.values()), power_w=session.power_w(),
+         roundtrip_max_abs_err=rt_err,
+         seconds_total=time.perf_counter() - t_all)
+    return launches
+
+
 # the reference's kernel test shapes (tests/test_kernels.py:12-21):
 # B, H, KH, Sq, Skv, D, causal, window, cap, dtype
 FLASH_CASES = [
@@ -1223,6 +1411,9 @@ def main() -> int:
     launches = phase_anneal_past_cap()
     kernels["fused_anneal_global"]["launches"] = launches[
         "fused_anneal_global"]
+    launches = phase_churn()
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["launches_churn"] = launches[name]
     for name in ("placement_power", "fused_anneal", "fused_anneal_global"):
         # no single PyTorch call computes either placement function
         kernels[name]["library_ms"] = None

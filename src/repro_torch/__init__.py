@@ -2,7 +2,8 @@
 is the reference).
 
 ``repro_torch.api`` is the user surface (``PlacementSpec``, ``CFNSession``);
-``core`` holds the substrate, workload, power model and solvers;
+``core`` holds the substrate, workload, power model, solvers and the
+online churn engine;
 ``configs`` and ``models`` the architecture configurations and the dense
 transformer stack; ``serve`` the KV cache and the prefill / decode engine;
 ``kernels`` the CUDA kernels for Hopper (``csrc/*.cu``), their launch

@@ -1,2 +1,3 @@
-"""Paper core, batch path: CFN topology, VSRs, the power model (Eq. 1/2)
-with its delta engine, the placement solvers, and the declarative API."""
+"""Paper core: CFN topology, VSRs, the power model (Eq. 1/2) with its delta
+engine and per-service state operations, the placement solvers, the
+online churn engine, and the declarative API."""

@@ -6,33 +6,37 @@
     portfolio method/effort, and the anneal backend.  ``spec.masks(problem)``
     builds the [R, P] eligibility mask in ONE place; every solver path
     consumes that same mask.
-  * **CFNSession** -- topology + spec + the live result, on one device:
-    ``solve(vsrs)`` embeds a whole VSR batch, ``savings_vs_baseline``
-    reports the paper's headline metric.
+  * **CFNSession** -- the facade owning topology + spec + warm state, on
+    one device: ``solve()`` embeds a whole VSR batch (or re-packs the live
+    set), ``add`` / ``remove`` are warm-start churn events, ``defrag()``
+    re-packs under the SAME spec, ``attribute()`` splits fleet watts per
+    tenant, ``replay()`` drives a churn timeline and
+    ``savings_vs_baseline`` reports the paper's headline metric.
 
     from repro_torch.api import CFNSession, PlacementSpec
-    spec = PlacementSpec(max_hops=2)
+    spec = PlacementSpec(max_hops=2, power_budget_w=500.0)
     session = CFNSession(topo, spec)         # on the CUDA card by default
-    session.solve(vsrs)
+    session.solve(vsrs)                      # batch embedding
+    session.add(service); session.defrag()   # online churn, masked defrag
 
-Not yet ported (ROADMAP Queue 1): the online churn methods (``add``,
-``remove``, ``apply_wave``, ``defrag``, the fault handlers) and substrate
-health, with the online-engine slice.
+Not yet ported (ROADMAP Queue 1): churn waves, the rejection queue,
+priority admission and preemption and the amortized ``defrag_tick`` (item
+5 (b)); substrate health and the fault handlers (item 5 (c)); federation
+(item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from . import embed as embed_mod, vsr as vsr_mod
+from . import dynamic, embed as embed_mod, vsr as vsr_mod
 from .embed import METHODS
-from .power import (Device, PlacementProblem, build_problem, resolve_device,
-                    substrate_arrays)
-from .solvers import SolveResult, _pow2, default_generator, solve_portfolio
+from .power import Device, PlacementProblem, build_problem
+from .solvers import SolveResult, solve_portfolio
 from .topology import CFNTopology
 
 __all__ = ["PlacementSpec", "CFNSession", "SolveResult", "solve_portfolio"]
@@ -54,16 +58,21 @@ class PlacementSpec:
         mask (rows beyond its length are unconstrained).
       * ``health`` -- substrate up/down state; not ported yet, so a spec
         that sets it raises.
-    Federation fields (``region_*``, ``inter_region_hops``) and admission
-    budgets (``power_budget_w``, ``violation_tol``, ``queue_rejected``,
-    ``priority_classes``, ``preempt``, ``defrag_rows_per_tick``) are kept
-    for the slices that consume them; the batch path ignores them.
+    Admission (the online engine): ``power_budget_w`` / ``violation_tol``
+    reject an arrival whose power draw / violation increase exceeds them.
+    ``queue_rejected``, ``priority_classes`` > 1, ``preempt`` and
+    ``defrag_rows_per_tick`` > 0 need the unported wave / queue plane and
+    raise at the first churn event (ROADMAP Queue 1, item 5 (b)); the
+    federation fields (``region_*``, ``inter_region_hops``) wait for item
+    6.  The batch path ignores all of them.
     Shape bucketing: ``bucket_rows``/``bucket_cols`` pad R and V to
     power-of-two buckets (``row_bucket_lo``/``col_bucket_lo`` the smallest).
     Solver: ``method`` (one of ``embed.METHODS``), ``effort`` ("quick",
     "standard" = +4000-step anneal, "high" = +12000 steps and genetic),
-    ``backend`` ("auto"/"delta"/"fused"/"full"), and the incremental
-    re-solve knobs of the online slice.
+    ``backend`` ("auto"/"delta"/"fused"/"full"); the online engine's
+    ``defrag_every`` (a full solve every n churn events, 0 = never) and
+    its incremental re-solve knobs (``sweeps``, ``anneal_*``,
+    ``remove_anneal_t0``, ``polish_sweeps``).
     """
 
     # constraints --------------------------------------------------------
@@ -166,11 +175,18 @@ def _split_services(vsrs: vsr_mod.VSRBatch) -> List[vsr_mod.VSRBatch]:
 
 
 class CFNSession:
-    """The CFN placement facade: topology + spec + live result, one device.
+    """The CFN placement facade: topology + spec + warm state, one device.
+
+    Batch embedding (``solve(vsrs)``), online churn (``add`` / ``remove``),
+    the masked full re-pack (``defrag``, or ``solve()`` with no batch),
+    per-tenant power accounting (``attribute``) and timeline replay
+    (``replay``).  The session's engine (``core.dynamic.OnlineEmbedder``)
+    carries the placement and the incremental load state between events;
+    every solve enforces ``spec.masks`` identically.
 
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
-    default), advanced by every full solve.
+    default), advanced by every solve.
     """
 
     def __init__(self, topo: CFNTopology,
@@ -178,93 +194,130 @@ class CFNSession:
                  generator: Optional[torch.Generator] = None,
                  device: Device = None):
         self.topo = topo
-        self.spec = spec if spec is not None else PlacementSpec()
-        self.device = resolve_device(device)
-        self._gen = default_generator(1) if generator is None else generator
-        self._substrate = None
-        self._batch: Optional[vsr_mod.VSRBatch] = None
-        self._n_live = 0
-        self._problem: Optional[PlacementProblem] = None
-        self._result: Optional[SolveResult] = None
+        self._engine = dynamic.OnlineEmbedder(
+            topo, spec=spec if spec is not None else PlacementSpec(),
+            generator=generator, device=device)
 
     # -- introspection ----------------------------------------------------
     @property
+    def spec(self) -> PlacementSpec:
+        return self._engine.spec
+
+    @property
+    def device(self) -> torch.device:
+        return self._engine.device
+
+    @property
+    def engine(self) -> "dynamic.OnlineEmbedder":
+        """The underlying online engine."""
+        return self._engine
+
+    @property
     def n_live(self) -> int:
-        return self._n_live
+        return self._engine.n_live
+
+    @property
+    def sids(self) -> List[int]:
+        return self._engine.sids
 
     @property
     def problem(self) -> Optional[PlacementProblem]:
-        return self._problem
+        return self._engine.problem
 
     @property
     def X(self) -> Optional[np.ndarray]:
-        return None if self._result is None else self._result.X.copy()
+        return self._engine.X
 
     @property
     def result(self) -> Optional[SolveResult]:
-        return self._result
+        return self._engine.result
+
+    @property
+    def stats(self) -> List["dynamic.OnlineStats"]:
+        return self._engine.stats
+
+    @property
+    def admission(self) -> Dict[str, int]:
+        return self._engine.admission
+
+    def service_vms(self, row: int) -> int:
+        return self._engine.service_vms(row)
 
     def power_w(self) -> float:
-        return 0.0 if self._result is None else self._result.power
+        return self._engine.power_w()
 
     def objective(self) -> float:
-        return float("nan") if self._result is None \
-            else self._result.objective
+        return self._engine.objective()
 
     def masks(self) -> Optional[np.ndarray]:
         """The live problem's eligibility mask under this spec."""
-        return (None if self._problem is None
-                else self.spec.masks(self._problem))
+        return (None if self.problem is None
+                else self.spec.masks(self.problem))
 
     # -- solving ----------------------------------------------------------
     def solve(self, vsrs: Optional[vsr_mod.VSRBatch] = None
               ) -> SolveResult:
-        """Embed a whole VSR batch under the spec: the batch becomes the
-        session's live services -- one full solve with ``spec.method`` /
-        ``effort``, constraint masks applied, rows and VM columns padded to
-        their power-of-two buckets when ``spec.bucket_rows`` /
-        ``bucket_cols`` are set."""
+        """Embed a whole VSR batch under the spec, or re-pack the live set.
+
+        With ``vsrs`` (empty session only): the batch becomes the session's
+        live services -- one full solve with ``spec.method`` / ``effort``,
+        constraint masks applied, rows and VM columns padded to their
+        power-of-two buckets when ``spec.bucket_rows`` / ``bucket_cols``
+        are set.  Without ``vsrs``: a full re-pack of the live set
+        (``defrag()``).
+        """
         if vsrs is None:
-            raise NotImplementedError(
-                "re-packing the live set (solve() with no batch, defrag) "
-                "comes with the online-engine slice (ROADMAP Queue 1, "
-                "item 5)")
-        if self._n_live:
+            if self._engine.problem is None:
+                raise ValueError("empty session: pass a VSRBatch to solve()")
+            return self._engine.defrag()
+        if self._engine.n_live:
             raise ValueError(
-                "session already has live services; churn (add/remove) "
-                "comes with the online-engine slice")
-        services = _split_services(vsrs)
-        if not services:
-            raise ValueError("solve() needs at least one service")
-        batch = vsr_mod.concat_all(services)
-        spec = self.spec
-        if self._substrate is None:
-            self._substrate = substrate_arrays(self.topo, self.device)
-        self._problem = build_problem(
-            self.topo, batch, substrate=self._substrate,
-            pad_to_rows=(_pow2(len(services), lo=spec.row_bucket_lo)
-                         if spec.bucket_rows else None),
-            pad_to_cols=(_pow2(batch.V, lo=spec.col_bucket_lo)
-                         if spec.bucket_cols else None))
-        self._batch, self._n_live = batch, len(services)
-        self._result = embed_mod._embed(self.topo, batch, spec,
-                                        gen=self._gen, problem=self._problem)
-        return self._result
+                "session already has live services; use add()/remove() for "
+                "churn or solve() with no batch to re-pack")
+        return self._engine.bootstrap(_split_services(vsrs))
+
+    def add(self, service: vsr_mod.VSRBatch,
+            sid: Optional[int] = None) -> Optional[SolveResult]:
+        """Admit one service (R=1): warm-start incremental re-embedding
+        under the spec's masks and admission budgets.  ``None`` = rejected."""
+        return self._engine.add(service, sid=sid)
+
+    def remove(self, sid: int) -> Optional[SolveResult]:
+        """Retire a service: detach its loads, re-settle survivors."""
+        return self._engine.remove(sid)
+
+    def defrag(self) -> Optional[SolveResult]:
+        """Full re-pack of the live set under ``spec.masks``; keeps the live
+        placement when the full solve cannot beat it."""
+        return self._engine.defrag()
+
+    def attribute(self) -> Dict[int, float]:
+        """Per-tenant watts {sid: W}, summing to the fleet total."""
+        return self._engine.per_service_power_w()
+
+    def replay(self, events: Sequence["dynamic.ServiceEvent"],
+               make_vsr: Callable[[int], vsr_mod.VSRBatch],
+               on_event: Optional[Callable] = None,
+               waves: bool = False) -> list:
+        """Drive the session through a churn timeline
+        (``core.dynamic.replay`` on this session's engine)."""
+        return dynamic.replay(self._engine, events, make_vsr, on_event,
+                              waves=waves)
 
     # -- reporting --------------------------------------------------------
     def savings_vs_baseline(self, baseline: str = "cdc") -> dict:
         """Paper headline metric for the live set: power saving vs a
         fixed-layer baseline, BOTH solved under this spec's constraints
         (masks, effort, backend) on an unpadded problem."""
-        if self._batch is None:
+        vsrs = self._engine.vsr_batch()
+        if vsrs is None:
             raise ValueError("empty session")
-        problem = build_problem(self.topo, self._batch,
-                                substrate=self._substrate)
-        base = embed_mod._embed(self.topo, self._batch,
+        problem = build_problem(self.topo, vsrs,
+                                substrate=self._engine._substrate)
+        base = embed_mod._embed(self.topo, vsrs,
                                 self.spec.replace(method=baseline),
                                 problem=problem)
-        opt = embed_mod._embed(self.topo, self._batch, self.spec,
-                               problem=problem)
+        opt = embed_mod._embed(self.topo, vsrs, self.spec, problem=problem)
         saving = 1.0 - opt.power / max(base.power, 1e-9)
         return dict(baseline_w=base.power, optimized_w=opt.power,
                     saving_frac=saving, baseline=base, optimized=opt)

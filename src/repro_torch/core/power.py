@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, fields
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,6 +69,18 @@ def resolve_device(device: Device = None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+class HostArrays(NamedTuple):
+    """Numpy copies of the problem tensors the per-service state operations
+    read on the host (``service_loads``, ``warm_state``)."""
+    route_idx: np.ndarray     # [P, P, K] int32
+    F: np.ndarray             # [R, V]
+    link_src: np.ndarray      # [L] int32
+    link_dst: np.ndarray      # [L] int32
+    link_h: np.ndarray        # [L]
+    fixed_mask: np.ndarray    # [R, V] bool
+    fixed_node: np.ndarray    # [R, V] int32
 
 
 class PowerBreakdown(NamedTuple):
@@ -170,6 +182,18 @@ class PlacementProblem:
                             self.EL, self.lan_share * self.pi_lan,
                             self.NS * self.C_pr, self.C_lan])
 
+    @functools.cached_property
+    def host(self) -> HostArrays:
+        """Host copies for the per-service state operations.  ``build_problem``
+        seeds them with the arrays it built the tensors from (the route
+        table is the topology's own), so nothing is copied back from the
+        device; a problem made another way copies each tensor once."""
+        n = lambda t: t.cpu().numpy()
+        return HostArrays(route_idx=n(self.route_idx), F=n(self.F),
+                          link_src=n(self.link_src), link_dst=n(self.link_dst),
+                          link_h=n(self.link_h), fixed_mask=n(self.fixed_mask),
+                          fixed_node=n(self.fixed_node))
+
 
 def problem_from_numpy(arrays: Dict[str, Optional[np.ndarray]],
                        device: Device = None) -> PlacementProblem:
@@ -237,9 +261,15 @@ def build_problem(topo: CFNTopology, vsrs: VSRBatch,
         fixed_node = np.concatenate(
             [fixed_node, np.zeros((pad, V), np.int32)])
     t = lambda x: torch.as_tensor(x, device=dev)
-    return PlacementProblem(
+    problem = PlacementProblem(
         **substrate, F=t(F), link_src=t(link_src), link_dst=t(link_dst),
         link_h=t(link_h), fixed_mask=t(fixed_mask), fixed_node=t(fixed_node))
+    # seed the cached ``host`` property (what cached_property itself does)
+    problem.__dict__["host"] = HostArrays(
+        route_idx=topo.route_idx, F=F, link_src=np.asarray(link_src),
+        link_dst=np.asarray(link_dst), link_h=np.asarray(link_h),
+        fixed_mask=fixed_mask, fixed_node=fixed_node)
+    return problem
 
 
 def to_tensor(x, device, dtype: Optional[torch.dtype] = None
@@ -755,6 +785,204 @@ def delta_sweep(problem: PlacementProblem, aux: PlacementAux,
                          - relu(lam_old / 1e3 - cnet_g))).sum((-1, -2))
     return (base + d_proc + d_net
             + PENALTY * (d_viol_pr + d_viol_net))
+
+
+# ---------------------------------------------------------------------------
+# Online state operations: service-granular attach / detach / warm start
+# ---------------------------------------------------------------------------
+#
+# The online regime mutates one SERVICE at a time.  Every virtual link is
+# intra-service, so one service's load contribution is separable: O(V*(N+P))
+# host work per event (on ``PlacementProblem.host``) instead of the
+# O(R*V*P + L*P^2) full ``_loads`` contraction.
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _pins_np(problem: PlacementProblem, X: np.ndarray) -> np.ndarray:
+    h = problem.host
+    return np.where(h.fixed_mask, h.fixed_node, X).astype(np.int32)
+
+
+def service_loads(problem: PlacementProblem, X, rows
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Load contribution (omega[P], tm[P, P], theta[P], lam[N]) of the
+    services in ``rows`` under placement ``X`` -- exactly the slice of
+    ``_loads`` supported on those services' VMs and virtual links.  Host
+    numpy, accumulated in float64 and returned as float32."""
+    p = problem
+    h = p.host
+    X = _host(X)
+    Xf = X.reshape(-1)
+    P, N, V = p.P, p.N, p.V
+    rows = np.atleast_1d(np.asarray(rows, np.int64))
+    omega = np.zeros(P, np.float64)  # tracelint: allow[CFN102]
+    tm = np.zeros((P, P), np.float64)  # tracelint: allow[CFN102]
+    theta = np.zeros(P, np.float64)  # tracelint: allow[CFN102]
+    lam = np.zeros(N, np.float64)  # tracelint: allow[CFN102]
+    F = np.asarray(h.F, np.float64)  # tracelint: allow[CFN102]
+    np.add.at(omega, X[rows].reshape(-1), F[rows].reshape(-1))
+    ls, ld = h.link_src, h.link_dst
+    lh = np.asarray(h.link_h, np.float64)  # tracelint: allow[CFN102]
+    sel = np.isin(ls // V, rows)
+    rt = h.route_idx
+    for s, d, hh in zip(ls[sel], ld[sel], lh[sel]):
+        b, e = int(Xf[s]), int(Xf[d])
+        tm[b, e] += hh
+        theta[b] += hh
+        if e != b:
+            theta[e] += hh
+            ids = rt[b, e]
+            lam[ids[ids < N]] += hh    # route ids are unique per route
+    f32 = lambda a: a.astype(np.float32)
+    return f32(omega), f32(tm), f32(theta), f32(lam)
+
+
+def _state_from_loads(problem: PlacementProblem, X, omega, tm, theta,
+                      lam) -> PlacementState:
+    """A state from carried loads (tensors or host arrays), snapped as the
+    delta engine snaps; the objective from the loads in O(P + N)."""
+    t = lambda a, eps: _snap(to_tensor(a, problem.device, torch.float32),
+                             eps)
+    omega, theta = t(omega, SNAP_GFLOPS), t(theta, SNAP_MBPS)
+    lam = t(lam, SNAP_MBPS)
+    return PlacementState(X=as_placement(problem, X), omega=omega,
+                          tm=t(tm, SNAP_MBPS), theta=theta, lam=lam,
+                          obj=_objective_from_loads(problem, omega, lam,
+                                                    theta))
+
+
+def _add_loads(state: PlacementState, d, sign: float):
+    dev = state.omega.device
+    return tuple(s + sign * torch.as_tensor(x, device=dev)
+                 for s, x in zip((state.omega, state.tm, state.theta,
+                                  state.lam), d))
+
+
+def attach_vsrs(problem: PlacementProblem, state: PlacementState,
+                rows, X_rows=None) -> PlacementState:
+    """Add the load contribution of services ``rows`` to a live state.
+
+    ``state`` must NOT already carry those services' loads (it came from
+    ``detach_vsrs`` or from ``warm_state`` over a problem that grew).  If
+    ``X_rows`` [len(rows), V] is given, it is written into ``state.X`` first
+    (pins applied); otherwise the placements already in ``state.X`` are
+    attached.  O(len(rows) * V * (N + P)); the objective is rebuilt from
+    the updated loads in O(P + N).
+    """
+    X = _host(state.X).copy()
+    if X_rows is not None:
+        X[np.atleast_1d(np.asarray(rows, np.int64))] = _host(X_rows)
+        X = _pins_np(problem, X)
+    d = service_loads(problem, X, rows)
+    return _state_from_loads(problem, X, *_add_loads(state, d, 1.0))
+
+
+def detach_vsrs(problem: PlacementProblem, state: PlacementState,
+                rows) -> PlacementState:
+    """Remove the load contribution of services ``rows`` from a live state:
+    the inverse of ``attach_vsrs``.  The returned loads and objective
+    describe the substrate as if those services were not embedded (their
+    ``state.X`` rows become dead entries the caller drops via
+    ``warm_state``'s row map)."""
+    X = _host(state.X)
+    d = service_loads(problem, X, rows)
+    return _state_from_loads(problem, X, *_add_loads(state, d, -1.0))
+
+
+def warm_state(problem_new: PlacementProblem, prev_X,
+               prev_loads: Optional[tuple] = None,
+               row_map: Optional[Sequence[int]] = None,
+               init_node: Optional[int] = None) -> PlacementState:
+    """Carry a previous placement into a grown / shrunk problem.
+
+    ``prev_X`` [R_old, V_old] is the placement being carried;
+    ``row_map[i] = j`` maps new row i to previous row j (``-1`` marks a
+    fresh service).  Defaults to identity on the first min(R_old, R_new)
+    rows with fresh rows appended -- the arrival case.  Column growth (a
+    wider VM padding) fills new columns with the row's pinned source
+    (zero-demand pad VMs never affect the objective); column shrinkage
+    drops pad columns.  Fresh rows start pinned-input + ``init_node``
+    (default: the row's source node).
+
+    With ``prev_loads`` (omega, tm, theta, lam) carried from a previous
+    state whose services match the SURVIVING rows (the caller detached
+    departures first), the state is assembled in O(fresh * V * (N + P))
+    instead of a full rebuild; otherwise it is ``init_state``'s.
+    """
+    p = problem_new
+    h = p.host
+    prev_X = _host(prev_X)
+    R_old = prev_X.shape[0]
+    V_old = prev_X.shape[1] if prev_X.ndim == 2 else 0
+    R, V = p.R, p.V
+    if row_map is None:
+        row_map = list(range(min(R_old, R))) + [-1] * (R - min(R_old, R))
+    row_map = list(row_map)
+    if len(row_map) != R:
+        raise ValueError(f"row_map has {len(row_map)} entries for R={R}")
+    src_of = h.fixed_node[np.arange(R), np.argmax(h.fixed_mask, 1)]
+    X = np.empty((R, V), dtype=np.int32)
+    fresh: list = []
+    for i, j in enumerate(row_map):
+        fill = int(src_of[i]) if init_node is None else int(init_node)
+        if j < 0:
+            fresh.append(i)
+            X[i] = fill
+        else:
+            k = min(V, V_old)
+            X[i, :k] = prev_X[j, :k]
+            X[i, k:] = fill
+    X = _pins_np(p, X)
+    if prev_loads is None:
+        return init_state(p, X)
+    state = _state_from_loads(p, X, *prev_loads)
+    if fresh:
+        state = attach_vsrs(p, state, fresh)
+    return state
+
+
+def attribute_power(problem: PlacementProblem, X,
+                    breakdown: Optional[PowerBreakdown] = None,
+                    n_rows: Optional[int] = None) -> np.ndarray:
+    """Split ``breakdown.total`` across services: per-service watts [R]
+    that sum to the total (float64).
+
+    Each node's Eq.(2) power (proportional + idle servers + LAN) is shared
+    among the services loading it, proportionally to their marginal energy
+    there (E*omega_r + EL*theta_r); each network node's Eq.(1) power by the
+    services' traffic shares lam_r.  ``breakdown`` may hold tensors or
+    numpy arrays (``SolveResult.breakdown``).
+
+    ``n_rows``: attribute over the first n_rows services only (the rows
+    beyond are shape-bucketing pad rows with zero load; excluding them keeps
+    the unattributable-idle residue split across REAL tenants so the
+    returned watts still sum to the total).
+    """
+    p = problem
+    X = _pins_np(p, _host(X))
+    bd = evaluate(p, X) if breakdown is None else breakdown
+    R = p.R if n_rows is None else int(n_rows)
+    per_proc = np.asarray(_host(bd.per_proc), np.float64)  # tracelint: allow[CFN102]
+    per_net = np.asarray(_host(bd.per_net), np.float64)  # tracelint: allow[CFN102]
+    E = np.asarray(_host(p.E), np.float64)  # tracelint: allow[CFN102]
+    EL = np.asarray(_host(p.EL), np.float64)  # tracelint: allow[CFN102]
+    w_proc = np.zeros((R, p.P))
+    w_net = np.zeros((R, p.N))
+    for r in range(R):
+        om, _, th, lm = service_loads(p, X, [r])
+        present = (om > 0) | (th > 0)
+        w_proc[r] = E * om + EL * th / 1e3 + 1e-12 * present
+        w_net[r] = lm
+    out = np.zeros(R)
+    for W, per in ((w_proc, per_proc), (w_net, per_net)):
+        tot = W.sum(axis=0)
+        used = tot > 0
+        share = np.where(used, W / np.where(used, tot, 1.0), 0.0)
+        out += share @ per
+        out += per[~used].sum() / max(R, 1)  # unattributable residue
+    return out
 
 
 def summarize(problem: PlacementProblem, topo: CFNTopology,

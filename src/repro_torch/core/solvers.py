@@ -14,6 +14,9 @@ kernels of ``kernels``:
   relax           -- softmax relaxation on the soft power surrogate, Adam
                      descent on autograd, argmax + coordinate repair.
   solve_portfolio -- spec-driven best-of portfolio, the "CFN MILP" stand-in.
+  resolve_incremental -- warm-start re-solve after service churn (targeted
+                     sweeps, a short delta anneal, a kernel re-score of the
+                     candidates, polish sweeps): the online engine's event.
 
 Every solver takes an optional ``eligible`` [R, P] mask (the constraint
 surface ``api.PlacementSpec.masks`` produces).  Random draws come from an
@@ -25,15 +28,16 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .power import (PlacementAux, PlacementProblem, PowerBreakdown,
-                    _delta_objective, _move_core, apply_move, apply_pins,
-                    as_placement, batched_hard_loads, build_aux, delta_sweep,
-                    evaluate, init_state, objective_batch, to_tensor)
+from .power import (PlacementAux, PlacementProblem, PlacementState,
+                    PowerBreakdown, _delta_objective, _move_core, apply_move,
+                    apply_pins, as_placement, batched_hard_loads, build_aux,
+                    delta_sweep, evaluate, init_state, objective,
+                    objective_batch, to_tensor)
 from .topology import CFNTopology
 
 
@@ -708,3 +712,185 @@ def repair_to_eligible(problem: PlacementProblem, res: SolveResult,
             state = apply_move(problem, aux, state, r, v, best)
             X[r, v] = best
     return _result(problem, X, res.method, res.history)
+
+
+# ---------------------------------------------------------------------------
+# Online incremental re-embedding (service churn)
+# ---------------------------------------------------------------------------
+
+def _pad_positions(pos: np.ndarray, m: Optional[int]) -> np.ndarray:
+    """Pad a free-position list to a fixed length by repeating the first row
+    (shape bucketing, as in the JAX package: a repeated sweep position is a
+    re-sweep of that VM)."""
+    if m is None or pos.shape[0] == 0 or pos.shape[0] >= m:
+        return pos
+    return np.concatenate(
+        [pos, np.tile(pos[:1], (m - pos.shape[0], 1))])
+
+
+def _incremental_streams(gen: torch.Generator, n_steps: int, n_chains: int,
+                         problem: PlacementProblem, target_rows: np.ndarray,
+                         cnt: Optional[np.ndarray] = None,
+                         cand: Optional[np.ndarray] = None):
+    """The re-solve's Metropolis draws ``(fi, p_prop, u_prop, rand)``:
+    index into the target positions (whose rows are ``target_rows``)
+    [T, C], destination node [T, C], uniform [T, C] and the restart
+    placements [C, R, V], drawn from ``gen`` in that order.  With an
+    eligibility table destinations and restarts come from each row's
+    eligible set."""
+    P, R, V = problem.P, problem.R, problem.V
+    fi = torch.randint(0, len(target_rows), (n_steps, n_chains),
+                       generator=gen)
+    if cnt is None:
+        p_prop = torch.randint(0, P, (n_steps, n_chains), generator=gen,
+                               dtype=torch.int32)
+    else:
+        cnt_t, cand_t = torch.as_tensor(cnt), torch.as_tensor(cand)
+        u_dst = torch.rand((n_steps, n_chains), generator=gen)
+        p_prop = _sample_eligible(
+            u_dst, torch.as_tensor(target_rows)[fi], cnt_t, cand_t)
+    u_prop = torch.rand((n_steps, n_chains), generator=gen)
+    if cnt is None:
+        rand = torch.randint(0, P, (n_chains, R, V), generator=gen,
+                             dtype=torch.int32)
+    else:
+        u_r = torch.rand((n_chains, R, V), generator=gen)
+        rand = _sample_eligible(u_r, torch.arange(R)[None, :, None], cnt_t,
+                                cand_t)
+    return fi, p_prop, u_prop, rand
+
+
+def resolve_incremental(problem: PlacementProblem, prev_X=None,
+                        gen: Optional[torch.Generator] = None,
+                        changed_rows: Optional[Sequence[int]] = None,
+                        state: Optional[PlacementState] = None,
+                        sweeps: Optional[int] = None,
+                        anneal_steps: Optional[int] = None,
+                        anneal_chains: Optional[int] = None,
+                        anneal_t0: Optional[float] = None,
+                        anneal_t1: Optional[float] = None,
+                        polish_sweeps: Optional[int] = None,
+                        eligible: Optional[np.ndarray] = None,
+                        pad_positions_to: Optional[int] = None,
+                        pad_changed_to: Optional[int] = None,
+                        spec=None, record_conv: bool = False,
+                        streams: Optional[tuple] = None) -> SolveResult:
+    """Warm-start re-solve after service churn: surviving services stay at
+    their previous nodes, only the VMs of ``changed_rows`` (new arrivals /
+    rows the caller distrusts) are actively re-placed.
+
+    Three phases, all on the delta engine:
+      1. targeted coordinate sweeps over the changed rows' free VMs
+         (survivors act as implicit pins -- their positions are never swept);
+      2. a short Metropolis refinement (``_anneal_scan_delta``): with
+         changed rows, proposals touch ONLY those VMs; without them (a
+         departure), proposals range over ALL free VMs.  Chain 0 stays
+         warm, the others restart at the target positions;
+      3. ``polish_sweeps`` full sweeps over ALL free VMs (monotone).
+    The warm start and the placements of phases 1 and 2 are re-scored
+    exactly in one ``kernels.ops.placement_objective`` call (the
+    placement_power kernel on a CUDA problem) and the best is polished.
+
+    ``spec`` (an ``api.PlacementSpec``, optional) supplies the solver knobs
+    and -- unless ``eligible`` is passed -- the constraint masks via
+    ``spec.masks(problem)``; explicit keyword arguments override the spec.
+    ``eligible`` [R, P] restricts each row's destinations through every
+    phase (a mask-violating warm start is projected onto it first).
+    ``pad_positions_to`` / ``pad_changed_to`` pad the full and the changed
+    position lists (the JAX package's shape buckets; the results are that
+    package's).  Random draws come from ``gen`` (a CPU generator, seed 0
+    when None); ``streams`` injects ``(fi, p_prop, u_prop, rand)`` instead
+    (``_incremental_streams``' layout; the tests pass the JAX package's
+    draws).  Pass the caller's carried ``state`` (``power.warm_state``) and
+    no ``prev_X``: ``prev_X`` is read only when ``state`` is absent.
+    """
+    from ..kernels import ops as kops
+    pick = lambda v, sv, d: (v if v is not None
+                             else (sv if sv is not None else d))
+    sweeps = pick(sweeps, getattr(spec, "sweeps", None), 2)
+    anneal_steps = pick(anneal_steps, getattr(spec, "anneal_steps", None), 600)
+    anneal_chains = pick(anneal_chains,
+                         getattr(spec, "anneal_chains", None), 8)
+    anneal_t0 = pick(anneal_t0, getattr(spec, "anneal_t0", None), 5.0)
+    anneal_t1 = pick(anneal_t1, getattr(spec, "anneal_t1", None), 0.05)
+    polish_sweeps = pick(polish_sweeps,
+                         getattr(spec, "polish_sweeps", None), 2)
+    if eligible is None and spec is not None:
+        eligible = spec.masks(problem)
+    dev = problem.device
+    aux = build_aux(problem)
+    if state is None:
+        if prev_X is None:
+            raise ValueError("resolve_incremental needs prev_X or state")
+        state = init_state(problem, prev_X)
+    # else: the caller-carried state is trusted as-is -- candidates are
+    # re-scored exactly below, so carried float32 drift cannot corrupt it
+    changed_rows = [] if changed_rows is None else list(changed_rows)
+    free = aux.free_pos.cpu().numpy()
+    if free.shape[0] == 0:  # everything pinned: nothing to re-place
+        return _result(problem, state.X, "incremental")
+    el_np, cnt_np, cand_np = _eligible_np(eligible)
+    el_t = None if el_np is None else torch.as_tensor(el_np, device=dev)
+    if el_np is not None:
+        # the warm incumbent may predate the mask: project it first, so a
+        # mask-violating placement can never win the argmin below
+        X0, moved = _project_eligible(problem, state.X, el_np)
+        if moved:
+            state = init_state(problem, apply_pins(problem, X0))
+    cands = [state.X]
+    pos_changed = _pad_positions(free[np.isin(free[:, 0], changed_rows)],
+                                 pad_changed_to)
+
+    # phase 1: greedy placement of the changed VMs
+    if pos_changed.shape[0]:
+        for _ in range(max(1, sweeps)):
+            state, _ = _sweep(problem, aux, state, pos_changed, el_t)
+        cands.append(state.X)
+
+    # phase 2: short Metropolis refinement
+    conv: Optional[Dict[str, np.ndarray]] = None
+    if anneal_steps > 0 and anneal_chains > 0:
+        R, V = problem.R, problem.V
+        target = pos_changed if pos_changed.shape[0] else free
+        flat = torch.as_tensor(target[:, 0] * V + target[:, 1])
+        if streams is None:
+            gen = default_generator() if gen is None else gen
+            streams = _incremental_streams(
+                gen, anneal_steps, anneal_chains, problem, target[:, 0],
+                cnt=cnt_np, cand=cand_np)
+        fi, p_prop, u_prop, rand = (torch.as_tensor(np.array(s))
+                                    for s in streams)
+        j_prop = flat[fi.long()]
+        temps = _temps(anneal_steps, anneal_t0, anneal_t1, dev)
+        Xc = state.X.expand(anneal_chains, R, V)
+        # chain 0 stays warm; the rest restart at the target positions only
+        tgt = np.zeros((R, V), dtype=bool)
+        tgt[target[:, 0], target[:, 1]] = True
+        keep = ((torch.arange(anneal_chains, device=dev) == 0)[:, None, None]
+                | ~torch.as_tensor(tgt, device=dev)[None])
+        Xc = torch.where(keep, Xc, rand.to(dev, torch.int32))
+        bX, _, hist = _anneal_scan_delta(problem, aux, Xc, j_prop, p_prop,
+                                         u_prop, temps)
+        cands.append(bX)
+        if record_conv:
+            conv = {"best_obj": hist[0].cpu().numpy(),
+                    "accept_rate": hist[1].cpu().numpy()}
+
+    # pick the exact-objective best (one batched re-score), then polish
+    objs = kops.placement_objective(problem, torch.stack(cands))[:, 0]
+    objs = [float(o) for o in objs.cpu()]
+    k = int(np.argmin(objs))
+    best_obj, best_X = objs[k], cands[k]
+    history: List[float] = objs + [best_obj]
+    if polish_sweeps > 0:
+        state = init_state(problem, best_X)
+        pa = _pad_positions(free, pad_positions_to)
+        for _ in range(polish_sweeps):
+            state, _ = _sweep(problem, aux, state, pa, el_t)
+        obj = float(objective(problem, state.X))
+        if obj < best_obj:
+            best_obj, best_X = obj, state.X
+        history.append(best_obj)
+    res = _result(problem, best_X, "incremental", history)
+    res.conv = conv
+    return res

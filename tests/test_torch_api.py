@@ -155,17 +155,44 @@ def test_spec_validation():
 
 
 def test_unported_session_paths_raise():
-    """Re-packing the live set is still to port; the relax method, once
-    unported, now returns a placement (its parity with the JAX package is
-    held in tests/test_torch_relax.py)."""
-    sess = CFNSession(ttopo.paper_topology(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``solve()`` with no batch, once unported, now re-packs the live set
+    (a full solve kept only where it beats the live placement, so it never
+    regresses) and raises ValueError on an empty session; the relax
+    method, once unported, returns a placement (its parity with the JAX
+    package is held in tests/test_torch_relax.py).  The churn path's
+    parity is held in tests/test_torch_online.py."""
+    topo = ttopo.paper_topology()
+    sess = CFNSession(topo, PlacementSpec(effort="quick"), device="cpu")
+    with pytest.raises(ValueError, match="empty session"):
         sess.solve()
+    first = sess.solve(tvsr.random_vsrs(5, rng=6, source_nodes=[0]))
+    again = sess.solve()
+    assert again.objective <= first.objective + 1e-6
+    assert [s.event for s in sess.stats] == ["bootstrap", "defrag"]
+    assert sess.objective() == again.objective and sess.n_live == 5
     vsrs = tvsr.random_vsrs(2)
     res = CFNSession(ttopo.paper_topology(), PlacementSpec(method="relax"),
                      device="cpu").solve(vsrs)
     assert res.method == "relax" and res.X.shape[0] >= vsrs.R
     assert np.isfinite(res.objective) and res.feasible
+
+
+def test_session_solve_is_embed_with_seed1_generator():
+    """``solve(vsrs)`` goes through the online engine's bootstrap and gives
+    what ``embed._embed`` gives on the same bucket-padded problem with a
+    fresh seed-1 generator (the session's default): the same X, method
+    and objective."""
+    topo = ttopo.paper_topology()
+    vs = tvsr.random_vsrs(5, rng=8, source_nodes=[0, 4])
+    spec = PlacementSpec()
+    res = CFNSession(topo, spec, device="cpu").solve(vs)
+    prob = tp.build_problem(topo, vs, pad_to_rows=8, pad_to_cols=4,
+                            device="cpu")
+    want = embed._embed(topo, vs, spec, gen=ts.default_generator(1),
+                        problem=prob)
+    np.testing.assert_array_equal(res.X, want.X)
+    assert res.method == want.method
+    assert res.objective == want.objective
 
 
 def test_default_device_is_cuda():
@@ -185,6 +212,8 @@ def test_import_purity():
     """Importing the port loads neither jax nor the JAX package."""
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.kernels.ops, repro_torch.core.embed, "
+            "repro_torch.core.dynamic, repro_torch.core.solvers, "
+            "repro_torch.paper_figures, "
             "repro_torch.configs, repro_torch.models.model, "
             "repro_torch.models.costs, repro_torch.serve.engine, "
             "repro_torch.serve.cache\n"
