@@ -31,6 +31,14 @@ nvcc per source, in parallel), then
      arrivals, each an incremental re-solve re-scored by placement_power,
      the eighth with the periodic full solve; each event held to the
      float64 oracle and to its warm start, its seconds split by stage;
+  3e. replays a flash crowd there in waves (four ticks of 8 departures
+     and 8 arrivals, each one batched re-solve re-scored by
+     placement_power, then an amortized defrag tick over 8 rows), each
+     wave held to the oracle and its warm start, its seconds split by
+     stage beside 3d's per event; then the admission plane on the same
+     placement: a zero-watt brownout, a wave whose class-0 arrival
+     preempts the two class-1 services, the queue's order and counters,
+     and its drain when the brownout ends;
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
@@ -45,10 +53,11 @@ nvcc per source, in parallel), then
      cached decode against the forward pass, and places the served model
      on the datacenter CFN.
 
-Each phase prints one JSON line (3a-3d also their seconds); then the
+Each phase prints one JSON line (3a-3e also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
-3 and, as ``launches_churn``, in phase 3d, the global anneal variant's in
-phase 3c, the flash kernels' in phase 5; errors and times), the card's name and power limit, and last
+3 and, as ``launches_churn`` / ``launches_waves``, in phases 3d / 3e, the
+global anneal variant's in phase 3c, the flash kernels' in phase 5;
+errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
 
@@ -781,51 +790,51 @@ def phase_anneal_past_cap() -> dict:
 # positions) twice, at ~10 ms a position
 CHURN_R = 64
 CHURN_EVENTS = 8
+# phase 3e: a flash crowd of replace waves (8 departures and 8 arrivals a
+# tick) at phase 3d's size, a defrag tick of 8 rows after each wave
+WAVES = 4
+WAVE_SIZE = 16
+TICK_ROWS = 8
 
 
-def phase_churn() -> dict:
-    """Phase 3d: the online churn engine at city_p468, through
-    ``CFNSession``.  Bootstrap 64 services of ``city_workload`` (one
-    cfn-milp solve), then replay ``churn_trace(64, 8, rng=0)``'s eight
-    events (departures and arrivals in turn; an arrival's VSR from seed
-    1000 + sid at source ``sources[sid % 64]``) under
-    ``PlacementSpec(defrag_every=8)``: each event detaches or attaches one
-    service's loads, re-solves incrementally (targeted sweeps, a 600-step
-    x 8-chain delta anneal, the placement_power re-score, two polish
-    sweeps), and the eighth also runs the periodic full solve against its
-    incremental incumbent.  After every event the committed objective
-    must be the float64 oracle's (5e-2 + 1e-5 |obj|) and no more than
-    1e-3 above the exact objective of the event's warm start; then the
-    live sids must be the trace's, the per-tenant watts must sum to the
-    fleet's (1e-6 relative), and a detach / attach round trip must give
-    back ``init_state``'s loads (rtol 1e-5, atol 1e-2)."""
-    import torch
-    from repro_torch.api import CFNSession, PlacementSpec
-    from repro_torch.core import dynamic, embed, power, solvers, vsr
-    from repro_torch.kernels import ops, placement_power as pp, ref
-    t_all = time.perf_counter()
-    topo, batch = city_workload(CHURN_R)
-    sources = city_sources()[1]
-    events = dynamic.churn_trace(CHURN_R, CHURN_EVENTS, rng=0)[CHURN_R:]
+def churn_vsr(sources, sid: int):
+    """The arrival with service id ``sid`` in phases 3d and 3e: one VSR of
+    3 VMs from seed 1000 + sid at source ``sources[sid % 64]``."""
+    from repro_torch.core import vsr
+    return vsr.random_vsrs(1, rng=1000 + sid, n_vms=3,
+                           source_nodes=[sources[sid % CHURN_R]])
 
-    def make_vsr(sid):
-        return vsr.random_vsrs(1, rng=1000 + sid, n_vms=3,
-                               source_nodes=[sources[sid % CHURN_R]])
 
-    # each event's seconds split by stage: wrappers that time the
-    # re-solve's stages (and the eighth event's full solve) on the card
-    split: dict = {}
-    where = {"in_resolve": False, "rescored": False}
-    resolves = []          # (problem, warm-start X, result) per re-solve
-    originals = {"resolve_incremental": solvers.resolve_incremental,
-                 "_sweep": solvers._sweep,
-                 "_anneal_scan_delta": solvers._anneal_scan_delta,
-                 "placement_objective": ops.placement_objective,
-                 "_embed": embed._embed}
+class StageTimer:
+    """Inside ``with``: every incremental re-solve's seconds split by stage
+    on the card (``split``: targeted_sweep, anneal, rescore, polish, and
+    full_solve for a periodic full solve), by wrapping the solver functions
+    with synchronized timers; ``resolves`` holds each re-solve's problem,
+    warm-start X, keyword arguments and result."""
 
-    def timed(stage, fn):
+    STAGES = {"_sweep": "sweep", "_anneal_scan_delta": "anneal",
+              "placement_objective": "rescore", "_embed": "full_solve"}
+
+    def __init__(self):
+        from repro_torch.core import embed, solvers
+        from repro_torch.kernels import ops
+        self.split: dict = {}
+        self.resolves: list = []
+        self._in_resolve = self._rescored = False
+        targets = [(solvers, "resolve_incremental"), (solvers, "_sweep"),
+                   (solvers, "_anneal_scan_delta"),
+                   (ops, "placement_objective"), (embed, "_embed")]
+        self._originals = {name: getattr(mod, name) for mod, name in targets}
+        self._patches = [(mod, name, self._resolve
+                          if name == "resolve_incremental"
+                          else self._timed(name)) for mod, name in targets]
+
+    def _timed(self, name):
+        import torch
+        fn, stage = self._originals[name], self.STAGES[name]
+
         def run(*args, **kwargs):
-            if stage != "full_solve" and not where["in_resolve"]:
+            if stage != "full_solve" and not self._in_resolve:
                 return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -833,46 +842,100 @@ def phase_churn() -> dict:
             torch.cuda.synchronize()
             name = stage
             if stage == "sweep":
-                name = "polish" if where["rescored"] else "targeted_sweep"
-            where["rescored"] |= stage == "rescore"
-            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+                name = "polish" if self._rescored else "targeted_sweep"
+            self._rescored |= stage == "rescore"
+            self.split[name] = (self.split.get(name, 0.0)
+                                + time.perf_counter() - t0)
             return out
         return run
 
-    def resolve(problem, **kwargs):
-        where.update(in_resolve=True, rescored=False)
+    def _resolve(self, problem, **kwargs):
+        self._in_resolve, self._rescored = True, False
         try:
-            res = originals["resolve_incremental"](problem, **kwargs)
+            res = self._originals["resolve_incremental"](problem, **kwargs)
         finally:
-            where["in_resolve"] = False
-        resolves.append((problem, kwargs["state"].X, res))
+            self._in_resolve = False
+        self.resolves.append(dict(problem=problem, X_warm=kwargs["state"].X,
+                                  kwargs=kwargs, result=res))
         return res
 
+    def take_split(self, seconds: float) -> dict:
+        """The split since the last call, with ``other_s`` the rest of
+        ``seconds``; clears it."""
+        out = dict(split_s=dict(self.split),
+                   other_s=seconds - sum(self.split.values()))
+        self.split.clear()
+        return out
+
+    def __enter__(self):
+        for mod, name, fn in self._patches:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self._patches:
+            setattr(mod, name, self._originals[name])
+        return False
+
+
+def hold_to_oracle(session, what: str) -> float:
+    """The session's objective is the float64 oracle's (5e-2 + 1e-5
+    |obj|); returns the oracle's."""
+    from repro_torch.kernels import ref
+    obj = session.objective()
+    f64 = ref.placement_objective_f64(session.problem, session.X)
+    check(abs(obj - f64) <= 5e-2 + 1e-5 * abs(f64),
+          f"{what}: objective {obj} vs float64 oracle {f64}")
+    return f64
+
+
+def phase_churn() -> tuple:
+    """Phase 3d: the online churn engine at city_p468, through
+    ``CFNSession``.  Bootstrap 64 services of ``city_workload`` (one
+    cfn-milp solve), then replay ``churn_trace(64, 8, rng=0)``'s eight
+    events (departures and arrivals in turn; an arrival's VSR from
+    ``churn_vsr``) under ``PlacementSpec(defrag_every=8)``: each event
+    detaches or attaches one service's loads, re-solves incrementally
+    (targeted sweeps, a 600-step x 8-chain delta anneal, the
+    placement_power re-score, two polish sweeps), and the eighth also runs
+    the periodic full solve against its incremental incumbent.  After
+    every event the committed objective must be the float64 oracle's
+    (5e-2 + 1e-5 |obj|) and no more than 1e-3 above the exact objective of
+    the event's warm start; then the live sids must be the trace's, the
+    per-tenant watts must sum to the fleet's (1e-6 relative), and a detach
+    / attach round trip must give back ``init_state``'s loads (rtol 1e-5,
+    atol 1e-2).  Returns the launches and each event's seconds."""
+    import torch
+    from repro_torch.api import CFNSession, PlacementSpec
+    from repro_torch.core import dynamic, power
+    from repro_torch.kernels import placement_power as pp
+    t_all = time.perf_counter()
+    topo, batch = city_workload(CHURN_R)
+    sources = city_sources()[1]
+    events = dynamic.churn_trace(CHURN_R, CHURN_EVENTS, rng=0)[CHURN_R:]
+    timer = StageTimer()
     per_event = []
     clock = {}
 
     def on_event(ev, res):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - clock["t0"]
-        check(res is not None and len(resolves) == len(per_event) + 1,
-              f"churn: event {ev} gave {res} after {len(resolves)} "
+        check(res is not None and len(timer.resolves) == len(per_event) + 1,
+              f"churn: event {ev} gave {res} after {len(timer.resolves)} "
               "re-solves")
         obj = session.objective()
-        f64 = ref.placement_objective_f64(session.problem, session.X)
-        check(abs(obj - f64) <= 5e-2 + 1e-5 * abs(f64),
-              f"churn: {ev}: objective {obj} vs float64 oracle {f64}")
-        prob, X_warm, inc = resolves[-1]
-        warm = float(power.objective(prob, X_warm))
+        f64 = hold_to_oracle(session, f"churn: {ev}")
+        r = timer.resolves[-1]
+        warm = float(power.objective(r["problem"], r["X_warm"]))
         check(obj <= warm + 1e-3,
               f"churn: {ev}: objective {obj} above its warm start {warm}")
         per_event.append(dict(
             kind=ev.kind, sid=ev.sid, method=res.method, objective=obj,
             power_w=session.power_w(), f64_objective=f64,
-            warm_objective=warm, incremental_objective=inc.objective,
+            warm_objective=warm,
+            incremental_objective=r["result"].objective,
             n_live=session.n_live, seconds=seconds,
-            split_s=dict(split),
-            other_s=seconds - sum(split.values())))
-        split.clear()
+            **timer.take_split(seconds)))
         clock["t0"] = time.perf_counter()
 
     spec = PlacementSpec(defrag_every=CHURN_EVENTS)
@@ -883,24 +946,12 @@ def phase_churn() -> dict:
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     boot_launches = dict(pp.LAUNCHES)
-    solvers.resolve_incremental = resolve
-    solvers._sweep = timed("sweep", originals["_sweep"])
-    solvers._anneal_scan_delta = timed("anneal",
-                                       originals["_anneal_scan_delta"])
-    ops.placement_objective = timed("rescore",
-                                    originals["placement_objective"])
-    embed._embed = timed("full_solve", originals["_embed"])
-    try:
+    with timer:
         clock["t0"] = t_events = time.perf_counter()
-        session.replay(events, make_vsr, on_event=on_event)
+        session.replay(events, lambda sid: churn_vsr(sources, sid),
+                       on_event=on_event)
         events_s = time.perf_counter() - t_events
         launches = dict(pp.LAUNCHES)
-    finally:
-        solvers.resolve_incremental = originals["resolve_incremental"]
-        solvers._sweep = originals["_sweep"]
-        solvers._anneal_scan_delta = originals["_anneal_scan_delta"]
-        ops.placement_objective = originals["placement_objective"]
-        embed._embed = originals["_embed"]
 
     check(len(per_event) == CHURN_EVENTS,
           f"churn: {len(per_event)} of {CHURN_EVENTS} events ran")
@@ -948,6 +999,212 @@ def phase_churn() -> dict:
          attribute_sum_w=sum(per.values()), power_w=session.power_w(),
          roundtrip_max_abs_err=rt_err,
          seconds_total=time.perf_counter() - t_all)
+    return launches, [e["seconds"] for e in per_event]
+
+
+def phase_waves(churn_event_s: list) -> dict:
+    """Phase 3e: churn waves and the admission plane at city_p468, through
+    ``CFNSession``, at phase 3d's size.
+
+    (i) Bootstrap 64 services of ``city_workload`` (one cfn-milp solve),
+    then replay ``flash_crowd_trace(64, 4, 16, rng=0)``'s four replace
+    waves (8 departures and 8 arrivals a tick, arrivals from
+    ``churn_vsr``) with ``waves=True`` under
+    ``PlacementSpec(defrag_every=0, defrag_rows_per_tick=8)``: each wave
+    is one fused detach, one ``resolve_wave`` (targeted sweeps over its
+    arrivals' 16 free positions, padded to their power-of-two bucket, the
+    delta anneal, the placement_power re-score, two polish sweeps), then
+    one ``defrag_tick`` over 8 rows.  After every wave the objective must
+    be the float64 oracle's (5e-2 + 1e-5 |obj|), no more than 1e-3 above
+    the wave's warm start, with 64 live services; every tick must not
+    raise the objective and must advance its cursor by 8 mod 64.
+
+    (ii) Adopt (i)'s bootstrap placement (no second solve) under
+    ``PlacementSpec(defrag_every=0, priority_classes=2,
+    queue_rejected=True, preempt=True)`` with the last two services in
+    class 1, ``brownout(0.0)``, then one wave of a class-0 and a class-1
+    arrival: both refused, the class-0 one preempting the two class-1
+    services (newest first), four services queued in class-then-FIFO
+    order; ``brownout_end()`` drains all four in that order, every commit
+    held to the float64 oracle.  Returns the phase's launches."""
+    import torch
+    from repro_torch.api import CFNSession, PlacementSpec
+    from repro_torch.core import dynamic, power, solvers, vsr
+    from repro_torch.kernels import placement_power as pp
+    t_all = time.perf_counter()
+    topo, batch = city_workload(CHURN_R)
+    sources = city_sources()[1]
+    events = dynamic.flash_crowd_trace(CHURN_R, WAVES, WAVE_SIZE,
+                                       rng=0)[CHURN_R:]
+    timer = StageTimer()
+
+    # (i) the flash crowd
+    spec = PlacementSpec(defrag_every=0, defrag_rows_per_tick=TICK_ROWS)
+    pp.reset_launches()
+    t0 = time.perf_counter()
+    session = CFNSession(topo, spec, device="cuda")
+    boot = session.solve(batch)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    boot_launches = dict(pp.LAUNCHES)
+    eng = session.engine
+    apply_wave, defrag_tick = eng.apply_wave, eng.defrag_tick
+    waves, ticks = [], []
+
+    def timed_wave(arrivals, departures):
+        n0 = len(timer.resolves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wr = apply_wave(arrivals, departures)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        what = f"waves: wave {len(waves) + 1}"
+        check(len(timer.resolves) == n0 + 1,
+              f"{what}: {len(timer.resolves) - n0} re-solves")
+        check(wr.admitted == [sid for _, sid in arrivals]
+              and wr.departed == list(departures) and not wr.rejected
+              and not wr.queued and wr.result.method == "wave",
+              f"{what}: {wr}")
+        check(session.n_live == CHURN_R, f"{what}: {session.n_live} live")
+        obj = session.objective()
+        f64 = hold_to_oracle(session, what)
+        r = timer.resolves[-1]
+        warm = float(power.objective(r["problem"], r["X_warm"]))
+        check(obj <= warm + 1e-3,
+              f"{what}: objective {obj} above its warm start {warm}")
+        rows = r["kwargs"]["changed_rows"]
+        n_pos = int((~r["problem"].host.fixed_mask[rows]).sum())
+        pad = r["kwargs"]["pad_changed_to"]
+        check(pad == solvers._pow2(n_pos) and pad & (pad - 1) == 0,
+              f"{what}: {n_pos} changed positions padded to {pad}")
+        waves.append(dict(
+            n_arrive=len(arrivals), n_depart=len(departures),
+            objective=obj, power_w=session.power_w(), f64_objective=f64,
+            warm_objective=warm, n_live=session.n_live,
+            changed_positions=n_pos, pad_changed_to=pad, seconds=seconds,
+            events_per_s=(len(arrivals) + len(departures)) / seconds,
+            **timer.take_split(seconds)))
+        return wr
+
+    def timed_tick(rows=None):
+        before, cursor = session.objective(), eng._defrag_cursor
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = defrag_tick(rows)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = session.objective()
+        check(after <= before,
+              f"waves: defrag tick raised the objective {before} -> {after}")
+        check(eng._defrag_cursor == (cursor + TICK_ROWS) % session.n_live,
+              f"waves: tick cursor {cursor} -> {eng._defrag_cursor}")
+        ticks.append(dict(seconds=seconds, committed=res is not None,
+                          objective_before=before, objective_after=after,
+                          cursor=eng._defrag_cursor))
+        return res
+
+    eng.apply_wave, eng.defrag_tick = timed_wave, timed_tick
+    with timer:
+        t0 = time.perf_counter()
+        session.replay(events, lambda sid: churn_vsr(sources, sid),
+                       waves=True)
+        replay_s = time.perf_counter() - t0
+    del eng.apply_wave, eng.defrag_tick
+    wave_launches = {k: v - boot_launches[k] for k, v in pp.LAUNCHES.items()}
+    check(len(waves) == WAVES and len(ticks) == WAVES,
+          f"waves: {len(waves)} waves, {len(ticks)} ticks")
+    live = set(range(CHURN_R))
+    for ev in events:
+        (live.add if ev.kind == "arrive" else live.discard)(ev.sid)
+    check(sorted(session.sids) == sorted(live),
+          f"waves: live sids {sorted(session.sids)} != {sorted(live)}")
+    check(wave_launches["placement_power"] >= WAVES,
+          f"waves: launches in the waves {wave_launches}")
+    wave_s = sum(w["seconds"] for w in waves)
+
+    # (ii) the admission plane, on (i)'s bootstrap placement
+    services = [vsr.VSRBatch(F=batch.F[i:i + 1], H=batch.H[i:i + 1],
+                             src=batch.src[i:i + 1],
+                             input_vm=batch.input_vm[i:i + 1])
+                for i in range(batch.R)]
+    adm = CFNSession(topo, PlacementSpec(
+        defrag_every=0, priority_classes=2, queue_rejected=True,
+        preempt=True), device="cuda")
+    aeng = adm.engine
+    adopted = aeng.bootstrap(services, X0=boot.X[:CHURN_R],
+                             priorities=[0] * (CHURN_R - 2) + [1] * 2)
+    check(abs(adopted.objective - boot.objective)
+          <= 1e-3 + 1e-6 * abs(boot.objective),
+          f"admission: adopted {adopted.objective} vs {boot.objective}")
+    hold_to_oracle(adm, "admission: adopted")
+    commit, commits = aeng._commit, []
+
+    def held_commit(res, event):
+        commit(res, event)
+        commits.append(dict(event=event, objective=res.objective,
+                            f64_objective=hold_to_oracle(
+                                adm, f"admission: {event} commit"),
+                            n_live=adm.n_live))
+
+    aeng._commit = held_commit
+    victims = [sid for sid, p in zip(adm.sids, aeng._prio) if p == 1][::-1]
+    arrivals = [(churn_vsr(sources, 200), 200, 0),
+                (churn_vsr(sources, 201), 201, 1)]
+    adm.brownout(0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wr = adm.apply_wave(arrivals)
+    torch.cuda.synchronize()
+    refused_s = time.perf_counter() - t0
+    queued = aeng.queued_sids
+    check(wr.admitted == [] and wr.rejected == []
+          and sorted(wr.queued) == [200, 201] and wr.n_preempted == 2,
+          f"admission: wave verdicts {wr}")
+    check(queued == [200, 201] + victims,
+          f"admission: queue {queued}, victims {victims}")
+    check(adm.admission == dict(admitted=CHURN_R, rejected=2, queued=2,
+                                preempted=2),
+          f"admission: counters {adm.admission}")
+    check(adm.n_live == CHURN_R - 2 and not set(victims) & set(adm.sids),
+          f"admission: {adm.n_live} live after preemption")
+    n_commits = len(commits)
+    t0 = time.perf_counter()
+    adm.brownout_end()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    del aeng._commit
+    check(adm.sids[-4:] == queued and not aeng.queued_sids
+          and adm.n_live == CHURN_R + 2,
+          f"admission: drained {adm.sids[-4:]}, queue {aeng.queued_sids}")
+    check([c["event"] for c in commits[n_commits:]] == ["add"] * 4,
+          f"admission: drain commits {commits[n_commits:]}")
+    launches = dict(pp.LAUNCHES)
+    check(launches["fused_anneal"] >= 1,
+          f"waves: launches in the phase {launches}")
+    rescore(session, session.result)      # after the count: a check only
+    events_3d = len(churn_event_s) / sum(churn_event_s)
+    emit("waves_city_p468_R64",
+         cut=f"R={CHURN_R} live services and {WAVES} waves of "
+             f"{WAVE_SIZE} events (phase 3d's size): a wave's polish "
+             "sweeps every free VM, padded to R x (V - 1) positions, twice",
+         P=session.problem.P, N=session.problem.N, K=session.problem.K,
+         R=session.problem.R, V=session.problem.V,
+         bootstrap_s=boot_s, bootstrap_objective=boot.objective,
+         bootstrap_method=boot.method, bootstrap_launches=boot_launches,
+         waves=waves, ticks=ticks, replay_s=replay_s,
+         wave_events_per_s=WAVES * WAVE_SIZE / wave_s,
+         wave_events_per_s_with_ticks=WAVES * WAVE_SIZE / (
+             wave_s + sum(t["seconds"] for t in ticks)),
+         churn_3d_events_per_s=events_3d,
+         churn_3d_events_per_s_events_1_7=(len(churn_event_s) - 1) / sum(
+             churn_event_s[:-1]),
+         wave_speedup_vs_3d=WAVES * WAVE_SIZE / wave_s / events_3d,
+         live_sids=sorted(session.sids), launches_waves=wave_launches,
+         admission=dict(
+             wave_seconds=refused_s, drain_seconds=drain_s,
+             queued_sids=queued, victims=victims, counters=adm.admission,
+             drained_sids=adm.sids[-4:], commits=commits),
+         launches=launches, seconds_total=time.perf_counter() - t_all)
     return launches
 
 
@@ -1411,9 +1668,12 @@ def main() -> int:
     launches = phase_anneal_past_cap()
     kernels["fused_anneal_global"]["launches"] = launches[
         "fused_anneal_global"]
-    launches = phase_churn()
+    launches, churn_event_s = phase_churn()
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_churn"] = launches[name]
+    launches = phase_waves(churn_event_s)
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["launches_waves"] = launches[name]
     for name in ("placement_power", "fused_anneal", "fused_anneal_global"):
         # no single PyTorch call computes either placement function
         kernels[name]["library_ms"] = None

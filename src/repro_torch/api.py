@@ -5,9 +5,11 @@ engine's timelines and stats (``repro_torch.core.dynamic``); see
 from .core.api import CFNSession, PlacementSpec, SolveResult, solve_portfolio
 from .core.api import __all__ as _core_all
 from .core.dynamic import (SCENARIOS, ChurnScenario, OnlineEmbedder,
-                           OnlineStats, ServiceEvent, churn_trace,
+                           OnlineStats, ServiceEvent, WaveResult, churn_trace,
+                           flash_crowd_trace, iter_waves, merge_timelines,
                            poisson_timeline, replay)
 
 __all__ = list(_core_all) + [
     "OnlineEmbedder", "OnlineStats", "ServiceEvent", "ChurnScenario",
-    "SCENARIOS", "churn_trace", "poisson_timeline", "replay"]
+    "SCENARIOS", "WaveResult", "churn_trace", "flash_crowd_trace",
+    "iter_waves", "merge_timelines", "poisson_timeline", "replay"]

@@ -8,21 +8,23 @@
     consumes that same mask.
   * **CFNSession** -- the facade owning topology + spec + warm state, on
     one device: ``solve()`` embeds a whole VSR batch (or re-packs the live
-    set), ``add`` / ``remove`` are warm-start churn events, ``defrag()``
-    re-packs under the SAME spec, ``attribute()`` splits fleet watts per
-    tenant, ``replay()`` drives a churn timeline and
-    ``savings_vs_baseline`` reports the paper's headline metric.
+    set), ``add`` / ``remove`` are warm-start churn events and
+    ``apply_wave`` takes a tick's worth of them at once, ``defrag()``
+    re-packs under the SAME spec (``defrag_tick()`` a few rows at a time),
+    ``brownout`` / ``brownout_end`` tighten and restore the admission
+    budget, ``attribute()`` splits fleet watts per tenant, ``replay()``
+    drives a churn timeline and ``savings_vs_baseline`` reports the
+    paper's headline metric.
 
     from repro_torch.api import CFNSession, PlacementSpec
     spec = PlacementSpec(max_hops=2, power_budget_w=500.0)
     session = CFNSession(topo, spec)         # on the CUDA card by default
     session.solve(vsrs)                      # batch embedding
     session.add(service); session.defrag()   # online churn, masked defrag
+    session.apply_wave([(svc, sid)], departures=[old_sid])   # one wave
 
-Not yet ported (ROADMAP Queue 1): churn waves, the rejection queue,
-priority admission and preemption and the amortized ``defrag_tick`` (item
-5 (b)); substrate health and the fault handlers (item 5 (c)); federation
-(item 6).
+Not yet ported (ROADMAP Queue 1): substrate health and the fault handlers
+(item 5 (c)); federation (item 6).
 """
 from __future__ import annotations
 
@@ -59,12 +61,14 @@ class PlacementSpec:
       * ``health`` -- substrate up/down state; not ported yet, so a spec
         that sets it raises.
     Admission (the online engine): ``power_budget_w`` / ``violation_tol``
-    reject an arrival whose power draw / violation increase exceeds them.
-    ``queue_rejected``, ``priority_classes`` > 1, ``preempt`` and
-    ``defrag_rows_per_tick`` > 0 need the unported wave / queue plane and
-    raise at the first churn event (ROADMAP Queue 1, item 5 (b)); the
-    federation fields (``region_*``, ``inter_region_hops``) wait for item
-    6.  The batch path ignores all of them.
+    reject an arrival whose power draw / violation increase exceeds them;
+    ``queue_rejected`` parks it for a retry after the next
+    capacity-increasing event, in ``priority_classes`` classes (0 drains
+    first), and ``preempt`` lets a power refusal park a lower-class live
+    service instead.  ``defrag_rows_per_tick`` > 0 replaces the periodic
+    full solve with ``defrag_tick`` over that many rows.  The federation
+    fields (``region_*``, ``inter_region_hops``) wait for ROADMAP Queue 1,
+    item 6.  The batch path ignores all of them.
     Shape bucketing: ``bucket_rows``/``bucket_cols`` pad R and V to
     power-of-two buckets (``row_bucket_lo``/``col_bucket_lo`` the smallest).
     Solver: ``method`` (one of ``embed.METHODS``), ``effort`` ("quick",
@@ -177,10 +181,11 @@ def _split_services(vsrs: vsr_mod.VSRBatch) -> List[vsr_mod.VSRBatch]:
 class CFNSession:
     """The CFN placement facade: topology + spec + warm state, one device.
 
-    Batch embedding (``solve(vsrs)``), online churn (``add`` / ``remove``),
-    the masked full re-pack (``defrag``, or ``solve()`` with no batch),
-    per-tenant power accounting (``attribute``) and timeline replay
-    (``replay``).  The session's engine (``core.dynamic.OnlineEmbedder``)
+    Batch embedding (``solve(vsrs)``), online churn (``add`` / ``remove``,
+    ``apply_wave``), the masked full re-pack (``defrag``, or ``solve()``
+    with no batch) and its amortized form (``defrag_tick``), admission
+    brownouts, per-tenant power accounting (``attribute``) and timeline
+    replay (``replay``).  The session's engine (``core.dynamic.OnlineEmbedder``)
     carries the placement and the incremental load state between events;
     every solve enforces ``spec.masks`` identically.
 
@@ -276,20 +281,46 @@ class CFNSession:
                 "churn or solve() with no batch to re-pack")
         return self._engine.bootstrap(_split_services(vsrs))
 
-    def add(self, service: vsr_mod.VSRBatch,
-            sid: Optional[int] = None) -> Optional[SolveResult]:
+    def add(self, service: vsr_mod.VSRBatch, sid: Optional[int] = None,
+            priority: Optional[int] = None) -> Optional[SolveResult]:
         """Admit one service (R=1): warm-start incremental re-embedding
-        under the spec's masks and admission budgets.  ``None`` = rejected."""
-        return self._engine.add(service, sid=sid)
+        under the spec's masks and admission budgets.  ``priority`` is the
+        admission class (0 = highest; < ``spec.priority_classes``).
+        ``None`` = rejected."""
+        return self._engine.add(service, sid=sid, priority=priority)
 
     def remove(self, sid: int) -> Optional[SolveResult]:
         """Retire a service: detach its loads, re-settle survivors."""
         return self._engine.remove(sid)
 
+    def apply_wave(self, arrivals: Sequence = (),
+                   departures: Sequence[int] = ()) -> "dynamic.WaveResult":
+        """Apply one churn wave (a tick's arrivals + departures) as a
+        single batched re-solve (``OnlineEmbedder.apply_wave``): one fused
+        detach, one warm-started ``solvers.resolve_wave``, one polish pass,
+        priority-ordered admission, queue drain.  A wave of size 1 is the
+        per-event ``add`` / ``remove`` path."""
+        return self._engine.apply_wave(arrivals, departures)
+
+    def defrag_tick(self, rows: Optional[int] = None) -> Optional[SolveResult]:
+        """One amortized background-defrag step
+        (``spec.defrag_rows_per_tick`` rows, round-robin, never
+        regressing); see ``OnlineEmbedder.defrag_tick``."""
+        return self._engine.defrag_tick(rows)
+
     def defrag(self) -> Optional[SolveResult]:
         """Full re-pack of the live set under ``spec.masks``; keeps the live
         placement when the full solve cannot beat it."""
         return self._engine.defrag()
+
+    def brownout(self, budget_w: Optional[float]) -> None:
+        """Tighten the admission power budget (restore with
+        ``brownout_end``)."""
+        self._engine.brownout(budget_w)
+
+    def brownout_end(self) -> None:
+        """Restore the budget before ``brownout``; queued services retry."""
+        self._engine.brownout_end()
 
     def attribute(self) -> Dict[int, float]:
         """Per-tenant watts {sid: W}, summing to the fleet total."""
@@ -300,7 +331,9 @@ class CFNSession:
                on_event: Optional[Callable] = None,
                waves: bool = False) -> list:
         """Drive the session through a churn timeline
-        (``core.dynamic.replay`` on this session's engine)."""
+        (``core.dynamic.replay`` on this session's engine).  ``waves=True``
+        batches same-tick events through ``apply_wave`` and runs the
+        amortized defrag tick after each wave."""
         return dynamic.replay(self._engine, events, make_vsr, on_event,
                               waves=waves)
 

@@ -6,30 +6,37 @@ both halves of that regime, as the JAX package does:
 
   * **Timelines** -- non-homogeneous Poisson arrivals (thinning) under a
     24 h diurnal rate profile, exponential service lifetimes, the
-    alternating ``churn_trace`` and scenario presets (``steady``,
-    ``diurnal24``, ``burst``).  Numpy only: the same seed gives the JAX
-    package's events and VSRs.
+    alternating ``churn_trace``, the same-tick waves of
+    ``flash_crowd_trace``, scenario presets (``steady``, ``diurnal24``,
+    ``burst``), and ``merge_timelines`` / ``iter_waves`` to order and group
+    them.  Numpy only: the same seed gives the JAX package's events and
+    VSRs.
   * **OnlineEmbedder** -- the live placement state machine: ``add`` /
     ``remove`` carry the previous embedding through ``power.warm_state`` /
     ``power.detach_vsrs`` and re-solve with ``solvers.resolve_incremental``
     (only the churned service's VMs are re-placed; survivors polish in
-    place).  Every ``spec.defrag_every`` events a full solve
-    (``embed._embed``) re-packs the substrate, never worse than the
-    incremental result it replaces.
+    place); ``apply_wave`` takes a tick's arrivals and departures in one
+    ``solvers.resolve_wave``.  Rejected arrivals may park in a priority
+    queue that drains after every capacity-increasing event, a higher
+    class may preempt a lower one, and either every ``spec.defrag_every``
+    events a full solve (``embed._embed``) re-packs the substrate, never
+    worse than the incremental result it replaces, or ``defrag_tick``
+    re-sweeps ``spec.defrag_rows_per_tick`` rows at a time.
 
 Random draws come from one CPU ``torch.Generator`` (seed 1 by default),
-advanced by every event.  Not ported here (ROADMAP Queue 1): the wave
-path, the rejection queue, priority classes, preemption and the amortized
-``defrag_tick`` (item 5 (b)); faults (item 5 (c)).  Options that need them
-raise ``NotImplementedError`` at the first churn event.
+advanced by every solve.  Not ported here (ROADMAP Queue 1, item 5 (c)):
+substrate faults; a ``FaultEvent`` in a replayed timeline raises
+``NotImplementedError``.
 
 Times are in hours throughout; rates in services/hour.
 """
 from __future__ import annotations
 
+import heapq
 import warnings
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -39,7 +46,6 @@ from . import power, solvers, vsr
 from .power import Device, resolve_device
 from .topology import CFNTopology
 
-_ITEM_5B = "ROADMAP Queue 1, item 5 (b)"
 _ITEM_5C = "ROADMAP Queue 1, item 5 (c)"
 
 
@@ -123,6 +129,105 @@ def churn_trace(n_steady: int, n_events: int,
     return events
 
 
+def flash_crowd_trace(n_steady: int, n_waves: int, wave_size: int,
+                      rng: np.random.Generator | int = 0,
+                      replace: bool = True) -> List[ServiceEvent]:
+    """A flash-crowd timeline: churn arrives in correlated same-tick WAVES
+    (the regime ``apply_wave`` / ``replay(..., waves=True)`` batches).
+
+    ``n_steady`` services arrive at t=0, then ``n_waves`` bursts land at
+    t = 1, 2, ...:
+
+      * ``replace=True``: each wave departs ``wave_size // 2`` uniformly
+        random live services and admits ``wave_size - wave_size // 2``
+        fresh ones in the same tick, so the live count never moves.
+      * ``replace=False``: ``n_waves`` pure arrival bursts ramp the crowd
+        up, then equal departure bursts drain it in LIFO order.
+
+    Within every tick the departures sort before the arrivals
+    (``merge_timelines``), so a same-tick replace never double-counts
+    capacity."""
+    rng = np.random.default_rng(rng) if isinstance(rng, int) else rng
+    events = [ServiceEvent(0.0, "arrive", sid) for sid in range(n_steady)]
+    live = list(range(n_steady))
+    sid = n_steady
+    t = 0.0
+    if replace:
+        n_dep = wave_size // 2
+        for _ in range(n_waves):
+            t += 1.0
+            for _ in range(n_dep):
+                victim = live.pop(int(rng.integers(0, len(live))))
+                events.append(ServiceEvent(t, "depart", victim))
+            for _ in range(wave_size - n_dep):
+                events.append(ServiceEvent(t, "arrive", sid))
+                live.append(sid)
+                sid += 1
+    else:
+        crowd: List[int] = []
+        for _ in range(n_waves):
+            t += 1.0
+            for _ in range(wave_size):
+                events.append(ServiceEvent(t, "arrive", sid))
+                crowd.append(sid)
+                sid += 1
+        while crowd:
+            t += 1.0
+            for _ in range(min(wave_size, len(crowd))):
+                events.append(ServiceEvent(t, "depart", crowd.pop()))
+    return merge_timelines(events)
+
+
+@dataclass(frozen=True)
+class FaultEvent:
+    """One substrate fault at hour ``t`` (``fail_node`` / ``recover_node``
+    and ``fail_link`` / ``recover_link`` on element ``target``;
+    ``brownout`` / ``brownout_end`` with the budget ``value`` in watts).
+    Timelines carry it for ``merge_timelines`` / ``iter_waves``; replaying
+    one needs the fault plane, not yet ported (ROADMAP Queue 1, item
+    5 (c))."""
+    t: float
+    kind: str
+    target: int = -1
+    value: Optional[float] = None
+
+
+# Tie-break order at equal t: departures free capacity first, failures land
+# before recoveries, and arrivals admit last, onto the settled substrate.
+_EVENT_ORDER = {"depart": 0,
+                "fail_node": 1, "fail_link": 1, "fail_region": 1,
+                "brownout": 1,
+                "recover_node": 2, "recover_link": 2, "recover_region": 2,
+                "brownout_end": 2,
+                "arrive": 3}
+
+
+def merge_timelines(*streams) -> List:
+    """Merge churn (``ServiceEvent``) and fault (``FaultEvent``) streams
+    into one time-sorted list, stable within the tie-break order above."""
+    events = [e for s in streams for e in s]
+    events.sort(key=lambda e: (e.t, _EVENT_ORDER.get(e.kind, 9)))
+    return events
+
+
+def iter_waves(events: Iterable) -> Iterator[List]:
+    """Group a time-sorted event stream (``merge_timelines`` output) into
+    same-tick waves: maximal runs of ``ServiceEvent``s sharing one
+    timestamp, departures first.  Each ``FaultEvent`` is a barrier,
+    yielded as its own single-element wave."""
+    wave: List = []
+    for ev in events:
+        if wave and (isinstance(ev, FaultEvent) or ev.t != wave[0].t):
+            yield wave
+            wave = []
+        if isinstance(ev, FaultEvent):
+            yield [ev]
+        else:
+            wave.append(ev)
+    if wave:
+        yield wave
+
+
 @dataclass(frozen=True)
 class ChurnScenario:
     """A named workload regime: rate profile + lifetimes + VSR shape."""
@@ -177,12 +282,31 @@ SCENARIOS: Dict[str, ChurnScenario] = {
 @dataclass
 class OnlineStats:
     """Bookkeeping for one engine event."""
-    event: str                 # "bootstrap" | "add" | "remove" | "defrag"
-                               # | "reject"
+    event: str                 # "bootstrap" | "add" | "remove" | "wave"
+                               # | "defrag" | "defrag_tick" | "reject"
+                               # | "preempt"
     method: str
     objective: float
     power_w: float
     n_live: int
+
+
+@dataclass
+class WaveResult:
+    """Outcome of one ``apply_wave`` call.
+
+    ``sids`` maps the call's arrivals (input order) to their assigned
+    service ids; each of those sids lands in exactly one of ``admitted`` /
+    ``rejected`` / ``queued``.  ``result`` is the engine's committed fleet
+    ``SolveResult`` after the wave (``None`` once the engine is empty);
+    ``n_preempted`` counts live services parked to make room."""
+    result: Optional[solvers.SolveResult]
+    sids: List[int] = field(default_factory=list)
+    admitted: List[int] = field(default_factory=list)
+    rejected: List[int] = field(default_factory=list)
+    queued: List[int] = field(default_factory=list)
+    departed: List[int] = field(default_factory=list)
+    n_preempted: int = 0
 
 
 def _bucket_rows(n: int, lo: int = 2) -> int:
@@ -198,10 +322,12 @@ class OnlineEmbedder:
 
     Keeps the current VSR set, placement, and incremental
     ``PlacementState``; ``add`` / ``remove`` re-solve with
-    ``solvers.resolve_incremental`` (one-service warm-start re-embedding)
-    and every ``spec.defrag_every`` events -- or on demand via ``defrag()``
-    -- a full solve re-packs the substrate.  Service identity is the
-    caller's ``sid``; internally rows are dense [0, R).
+    ``solvers.resolve_incremental`` (one-service warm-start re-embedding),
+    ``apply_wave`` re-solves a tick's churn at once with
+    ``solvers.resolve_wave``, and every ``spec.defrag_every`` events -- or
+    on demand via ``defrag()`` -- a full solve re-packs the substrate
+    (``defrag_tick`` is the amortized alternative).  Service identity is
+    the caller's ``sid``; internally rows are dense [0, R).
 
     Configuration lives in one ``api.PlacementSpec`` (``spec=``; the
     legacy kwarg signature is a deprecated shim that builds a spec).
@@ -211,7 +337,11 @@ class OnlineEmbedder:
     ``spec.max_hops`` masks every re-solve and the full-solve defrag; with
     ``spec.power_budget_w`` and/or ``spec.violation_tol`` an arrival whose
     power draw or capacity-violation increase exceeds the budget is
-    rejected and the engine rolled back (counters in ``admission``).
+    rejected and the engine rolled back -- or, with
+    ``spec.queue_rejected``, parked in a priority queue (class, then FIFO)
+    and retried after each capacity-increasing event; with
+    ``spec.preempt`` a power refusal may park a lower-class live service
+    instead.  Counters in ``admission``.
 
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
@@ -259,9 +389,16 @@ class OnlineEmbedder:
         self._remove_kw = dict(self._add_kw, sweeps=0,
                                anneal_t0=spec.remove_anneal_t0)
         self.admission = dict(admitted=0, rejected=0, queued=0, preempted=0)
+        # the rejection queue is a priority heap of (class, seq, sid,
+        # service): class 0 drains first, FIFO (seq) within a class
+        self._queue: List[tuple] = []
+        self._qseq = 0
         self._vsrs: List[vsr.VSRBatch] = []    # one R=1 batch per service
         self._sids: List[int] = []
+        self._prio: List[int] = []             # admission class per live row
         self._next_sid = 0
+        # amortized defrag: round-robin row cursor carried across ticks
+        self._defrag_cursor = 0
         # the concatenated batch is maintained incrementally (concat /
         # delete-row) and the substrate tensors are built once per engine
         self._batch_cache: Optional[vsr.VSRBatch] = None
@@ -273,6 +410,8 @@ class OnlineEmbedder:
         self._events_since_defrag = 0
         self.stats: List[OnlineStats] = []
         self._now = 0.0          # engine clock (hours), set by ``tick``
+        # the admission budget a brownout replaced, restored by brownout_end
+        self._brownout_saved: Optional[tuple] = None
 
     # -- legacy attribute aliases (read/write through the spec) -----------
     def _spec_alias(name):  # noqa: N805 -- descriptor factory, not a method
@@ -327,9 +466,13 @@ class OnlineEmbedder:
         other._add_kw = dict(self._add_kw)
         other._remove_kw = dict(self._remove_kw)
         other.admission = dict(self.admission)
+        other._queue = list(self._queue)
+        other._qseq = self._qseq
         other._vsrs = list(self._vsrs)
         other._sids = list(self._sids)
+        other._prio = list(self._prio)
         other._next_sid = self._next_sid
+        other._defrag_cursor = self._defrag_cursor
         other._batch_cache = self._batch_cache
         other._substrate = self._substrate
         other._problem = self._problem
@@ -339,6 +482,7 @@ class OnlineEmbedder:
         other._events_since_defrag = self._events_since_defrag
         other.stats = list(self.stats)
         other._now = self._now
+        other._brownout_saved = self._brownout_saved
         return other
 
     def objective(self) -> float:
@@ -398,6 +542,17 @@ class OnlineEmbedder:
             F=np.delete(b.F, row, axis=0), H=np.delete(b.H, row, axis=0),
             src=np.delete(b.src, row), input_vm=np.delete(b.input_vm, row))
 
+    def _snapshot(self) -> tuple:
+        """Everything an admission refusal rolls back."""
+        return (self._vsrs[:], self._sids[:], self._prio[:],
+                self._batch_cache, self._problem, self._X, self._state,
+                self._result, self._events_since_defrag)
+
+    def _restore(self, snap: tuple) -> None:
+        (self._vsrs, self._sids, self._prio, self._batch_cache,
+         self._problem, self._X, self._state, self._result,
+         self._events_since_defrag) = snap
+
     def _commit(self, res: solvers.SolveResult, event: str) -> None:
         self._X = np.asarray(res.X)
         self._state = power.init_state(self._problem, self._X)
@@ -431,10 +586,44 @@ class OnlineEmbedder:
         s = self._state
         return (s.omega, s.tm, s.theta, s.lam)
 
+    def _prev_budgets(self) -> Tuple[float, float]:
+        """The committed fleet's power and violation, the baselines of an
+        arrival's admission test (0 on an empty engine)."""
+        if self._result is None:
+            return 0.0, 0.0
+        return (self._result.power,
+                float(self._result.breakdown.violation))
+
+    # -- the priority rejection queue -------------------------------------
+    @property
+    def queued_sids(self) -> List[int]:
+        """Parked service ids in drain order (class, then FIFO)."""
+        return [e[2] for e in sorted(self._queue)]
+
+    def _park(self, service: vsr.VSRBatch, sid: int, prio: int = 0,
+              seq: Optional[int] = None) -> None:
+        """Push one service onto the priority rejection heap.  ``seq``
+        re-parks a drained entry at its original within-class position
+        (a failed retry keeps its place at the head of its class)."""
+        if seq is None:
+            seq = self._qseq
+            self._qseq += 1
+        heapq.heappush(self._queue, (int(prio), seq, sid, service))
+
+    def _priority_of(self, priority: Optional[int]) -> int:
+        prio = 0 if priority is None else int(priority)
+        if not 0 <= prio < self.spec.priority_classes:
+            raise ValueError(
+                f"priority {prio} out of range for "
+                f"{self.spec.priority_classes} priority class(es)")
+        return prio
+
     # -- the online API ---------------------------------------------------
     def bootstrap(self, services: Sequence[vsr.VSRBatch],
                   sids: Optional[Sequence[int]] = None,
-                  X0: Optional[np.ndarray] = None) -> solvers.SolveResult:
+                  X0: Optional[np.ndarray] = None,
+                  priorities: Optional[Sequence[int]] = None
+                  ) -> solvers.SolveResult:
         """Cold-start with a whole service set in ONE full solve instead of
         N incremental admissions.
 
@@ -442,6 +631,7 @@ class OnlineEmbedder:
         elsewhere (a checkpoint) instead of solving: pins are applied,
         missing columns fill from each row's source, and the engine commits
         the exact evaluation of that placement as its live state.
+        ``priorities`` gives each service's admission class (default 0).
         """
         if self._vsrs:
             raise RuntimeError("bootstrap() requires an empty engine")
@@ -449,12 +639,17 @@ class OnlineEmbedder:
             raise ValueError("bootstrap() needs at least one service")
         if sids is not None and len(sids) != len(services):
             raise ValueError(f"{len(sids)} sids for {len(services)} services")
+        if priorities is not None and len(priorities) != len(services):
+            raise ValueError(f"{len(priorities)} priorities for "
+                             f"{len(services)} services")
         for k, s in enumerate(services):
             if s.R != 1:
                 raise ValueError(f"service {k} must be R=1, got R={s.R}")
         self._vsrs = list(services)
         self._sids = (list(range(len(services))) if sids is None
                       else list(sids))
+        self._prio = ([0] * len(services) if priorities is None
+                      else [self._priority_of(p) for p in priorities])
         self._next_sid = max(self._sids, default=-1) + 1
         self._batch_cache = vsr.concat_all(self._vsrs)
         self._rebuild_problem()
@@ -489,9 +684,8 @@ class OnlineEmbedder:
                     and np.ndim(self.spec.max_hops) > 0))
 
     def _check_churn(self, event: str) -> None:
-        """Refuse what a churn event cannot honour: row-positional
-        constraints (ValueError), and the spec options of the unported
-        wave / queue plane (NotImplementedError)."""
+        """Refuse row-positional constraints, which a churn event cannot
+        honour."""
         if self._positional_constraints:
             raise ValueError(
                 f"{event}() with row-positional constraints (sequence "
@@ -499,19 +693,6 @@ class OnlineEmbedder:
                 "shifts row indices, mis-assigning per-service SLAs.  Use "
                 "a scalar max_hops for churn, or positional constraints "
                 "with the static batch path (CFNSession.solve).")
-        s = self.spec
-        unported = [name for name, on in (
-            ("queue_rejected=True", s.queue_rejected),
-            (f"priority_classes={s.priority_classes}",
-             s.priority_classes > 1),
-            ("preempt=True", s.preempt),
-            (f"defrag_rows_per_tick={s.defrag_rows_per_tick}",
-             s.defrag_rows_per_tick > 0)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{event}() with PlacementSpec({', '.join(unported)}) needs "
-                f"the rejection queue / priority / amortized-defrag plane, "
-                f"not yet ported ({_ITEM_5B})")
 
     def _admit_reason(self, res: solvers.SolveResult, prev_power: float,
                       prev_violation: float) -> Optional[str]:
@@ -532,29 +713,41 @@ class OnlineEmbedder:
                 or self.admit_power_budget_w is not None
                 or self.admit_violation_tol is not None)
 
-    def add(self, service: vsr.VSRBatch,
-            sid: Optional[int] = None) -> Optional[solvers.SolveResult]:
+    def add(self, service: vsr.VSRBatch, sid: Optional[int] = None,
+            priority: Optional[int] = None, _retry: bool = False,
+            _qseq: Optional[int] = None) -> Optional[solvers.SolveResult]:
         """Admit one service (an R=1 VSRBatch): warm-start incremental
         re-embedding; the very first service (and every
         ``defrag_every``-th event) takes the full-solve path -- except
         under admission control, where even the first service goes through
         the masked incremental path so the hop/budget contract holds.
-        Returns ``None`` when admission control rejects the arrival (the
-        engine state is rolled back)."""
+
+        ``priority`` is the service's admission class (0 = most important;
+        must be < ``spec.priority_classes``).  Returns ``None`` when
+        admission control rejects the arrival (the engine state is rolled
+        back; with ``queue_rejected`` the service is parked and retried
+        after the next capacity-increasing event).  With ``spec.preempt``,
+        a power-budget rejection may instead park a strictly lower-class
+        live service (lowest class, newest first) and retry.  ``_retry``
+        marks a queue re-attempt: a re-rejection does not re-increment the
+        rejected / queued counters (they count distinct arrivals) and
+        re-parks the service at its original queue position (``_qseq``),
+        while an eventual success still counts as admitted."""
         if service.R != 1:
             raise ValueError(f"add() takes one service, got R={service.R}")
         self._check_churn("add")
+        prio = self._priority_of(priority)
         if sid is None:
             sid = self._next_sid
         if sid in self._sids:
             raise ValueError(f"sid {sid} is already live")
         self._next_sid = max(self._next_sid, sid + 1)
-        prev = (self._vsrs[:], self._sids[:], self._batch_cache,
-                self._problem, self._X, self._state, self._result,
-                self._events_since_defrag)
+        prev = self._snapshot()
         prev_X, prev_loads = self._X, self._carry_loads()
+        prev_power, prev_viol = self._prev_budgets()
         self._vsrs.append(service)
         self._sids.append(sid)
+        self._prio.append(prio)
         self._batch_cache = (service if self._batch_cache is None
                              else self._batch_cache.concat(service))
         self._rebuild_problem()
@@ -564,27 +757,31 @@ class OnlineEmbedder:
             self.admission["admitted"] += 1
             return res
         row = self.n_live - 1
-        prev_res = prev[6]
         if prev_X is None:
             # empty engine under admission control: start from the pinned
             # sources (an all-src placement) so the masked incremental
             # path and the budget check below still apply
             st = power.init_state(self._problem, self._problem.fixed_node)
-            prev_power, prev_viol = 0.0, 0.0
         else:
             row_map = list(range(row)) + [-1] * (self._problem.R - row)
             st = power.warm_state(self._problem, prev_X,
                                   prev_loads=prev_loads, row_map=row_map)
-            prev_power = prev_res.power
-            prev_viol = float(prev_res.breakdown.violation)
         res = solvers.resolve_incremental(
             self._problem, gen=self._gen, changed_rows=[row], state=st,
             spec=self.spec, **self._resolve_kw(self._add_kw))
-        if self._admit_reason(res, prev_power, prev_viol) is not None:
-            (self._vsrs, self._sids, self._batch_cache, self._problem,
-             self._X, self._state, self._result,
-             self._events_since_defrag) = prev
-            self.admission["rejected"] += 1
+        reason = self._admit_reason(res, prev_power, prev_viol)
+        if reason is not None:
+            self._restore(prev)
+            if (reason == "power_budget_exceeded" and self.spec.preempt
+                    and self._preempt_victim(prio) is not None):
+                return self.add(service, sid=sid, priority=prio,
+                                _retry=_retry, _qseq=_qseq)
+            if not _retry:
+                self.admission["rejected"] += 1
+                if self.queue_rejected:
+                    self.admission["queued"] += 1
+            if self.queue_rejected or _retry:
+                self._park(service, sid, prio, seq=_qseq)
             self.stats.append(OnlineStats(
                 event="reject", method="admission", objective=res.objective,
                 power_w=res.power, n_live=self.n_live))
@@ -595,10 +792,31 @@ class OnlineEmbedder:
         self._commit(res, "add")
         return res
 
-    def remove(self, sid: int) -> Optional[solvers.SolveResult]:
+    def _preempt_victim(self, prio: int) -> Optional[int]:
+        """Park the lowest-class live service strictly below ``prio``
+        (newest first on class ties) to free admission budget; returns its
+        sid, or ``None`` when no live service may be preempted."""
+        victims = [r for r in range(self.n_live) if self._prio[r] > prio]
+        if not victims:
+            return None
+        r = max(victims, key=lambda i: (self._prio[i], i))
+        vsid, vsvc, vprio = self._sids[r], self._vsrs[r], self._prio[r]
+        # no drain: the arrival that triggered this retries first, and a
+        # drain here would just re-admit the victim parked below
+        self.remove(vsid, _drain=False)
+        self._park(vsvc, vsid, vprio)
+        self.admission["preempted"] += 1
+        self.stats.append(OnlineStats(
+            event="preempt", method="admission", objective=self.objective(),
+            power_w=self.power_w(), n_live=self.n_live))
+        return vsid
+
+    def remove(self, sid: int,
+               _drain: bool = True) -> Optional[solvers.SolveResult]:
         """Retire a service: detach its loads in O(V*(N+P)), then let the
-        survivors re-settle (no changed rows).  Returns ``None`` when the
-        engine is left empty."""
+        survivors re-settle (no changed rows).  Freed capacity re-admits
+        queued arrivals (unless ``_drain`` is off).  Returns ``None`` when
+        the engine is left empty."""
         self._check_churn("remove")
         row = self._sids.index(sid)
         detached = power.detach_vsrs(self._problem, self._state, [row])
@@ -606,10 +824,13 @@ class OnlineEmbedder:
         surv = [i for i in range(self.n_live) if i != row]
         del self._vsrs[row]
         del self._sids[row]
+        del self._prio[row]
         if not self._vsrs:
             self._problem = self._X = self._state = self._result = None
             self._batch_cache = None
             self.stats.append(OnlineStats("remove", "empty", 0.0, 0.0, 0))
+            if _drain:
+                self._drain_queue()
             return None
         self._drop_row(row)
         self._rebuild_problem()
@@ -624,9 +845,244 @@ class OnlineEmbedder:
             self._problem, gen=self._gen, changed_rows=[], state=st,
             spec=self.spec, **self._resolve_kw(self._remove_kw))
         if self._defrag_due():
-            return self._full_solve("remove", incumbent=res)
-        self._commit(res, "remove")
+            res = self._full_solve("remove", incumbent=res)
+        else:
+            self._commit(res, "remove")
+        if _drain:
+            self._drain_queue()
         return res
+
+    # -- wave-batched churn ------------------------------------------------
+    def apply_wave(self, arrivals: Sequence = (),
+                   departures: Sequence[int] = ()) -> WaveResult:
+        """Apply one churn WAVE -- a tick's worth of arrivals and
+        departures -- as a single batched engine event.
+
+        ``arrivals``: R=1 ``VSRBatch``es, or ``(service, sid)`` /
+        ``(service, sid, priority)`` tuples (``sid=None`` auto-assigns).
+        ``departures``: live sids.  Departures detach first in ONE fused
+        ``detach_vsrs`` (a same-tick replace never double-counts
+        capacity), arrivals join the batch in one concat + problem rebuild,
+        ``solvers.resolve_wave`` re-solves the whole wave once, admission
+        verdicts land per arrival in priority order, and a
+        departure-carrying wave drains the rejection queue.
+
+        A wave of size 1 goes verbatim through ``add`` / ``remove``:
+        the same placements, power and admission counters."""
+        self._check_churn("apply_wave")
+        arr: List[tuple] = []
+        seen: set = set()
+        for a in arrivals:
+            if isinstance(a, (tuple, list)):
+                svc = a[0]
+                sid = a[1] if len(a) > 1 else None
+                prio = self._priority_of(a[2] if len(a) > 2 else 0)
+            else:
+                svc, sid, prio = a, None, 0
+            if svc.R != 1:
+                raise ValueError(
+                    f"wave arrivals must be R=1, got R={svc.R}")
+            if sid is None:
+                sid = self._next_sid
+            if sid in self._sids or sid in seen:
+                raise ValueError(f"sid {sid} is already live")
+            seen.add(sid)
+            self._next_sid = max(self._next_sid, sid + 1)
+            arr.append((svc, int(sid), prio))
+        deps = [int(s) for s in departures]
+        if len(deps) != len(set(deps)):
+            raise ValueError("duplicate departure sid in wave")
+        for s in deps:
+            if s not in self._sids:
+                raise KeyError(f"no live service {s}")
+        wr = WaveResult(result=self._result,
+                        sids=[sid for _, sid, _ in arr], departed=deps)
+        pre_preempted = self.admission["preempted"]
+        if not arr and not deps:
+            return wr
+        if len(arr) + len(deps) == 1:
+            if deps:
+                wr.result = self.remove(deps[0])
+            else:
+                svc, sid, prio = arr[0]
+                res = self.add(svc, sid=sid, priority=prio)
+                if res is not None:
+                    wr.result = res
+                    wr.admitted.append(sid)
+                else:
+                    wr.result = self._result
+                    self._verdict(wr, sid)
+        else:
+            self._wave(arr, deps, wr)
+        wr.n_preempted = self.admission["preempted"] - pre_preempted
+        return wr
+
+    def _verdict(self, wr: WaveResult, sid: int) -> None:
+        """File a refused arrival under ``queued`` when it is parked, else
+        ``rejected``."""
+        if any(e[2] == sid for e in self._queue):
+            wr.queued.append(sid)
+        else:
+            wr.rejected.append(sid)
+
+    def _wave(self, arr: List[tuple], deps: List[int], wr: WaveResult,
+              deferred: Optional[List[tuple]] = None) -> WaveResult:
+        """One attempt at a batched wave; admission refusals roll the whole
+        attempt back and recurse without the refused arrivals."""
+        deferred = [] if deferred is None else deferred
+        if not arr and not deps:
+            wr.result = self._result
+            return self._wave_deferred(wr, deferred)
+        prev = self._snapshot()
+        state, prev_X = self._state, self._X
+        prev_power, prev_viol = self._prev_budgets()
+        n0 = self.n_live
+        # phase 1: departures detach as ONE fused state update, BEFORE any
+        # arrival lands (capacity is never double-counted inside a wave)
+        dep_rows = sorted(self._sids.index(s) for s in deps)
+        if dep_rows:
+            state = power.detach_vsrs(self._problem, state, dep_rows)
+            for r in reversed(dep_rows):
+                del self._vsrs[r]
+                del self._sids[r]
+                del self._prio[r]
+                self._drop_row(r)
+        gone = set(dep_rows)
+        surv = [i for i in range(n0) if i not in gone]
+        # phase 2: arrivals join the batch in one pass
+        for svc, sid, prio in arr:
+            self._vsrs.append(svc)
+            self._sids.append(sid)
+            self._prio.append(prio)
+            self._batch_cache = (svc if self._batch_cache is None
+                                 else self._batch_cache.concat(svc))
+        if not self._vsrs:
+            self._problem = self._X = self._state = self._result = None
+            self._batch_cache = None
+            self.stats.append(OnlineStats("wave", "empty", 0.0, 0.0, 0))
+            wr.result = None
+            self._drain_queue()
+            return self._wave_deferred(wr, deferred)
+        self._rebuild_problem()
+        self._events_since_defrag += len(arr) + len(dep_rows)
+        new_rows = list(range(len(surv), self.n_live))
+        if prev_X is None:
+            # cold wave: every arrival starts at its pinned source (the
+            # targeted sweeps re-place them; as add under admission)
+            st = power.init_state(self._problem, self._problem.fixed_node)
+        else:
+            st = power.warm_state(
+                self._problem, prev_X,
+                prev_loads=(state.omega, state.tm, state.theta, state.lam),
+                row_map=surv + [-1] * (self._problem.R - len(surv)))
+        # phase 3: ONE batched re-solve for the whole wave
+        kw = self._add_kw if new_rows else self._remove_kw
+        res = solvers.resolve_wave(self._problem, st, new_rows,
+                                   gen=self._gen, spec=self.spec,
+                                   **self._resolve_kw(kw))
+        # phase 4: admission, per arrival in priority order
+        if new_rows and self._admission_active:
+            refused = self._wave_refusals(res, arr, new_rows,
+                                          prev_power, prev_viol)
+            if refused:
+                self._restore(prev)
+                keep = []
+                for i, (svc, sid, prio) in enumerate(arr):
+                    if i not in refused:
+                        keep.append((svc, sid, prio))
+                    elif (refused[i] == "power_budget_exceeded"
+                          and self.spec.preempt):
+                        # retried per event after the wave commits, where
+                        # preemption may park a lower-class victim
+                        deferred.append((svc, sid, prio))
+                    else:
+                        self.admission["rejected"] += 1
+                        if self.queue_rejected:
+                            self.admission["queued"] += 1
+                            self._park(svc, sid, prio)
+                            wr.queued.append(sid)
+                        else:
+                            wr.rejected.append(sid)
+                        self.stats.append(OnlineStats(
+                            event="reject", method="admission",
+                            objective=res.objective, power_w=res.power,
+                            n_live=self.n_live))
+                return self._wave(keep, deps, wr, deferred)
+        # phase 5: commit, then drain freed capacity into queued arrivals
+        for _, sid, _ in arr:
+            wr.admitted.append(sid)
+            self.admission["admitted"] += 1
+        if self._defrag_due():
+            res = self._full_solve("wave", incumbent=res)
+        else:
+            self._commit(res, "wave")
+        wr.result = res
+        if deps:
+            self._drain_queue()
+        return self._wave_deferred(wr, deferred)
+
+    def _wave_deferred(self, wr: WaveResult,
+                       deferred: List[tuple]) -> WaveResult:
+        """Retry power-refused arrivals per event (``spec.preempt``: each
+        may park a lower-class victim to free budget)."""
+        for svc, sid, prio in deferred:
+            res = self.add(svc, sid=sid, priority=prio)
+            if res is not None:
+                wr.admitted.append(sid)
+                wr.result = res
+            else:
+                self._verdict(wr, sid)
+        return wr
+
+    def _wave_refusals(self, res: solvers.SolveResult, arr: List[tuple],
+                       new_rows: List[int], prev_power: float,
+                       prev_viol: float) -> Dict[int, str]:
+        """Admission verdicts for one solved wave attempt: {arr index ->
+        reason}.  The wave's budgets are the per-event budgets times its
+        arrival count; when exceeded, ONE arrival is refused per attempt --
+        the lowest priority class first, and within it the arrival with
+        the highest attributed watts (``power.attribute_power``) when a
+        power budget is set, else the newest -- and the rest of the wave is
+        re-solved, so higher classes keep their seats."""
+        budget, tol = self.admit_power_budget_w, self.admit_violation_tol
+        over_power = (budget is not None
+                      and res.power - prev_power > budget * len(new_rows))
+        over_viol = (tol is not None
+                     and float(res.breakdown.violation) - prev_viol
+                     > tol * len(new_rows))
+        if not over_power and not over_viol:
+            return {}
+        reason = ("power_budget_exceeded" if over_power
+                  else "violation_budget_exceeded")
+        lowest = max(prio for _, _, prio in arr)
+        cls = [j for j in range(len(arr)) if arr[j][2] == lowest]
+        if budget is not None:
+            per = power.attribute_power(self._problem, res.X, res.breakdown,
+                                        n_rows=self.n_live)
+            i = max(cls, key=lambda j: (float(per[new_rows[j]]), j))
+        else:
+            i = max(cls)
+        return {i: reason}
+
+    def _drain_queue(self) -> None:
+        """Retry parked arrivals class by class (FIFO within a class);
+        stop at the first re-rejection.  Runs after every
+        capacity-increasing event: departures (per event or wave) and
+        ``brownout_end``."""
+        while self._queue:
+            prio, seq, sid, service = heapq.heappop(self._queue)
+            if self.add(service, sid=sid, priority=prio, _retry=True,
+                        _qseq=seq) is None:
+                break                    # add() re-parked it at ``seq``
+
+    def cancel_queued(self, sid: int) -> bool:
+        """Drop a parked arrival (its lifetime ended while queued)."""
+        n0 = len(self._queue)
+        self._queue = [e for e in self._queue if e[2] != sid]
+        removed = len(self._queue) < n0
+        if removed:
+            heapq.heapify(self._queue)
+        return removed
 
     def defrag(self) -> Optional[solvers.SolveResult]:
         """Force a full re-pack of the current service set (keeps the live
@@ -635,33 +1091,91 @@ class OnlineEmbedder:
             return None
         return self._full_solve("defrag", incumbent=self._result)
 
+    def defrag_tick(self, rows: Optional[int] = None
+                    ) -> Optional[solvers.SolveResult]:
+        """Amortized background defrag: ONE targeted sweep over the free
+        VMs of ``rows`` live services (default
+        ``spec.defrag_rows_per_tick``), round-robin from a cursor carried
+        across ticks, so over ceil(R / K) ticks every service is
+        re-considered without a full solve on the event path.
+
+        Never regressing: the swept placement is committed only when its
+        exact objective improves on the incumbent.  The position list is
+        padded to a power of two, as in the JAX package.  Returns the
+        committed result, or ``None`` when the tick found no improvement
+        (or there is nothing to defrag)."""
+        k = self.spec.defrag_rows_per_tick if rows is None else int(rows)
+        if k <= 0 or self._problem is None or self._result is None:
+            return None
+        n = self.n_live
+        sel = [(self._defrag_cursor + i) % n for i in range(min(k, n))]
+        self._defrag_cursor = (self._defrag_cursor + len(sel)) % n
+        aux = power.build_aux(self._problem)
+        free = aux.free_pos.cpu().numpy()
+        pos = free[np.isin(free[:, 0], sel)]
+        if pos.shape[0] == 0:
+            return None
+        pos = solvers._pad_positions(pos, solvers._pow2(int(pos.shape[0])))
+        el_np, _, _ = solvers._eligible_np(self.spec.masks(self._problem))
+        el_t = (None if el_np is None
+                else torch.as_tensor(el_np, device=self._problem.device))
+        st, _ = solvers._sweep(self._problem, aux, self._state, pos, el_t)
+        res = solvers._result(self._problem, st.X, "defrag_tick")
+        if res.objective >= self._result.objective - 1e-9:
+            return None
+        self._commit(res, "defrag_tick")
+        return res
+
     def _defrag_due(self) -> bool:
-        return (self.defrag_every > 0
+        # the amortized mode (defrag_rows_per_tick > 0) REPLACES the
+        # periodic full defrag: re-packing happens K rows a tick in
+        # defrag_tick(), off the event path
+        return (self.spec.defrag_rows_per_tick == 0
+                and self.defrag_every > 0
                 and self._events_since_defrag >= self.defrag_every)
 
     def tick(self, t: float) -> None:
         """Advance the engine clock (hours)."""
         self._now = float(t)
 
+    def brownout(self, budget_w: Optional[float]) -> None:
+        """Tighten the fleet admission power budget (arrivals beyond it
+        reject or queue through the admission path above);
+        ``brownout_end`` restores the budget it replaced."""
+        if self._brownout_saved is None:
+            self._brownout_saved = (self.spec.power_budget_w,)
+        self.spec = self.spec.replace(power_budget_w=budget_w)
+
+    def brownout_end(self) -> None:
+        """Restore the budget before ``brownout`` and drain the queue."""
+        if self._brownout_saved is None:
+            return
+        (prev_budget,) = self._brownout_saved
+        self._brownout_saved = None
+        self.spec = self.spec.replace(power_budget_w=prev_budget)
+        self._drain_queue()
+
 
 def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
            make_vsr: Callable[[int], vsr.VSRBatch],
            on_event: Optional[Callable] = None,
            waves: bool = False) -> List[OnlineStats]:
-    """Drive an engine through a timeline, one event at a time.
-    ``make_vsr(sid)`` materializes the service for each arrival; departures
-    of services that are not live (never admitted, or rejected) are
-    skipped.  ``on_event(event, result)`` observes each step (``result`` is
-    None for a rejected arrival or a skipped departure).  Admission
-    counters accumulate in ``engine.admission``.
+    """Drive an engine through a timeline.  ``make_vsr(sid)``
+    materializes the service for each arrival; a departure of a service
+    that is not live cancels it in the rejection queue (or is skipped).
+    ``on_event(event, result)`` observes each step (``result`` is None for
+    a rejected arrival or a skipped departure).  Admission counters
+    accumulate in ``engine.admission``.
 
-    Only ``ServiceEvent``s are taken: fault events raise (the fault plane,
-    item 5 (c)), and so does ``waves=True`` (item 5 (b)), before any event
-    is applied."""
-    if waves:
-        raise NotImplementedError(
-            f"replay(waves=True) batches same-tick events through "
-            f"apply_wave, not yet ported ({_ITEM_5B})")
+    ``waves=True`` batches each same-tick run of events (``iter_waves``)
+    through ``engine.apply_wave`` -- one re-solve per tick instead of one
+    per event -- and, when the spec carries an amortized defrag budget
+    (``spec.defrag_rows_per_tick``), runs one ``defrag_tick()`` after each
+    wave; ``on_event`` then observes ``(event, WaveResult)`` for every
+    event of the wave.
+
+    Only ``ServiceEvent``s are taken: a fault event raises (the fault
+    plane, item 5 (c)) before any event is applied."""
     events = list(events)
     for ev in events:
         if getattr(ev, "kind", None) not in ("arrive", "depart"):
@@ -669,6 +1183,8 @@ def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
                 f"timeline event {ev!r} is not a service arrival or "
                 f"departure; fault events need the fault plane, not yet "
                 f"ported ({_ITEM_5C})")
+    if waves:
+        return _replay_waves(engine, events, make_vsr, on_event)
     live = set(engine.sids)
     for ev in events:
         engine.tick(ev.t)
@@ -677,10 +1193,38 @@ def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
             if res is not None:
                 live.add(ev.sid)
         elif ev.sid not in live:
+            # not live -- but it may be parked in the rejection queue
+            engine.cancel_queued(ev.sid)
             res = None
         else:
             res = engine.remove(ev.sid)
             live.discard(ev.sid)
+            live.update(engine.sids)       # queue re-admissions
         if on_event is not None:
             on_event(ev, res)
+    return engine.stats
+
+
+def _replay_waves(engine: OnlineEmbedder, events: List[ServiceEvent],
+                  make_vsr: Callable[[int], vsr.VSRBatch],
+                  on_event: Optional[Callable]) -> List[OnlineStats]:
+    """The ``replay(..., waves=True)`` loop: collect -> apply_wave ->
+    background defrag tick, one pass per same-tick wave."""
+    for group in iter_waves(events):
+        engine.tick(group[-1].t)
+        live = set(engine.sids)
+        arrivals, departures = [], []
+        for ev in group:
+            if ev.kind == "arrive":
+                arrivals.append((make_vsr(ev.sid), ev.sid))
+            elif ev.sid in live:
+                departures.append(ev.sid)
+            else:
+                engine.cancel_queued(ev.sid)
+        wres = engine.apply_wave(arrivals, departures)
+        if engine.spec.defrag_rows_per_tick:
+            engine.defrag_tick()
+        if on_event is not None:
+            for ev in group:
+                on_event(ev, wres)
     return engine.stats

@@ -17,6 +17,7 @@ kernels of ``kernels``:
   resolve_incremental -- warm-start re-solve after service churn (targeted
                      sweeps, a short delta anneal, a kernel re-score of the
                      candidates, polish sweeps): the online engine's event.
+  resolve_wave    -- the same, once for a whole churn wave.
 
 Every solver takes an optional ``eligible`` [R, P] mask (the constraint
 surface ``api.PlacementSpec.masks`` produces).  Random draws come from an
@@ -894,3 +895,35 @@ def resolve_incremental(problem: PlacementProblem, prev_X=None,
     res = _result(problem, best_X, "incremental", history)
     res.conv = conv
     return res
+
+
+def resolve_wave(problem: PlacementProblem,
+                 state: PlacementState,
+                 changed_rows: Sequence[int],
+                 gen: Optional[torch.Generator] = None,
+                 pad_changed_to: Optional[int] = None,
+                 spec=None, **kw) -> SolveResult:
+    """Wave-batched incremental re-solve: ONE warm-start pass over a whole
+    churn wave instead of one per event.
+
+    The caller detaches a tick's departures and concatenates its arrivals
+    as one state update and builds ONE ``power.warm_state``
+    (``changed_rows`` = the arrival rows; departures need none).  This runs
+    ``resolve_incremental``'s three phases once for the wave: targeted
+    sweeps over every changed row's free VMs, one Metropolis refinement
+    over the union of changed positions, and one polish pass -- the polish
+    that dominates an event's time is paid once per wave.  The changed
+    position list is padded to a power-of-two bucket (``pad_changed_to``,
+    default ``_pow2`` of the wave's free positions), as in the JAX package.
+    ``kw`` (``streams=`` among them) passes through to
+    ``resolve_incremental``."""
+    changed_rows = list(changed_rows)
+    if pad_changed_to is None and changed_rows:
+        n_pos = int((~problem.host.fixed_mask[changed_rows]).sum())
+        if n_pos:
+            pad_changed_to = _pow2(n_pos)
+    res = resolve_incremental(problem, gen=gen, changed_rows=changed_rows,
+                              state=state, spec=spec,
+                              pad_changed_to=pad_changed_to, **kw)
+    return SolveResult(X=res.X, breakdown=res.breakdown, method="wave",
+                       history=res.history, conv=res.conv)

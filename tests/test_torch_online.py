@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.api import PlacementSpec as JSpec
+from repro.api import CFNSession as JSession, PlacementSpec as JSpec
 from repro.core import dynamic as jdyn, power as jp, solvers as js, \
     topology as jtopo, vsr as jvsr
 from repro.kernels import ref as jref
@@ -707,42 +707,73 @@ def test_session_replay_matches_deprecated_engine(paper, max_hops):
 
 
 # ---------------------------------------------------------------------------
-# what this slice leaves to ROADMAP items 5 (b) and 5 (c)
+# the spec options of the queue / priority / defrag-tick plane at churn, and
+# what is left to ROADMAP item 5 (c)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option", [dict(queue_rejected=True),
                                     dict(priority_classes=2),
-                                    dict(preempt=True),
+                                    dict(preempt=True, priority_classes=2),
                                     dict(defrag_rows_per_tick=1)],
                          ids=["queue", "priority", "preempt", "defrag_tick"])
-def test_unported_options_raise_at_churn(paper, option):
-    """The wave / queue plane's spec options keep solve(vsrs) working and
-    raise NotImplementedError, naming item 5 (b), at the first churn
-    event, before any state changes."""
-    _, tt = paper
-    ses = CFNSession(tt, TSpec(**DET, **option), device=CPU)
-    res = ses.solve(tvsr.random_vsrs(3, rng=0, source_nodes=[0]))
-    assert res.method == "coordinate"
-    with pytest.raises(NotImplementedError, match=r"item 5 \(b\)"):
-        ses.add(tvsr.random_vsrs(1, rng=1, source_nodes=[0]))
-    with pytest.raises(NotImplementedError, match=r"item 5 \(b\)"):
-        ses.remove(ses.sids[0])
-    assert ses.n_live == 3 and ses.result is res
-    assert ses.solve().method in ("coordinate", "defrag-kept(coordinate)")
+def test_churn_options_match_jax(paper, option):
+    """Each option of the queue / priority / defrag-tick plane through
+    solve(vsrs), a class-1 arrival, a class-0 arrival under a zero-watt
+    brownout, a departure, brownout_end and a defrag tick: the reference's
+    placements, objectives, sids, queue, classes and counters after every
+    step."""
+    jt, tt = paper
+    spec = dict(DET, **option)
+    jses = JSession(jt, JSpec(**spec), key=jax.random.PRNGKey(7))
+    tses = CFNSession(tt, TSpec(**spec), device=CPU)
+    low = 1 if option.get("priority_classes", 1) > 1 else None
+
+    def both(fn):
+        got = [fn(ses, mod) for ses, mod in ((jses, jvsr), (tses, tvsr))]
+        j, t = jses.engine, tses.engine
+        np.testing.assert_array_equal(t.X, np.asarray(j.X))
+        assert t.objective() == pytest.approx(j.objective(), rel=1e-5,
+                                              abs=5e-2)
+        assert (t.sids, t.queued_sids, t._prio, t.admission) == \
+            (j.sids, j.queued_sids, j._prio, j.admission)
+        assert [s.event for s in t.stats] == [s.event for s in j.stats]
+        return got
+
+    res = both(lambda ses, m: ses.solve(m.random_vsrs(3, rng=0,
+                                                      source_nodes=[0])))
+    assert res[1].method == "coordinate"
+    both(lambda ses, m: ses.add(m.random_vsrs(1, rng=1, source_nodes=[0]),
+                                sid=10, priority=low))
+    both(lambda ses, m: ses.engine.brownout(0.0))
+    got = both(lambda ses, m: ses.add(m.random_vsrs(1, rng=2,
+                                                    source_nodes=[0]),
+                                      sid=11, priority=0))
+    assert got == [None, None]
+    both(lambda ses, m: ses.remove(ses.sids[0]))
+    both(lambda ses, m: ses.engine.brownout_end())
+    ticks = both(lambda ses, m: ses.engine.defrag_tick())
+    assert (ticks[0] is None) == (ticks[1] is None)
+    adm = tses.admission
+    if option.get("queue_rejected"):
+        assert adm["queued"] == 1 and 11 in tses.sids
+    if option.get("preempt"):
+        assert adm["preempted"] == 1 and 10 in tses.sids
+    assert adm["rejected"] == 1
 
 
 def test_unported_timelines_raise(paper):
-    """replay(waves=True) names item 5 (b); a fault event in a timeline
-    (the reference's FaultEvent, merged by its merge_timelines) names item
-    5 (c); neither applies any event."""
+    """A fault event in a timeline (the port's FaultEvent or the
+    reference's, merged by either package's merge_timelines) names item
+    5 (c) in both replay modes, and no event is applied."""
     _, tt = paper
     ses = CFNSession(tt, TSpec(**DET), device=CPU)
     make = lambda sid: tvsr.random_vsrs(1, rng=sid, source_nodes=[0])
     events = tdyn.churn_trace(2, 2, rng=0)
-    with pytest.raises(NotImplementedError, match=r"item 5 \(b\)"):
-        ses.replay(events, make, waves=True)
-    storm = jdyn.merge_timelines(events, [jdyn.FaultEvent(0.5, "fail_node",
-                                                          3)])
-    with pytest.raises(NotImplementedError, match=r"item 5 \(c\)"):
-        ses.replay(storm, make)
+    for storm in (tdyn.merge_timelines(events, [tdyn.FaultEvent(
+                      0.5, "fail_node", 3)]),
+                  jdyn.merge_timelines(events, [jdyn.FaultEvent(
+                      0.5, "brownout", value=10.0)])):
+        for waves in (False, True):
+            with pytest.raises(NotImplementedError, match=r"item 5 \(c\)"):
+                ses.replay(storm, make, waves=waves)
     assert ses.n_live == 0 and ses.stats == []
