@@ -39,6 +39,13 @@ nvcc per source, in parallel), then
      placement: a zero-watt brownout, a wave whose class-0 arrival
      preempts the two class-1 services, the queue's order and counters,
      and its drain when the brownout ends;
+  3f. drives the fault plane there with a ``PlacementMonitor``: on the
+     adopted 3e bootstrap placement, a hosting node's, the busiest
+     network element's, a source's and an idle node's failure, then their
+     recoveries, one of them with the periodic full solve on the degraded
+     problem; then a rack storm of two nodes around a flash-crowd wave,
+     replayed in waves; each event held to the float64 oracle on the
+     degraded problem, no VM on a dead node, no service lost;
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
@@ -51,12 +58,14 @@ nvcc per source, in parallel), then
      checks that its 36 prefill attention calls went through the wgmma
      kernel and its 1116 decode calls through the split-KV kernel, checks
      cached decode against the forward pass, and places the served model
-     on the datacenter CFN.
+     on the datacenter CFN, directly and through the energy-aware
+     scheduler beside an olmoe-1b-7b service.
 
-Each phase prints one JSON line (3a-3e also their seconds); then the
+Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
-3 and, as ``launches_churn`` / ``launches_waves``, in phases 3d / 3e, the
-global anneal variant's in phase 3c, the flash kernels' in phase 5;
+3 and, as ``launches_churn`` / ``launches_waves`` / ``launches_faults``, in
+phases 3d / 3e / 3f, the global anneal variant's in phase 3c, the flash
+kernels' in phase 5;
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
@@ -1182,6 +1191,7 @@ def phase_waves(churn_event_s: list) -> dict:
     check(launches["fused_anneal"] >= 1,
           f"waves: launches in the phase {launches}")
     rescore(session, session.result)      # after the count: a check only
+    boot_X = boot.X[:CHURN_R]
     events_3d = len(churn_event_s) / sum(churn_event_s)
     emit("waves_city_p468_R64",
          cut=f"R={CHURN_R} live services and {WAVES} waves of "
@@ -1205,6 +1215,256 @@ def phase_waves(churn_event_s: list) -> dict:
              queued_sids=queued, victims=victims, counters=adm.admission,
              drained_sids=adm.sids[-4:], commits=commits),
          launches=launches, seconds_total=time.perf_counter() - t_all)
+    return launches, boot_X
+
+
+def hosted_vms(session, topo) -> tuple:
+    """Live VMs per node of the session's placement, and its sources."""
+    eng = session.engine
+    hosted = np.bincount(np.concatenate([session.X[r, :eng.service_vms(r)]
+                                         for r in range(session.n_live)]),
+                         minlength=topo.P)
+    return hosted, [int(sv.src[0]) for sv in eng._vsrs]
+
+
+def fault_targets(session, topo) -> dict:
+    """Phase 3f's fault targets on the adopted placement: the non-source
+    node hosting the most live VMs, the network element with the most
+    traffic, the source of fewest live services, and the two non-source
+    nodes hosting the most."""
+    hosted, srcs = hosted_vms(session, topo)
+    non_src = [int(p) for p in np.argsort(-hosted, kind="stable")
+               if p not in set(srcs) and hosted[p] > 0]
+    count = {p: srcs.count(p) for p in set(srcs)}
+    return dict(node=non_src[0], storm=non_src[:2],
+                link=int(session.engine._state.lam.argmax()),
+                source=min(count, key=lambda p: (count[p], p)))
+
+
+def phase_faults(boot_X) -> dict:
+    """Phase 3f: the fault plane at city_p468, through ``CFNSession`` with
+    a ``PlacementMonitor``, at phase 3d's size.
+
+    (i) Adopt phase 3e's bootstrap placement of 64 ``city_workload``
+    services (``bootstrap(X0=...)``, no solve), then call the handlers on
+    the engine's clock (``tick`` t = 1, 2, ...): ``fail_node`` on the
+    non-source node hosting the most live VMs (a mass re-embed),
+    ``fail_link`` on the network element with the most traffic,
+    ``fail_node`` on the source of fewest live services (they strand),
+    ``fail_node`` on a node that then hosts nothing and sources nothing
+    ("untouched": a re-score, no solver work), then the four recoveries
+    in reverse order.
+    ``defrag_every`` = 7 + the stranded count, so the seventh handler call
+    (the link's recovery, with the first node still down) runs the
+    periodic full solve, on the degraded problem, once.
+
+    (ii) Adopt it again under ``defrag_every=0`` and replay a
+    ``rack_storm`` of the two non-source nodes hosting the most (failing
+    at t = 0.5, 0.55, recovering at 1.5, 1.55) merged with one tick of
+    ``flash_crowd_trace(64, 1, 16, rng=0)`` (8 departures, 8 arrivals at
+    t = 1, a wave on the degraded substrate), ``waves=True``.
+
+    After every event: the commit within 5e-2 + 1e-5 |obj| of the float64
+    oracle on the degraded problem, no live VM on a dead node, the cut
+    link at <= 1e-2 Mbps while it is down, live + queued == admitted, and
+    every re-solve re-scored by exactly one placement_power launch.  At
+    the end every service is live, no strand window open, availability
+    below 1, and the monitor's counts those of the handler calls.
+    Returns the phase's launches."""
+    import torch
+    from repro_torch.api import CFNSession, PlacementSpec
+    from repro_torch.core import dynamic, vsr
+    from repro_torch.fault import PlacementMonitor
+    from repro_torch.kernels import placement_power as pp
+    t_all = time.perf_counter()
+    topo, batch = city_workload(CHURN_R)
+    sources = city_sources()[1]
+    services = [vsr.VSRBatch(F=batch.F[i:i + 1], H=batch.H[i:i + 1],
+                             src=batch.src[i:i + 1],
+                             input_vm=batch.input_vm[i:i + 1])
+                for i in range(batch.R)]
+    timer = StageTimer()
+    pp.reset_launches()
+
+    def adopt(spec):
+        mon = PlacementMonitor()
+        ses = CFNSession(topo, spec, device="cuda", monitor=mon)
+        res = ses.engine.bootstrap(services, X0=boot_X)
+        hold_to_oracle(ses, "faults: adopted")
+        return ses, mon, res
+
+    def held(ses, what, admitted, cut=None) -> dict:
+        """The checks after one event; returns its numbers."""
+        f64 = hold_to_oracle(ses, what)
+        h, eng = ses.health, ses.engine
+        if h is not None:
+            dead = [int(x) for r in range(ses.n_live)
+                    for x in ses.X[r, :eng.service_vms(r)]
+                    if not h.node_up[x]]
+            check(not dead, f"{what}: live VMs on dead nodes {dead}")
+            if cut is not None and not h.link_up[cut]:
+                lam = float(eng._state.lam[cut])
+                check(lam <= 1e-2, f"{what}: cut link {cut} carries {lam}")
+        live, queued = set(ses.sids), set(eng.queued_sids)
+        check(live | queued == admitted and not live & queued,
+              f"{what}: live {sorted(live)} + queued {sorted(queued)} != "
+              f"admitted {sorted(admitted)}")
+        return dict(objective=ses.objective(), f64_objective=f64,
+                    n_live=ses.n_live, queued=sorted(queued))
+
+    def counted(fn, what, ses, mon):
+        """Run one event; its seconds, split, launches and monitor deltas,
+        with placement_power launched once per re-solve (the periodic full
+        solve's launches apart)."""
+        n_res, launch0 = len(timer.resolves), dict(pp.LAUNCHES)
+        mon0 = dict(mon.counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v - launch0[k] for k, v in pp.LAUNCHES.items()}
+        resolves = len(timer.resolves) - n_res
+        split = timer.take_split(seconds)
+        full = "full_solve" in split["split_s"]
+        check(launches["placement_power"] == resolves
+              or (full and launches["placement_power"] >= resolves),
+              f"{what}: {launches} for {resolves} re-solves")
+        delta = {k: v - mon0.get(k, 0) for k, v in mon.counters.items()
+                 if v != mon0.get(k, 0)}
+        return res, dict(seconds=seconds, resolves=resolves,
+                         full_solve=full, launches=launches,
+                         re_embedded=delta.get("re_embedded", 0),
+                         stranded=delta.get("service_stranded", 0),
+                         monitor=delta, **split)
+
+    # (i) direct handler calls
+    probe = CFNSession(topo, PlacementSpec(defrag_every=0), device="cuda")
+    probe.engine.bootstrap(services, X0=boot_X)
+    tg = fault_targets(probe, topo)
+    m = sum(int(sv.src[0]) == tg["source"] for sv in services)
+    del probe
+    ses, mon, adopted = adopt(PlacementSpec(defrag_every=7 + m))
+    admitted = set(ses.sids)
+    plan = [("fail_node", tg["node"]), ("fail_link", tg["link"]),
+            ("fail_node", tg["source"]), ("fail_node", None)]
+    events, full_degraded = [], []
+    with timer:
+        for i in range(1, 2 * len(plan) + 1):
+            if i == 4:                    # idle now, after three re-solves
+                hosted, srcs = hosted_vms(ses, topo)
+                tg["idle"] = next(p for p in range(topo.P) if hosted[p] == 0
+                                  and p not in srcs and ses.health.node_up[p])
+                plan[-1] = ("fail_node", tg["idle"])
+                plan += [(k.replace("fail", "recover"), t)
+                         for k, t in plan[::-1]]
+            kind, target = plan[i - 1]
+            ses.tick(float(i))
+            what = f"faults: {kind}({target})"
+            res, rec = counted(lambda: getattr(ses, kind)(target), what,
+                               ses, mon)
+            check(res is not None, f"{what} gave no result")
+            if rec["full_solve"]:
+                full_degraded.append(not ses.health.all_up)
+                check(rec["launches"]["fused_anneal"] >= 1,
+                      f"{what}: the full solve launched {rec['launches']}")
+            events.append(dict(kind=kind, target=target, method=res.method,
+                               **rec, **held(ses, what, admitted,
+                                             tg["link"])))
+    by_kind = {k: sum(e["kind"] == k for e in events)
+               for k in ("fail_node", "fail_link", "recover_node",
+                         "recover_link")}
+    check(mon.get("node_failed") == by_kind["fail_node"] == 3
+          and mon.get("link_failed") == by_kind["fail_link"] == 1
+          and mon.get("node_recovered") == by_kind["recover_node"] == 3
+          and mon.get("link_recovered") == by_kind["recover_link"] == 1,
+          f"faults: monitor {mon.counters} vs handler calls {by_kind}")
+    check(events[3]["method"] == "untouched"
+          and events[3]["resolves"] == 0
+          and not any(events[3]["launches"].values()),
+          f"faults: the idle node's failure {events[3]}")
+    check(events[2]["stranded"] == m and mon.get("service_stranded") == m,
+          f"faults: stranded {events[2]['stranded']} of {m}")
+    check(full_degraded == [True],
+          f"faults: full solves on a degraded problem {full_degraded}")
+    check(ses.health.all_up and set(ses.sids) == admitted
+          and not ses.engine.queued_sids and not mon.stranded_since,
+          f"faults: after recovery {len(ses.sids)} live, queue "
+          f"{ses.engine.queued_sids}, open {mon.stranded_since}")
+    horizon = float(len(plan))
+    avail = mon.availability(horizon, CHURN_R)
+    check(avail < 1.0 and mon.stranded_service_s > 0,
+          f"faults: availability {avail}")
+    launches_i = dict(pp.LAUNCHES)
+
+    # (ii) a rack storm merged with a flash-crowd tick, replayed in waves
+    ses2, mon2, _ = adopt(PlacementSpec(defrag_every=0))
+    storm = dynamic.rack_storm(topo, nodes=tg["storm"], t_fail=0.5,
+                               outage_h=1.0)
+    crowd = dynamic.flash_crowd_trace(CHURN_R, 1, WAVE_SIZE,
+                                      rng=0)[CHURN_R:]
+    timeline = dynamic.merge_timelines(storm, crowd)
+    admitted2 = set(ses2.sids)
+    for ev in crowd:
+        (admitted2.add if ev.kind == "arrive" else admitted2.discard)(ev.sid)
+    replayed, seen = [], {}
+
+    def on_event(ev, res):
+        key = id(res)
+        if key in seen:                   # the rest of a wave's events
+            return
+        seen[key] = res                   # held, so no id is reused
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - clock["t0"]
+        is_wave = isinstance(res, dynamic.WaveResult)
+        what = f"faults (ii): {'wave' if is_wave else ev.kind}"
+        want = (admitted2 if is_wave or ev.t > 1.0
+                else set(range(CHURN_R)))
+        launches = {k: v - clock["launches"][k]
+                    for k, v in pp.LAUNCHES.items()}
+        resolves = len(timer.resolves) - clock["resolves"]
+        check(launches["placement_power"] == resolves,
+              f"{what}: {launches} for {resolves} re-solves")
+        replayed.append(dict(
+            kind="wave" if is_wave else ev.kind,
+            target=None if is_wave else ev.target,
+            method=(res.result if is_wave else res).method,
+            seconds=seconds, resolves=resolves, launches=launches,
+            **timer.take_split(seconds), **held(ses2, what, want)))
+        clock.update(t0=time.perf_counter(), launches=dict(pp.LAUNCHES),
+                     resolves=len(timer.resolves))
+
+    clock = dict(launches=dict(pp.LAUNCHES))
+    with timer:
+        clock.update(t0=time.perf_counter(), resolves=len(timer.resolves))
+        t0 = time.perf_counter()
+        ses2.replay(timeline, lambda sid: churn_vsr(sources, sid),
+                    on_event=on_event, waves=True)
+        replay_s = time.perf_counter() - t0
+    check([e["kind"] for e in replayed] == ["fail_node", "fail_node",
+                                            "wave", "recover_node",
+                                            "recover_node"],
+          f"faults (ii): events {[e['kind'] for e in replayed]}")
+    check(mon2.get("node_failed") == mon2.get("node_recovered") == 2
+          and ses2.health.all_up and set(ses2.sids) == admitted2
+          and ses2.n_live == CHURN_R and not mon2.stranded_since,
+          f"faults (ii): monitor {mon2.counters}, {ses2.n_live} live")
+    launches = dict(pp.LAUNCHES)
+    rescore(ses2, ses2.result)            # after the count: a check only
+    emit("faults_city_p468_R64",
+         cut=f"R={CHURN_R} live services (phase 3 runs 1024), 8 handler "
+             "calls and a rack storm of 2 nodes with one 16-event wave: "
+             "each re-solve's polish sweeps every free VM, padded to "
+             "R x (V - 1) positions, twice",
+         P=ses.problem.P, N=ses.problem.N, R=ses.problem.R,
+         V=ses.problem.V, targets=tg, stranded_services=m,
+         defrag_every=7 + m, adopted_objective=adopted.objective,
+         events=events, events_s=sum(e["seconds"] for e in events),
+         monitor=mon.snapshot(), stranded_service_h=mon.stranded_service_s,
+         availability=avail, horizon_h=horizon,
+         launches_i=launches_i, storm=replayed, storm_replay_s=replay_s,
+         storm_monitor=mon2.snapshot(), launches=launches,
+         seconds_total=time.perf_counter() - t_all)
     return launches
 
 
@@ -1591,6 +1851,7 @@ def phase_serve() -> dict:
     sav = session.savings_vs_baseline("cdc")
     check(sav["saving_frac"] > 0.0,
           f"serve: no saving vs CDC ({sav['saving_frac']})")
+    sched = schedule_served(cfg, tok_s)
     emit("serve_qwen3_4b", config=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, params=M.param_count(M.init_model(
              cfg, device="meta")),
@@ -1606,8 +1867,55 @@ def phase_serve() -> dict:
          profile=profile,
          vsr_F=vsrs.F[0].tolist(), placement_power_w=result.power,
          placement_feasible=result.feasible, placement_method=result.method,
-         cdc_w=sav["baseline_w"], saving_vs_cdc=sav["saving_frac"])
+         cdc_w=sav["baseline_w"], saving_vs_cdc=sav["saving_frac"],
+         scheduler=sched)
     return launches
+
+
+def schedule_served(cfg, tok_s: float) -> dict:
+    """The served model through ``EnergyAwareScheduler`` on the datacenter
+    CFN, beside an olmoe-1b-7b service at 500 tokens/s (the reference
+    test's rate), then the olmoe service removed.  Each placement has
+    n_stages + 1 nodes, the per-service watts sum to the fleet's (1e-5
+    relative + 1e-3 W), and the fleet saves vs the cloud."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import topology
+    from repro_torch.fault import PlacementMonitor
+    from repro_torch.serve.scheduler import EnergyAwareScheduler, Service
+    t0 = time.perf_counter()
+    mon = PlacementMonitor()
+    sched = EnergyAwareScheduler(topology.datacenter_topology(),
+                                 monitor=mon, device="cuda")
+    services = [Service(cfg.name, cfg, tok_s),
+                Service("olmoe-1b-7b", configs.get("olmoe-1b-7b"), 500.0)]
+    out = {}
+    for step, call in (("placed", lambda: [sched.add_service(sv)
+                                           for sv in services][-1]),
+                       ("after_remove", lambda: sched.remove_service(
+                           "olmoe-1b-7b"))):
+        placements = call()
+        torch.cuda.synchronize()
+        total = sched.total_power_w()
+        watts = sum(p.power_w for p in placements)
+        by_name = {sv.name: sv for sv in services}
+        check([len(p.stage_nodes) for p in placements]
+              == [by_name[p.service].n_stages + 1 for p in placements],
+              f"scheduler: {step} stage nodes {placements}")
+        check(abs(watts - total) <= 1e-5 * max(total, 1.0) + 1e-3,
+              f"scheduler: {step} watts {watts} vs fleet {total}")
+        out[step] = dict(total_w=total, placements=[
+            dict(service=p.service, stage_nodes=p.stage_nodes,
+                 power_w=p.power_w) for p in placements])
+        if step == "placed":
+            sav = sched.savings_vs_cloud()
+            check(sav["saving_frac"] > 0.0, f"scheduler: saving {sav}")
+            out["savings_vs_cloud"] = sav
+    check([p["service"] for p in out["after_remove"]["placements"]]
+          == [cfg.name] and not sched.rejected and not sched.queued,
+          f"scheduler: after the removal {out['after_remove']}")
+    out.update(monitor=mon.snapshot(), seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -1671,9 +1979,12 @@ def main() -> int:
     launches, churn_event_s = phase_churn()
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_churn"] = launches[name]
-    launches = phase_waves(churn_event_s)
+    launches, boot_X = phase_waves(churn_event_s)
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_waves"] = launches[name]
+    launches = phase_faults(boot_X)
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["launches_faults"] = launches[name]
     for name in ("placement_power", "fused_anneal", "fused_anneal_global"):
         # no single PyTorch call computes either placement function
         kernels[name]["library_ms"] = None

@@ -12,9 +12,12 @@
     ``apply_wave`` takes a tick's worth of them at once, ``defrag()``
     re-packs under the SAME spec (``defrag_tick()`` a few rows at a time),
     ``brownout`` / ``brownout_end`` tighten and restore the admission
-    budget, ``attribute()`` splits fleet watts per tenant, ``replay()``
-    drives a churn timeline and ``savings_vs_baseline`` reports the
-    paper's headline metric.
+    budget, ``fail_node`` / ``fail_link`` / ``recover_*`` / ``apply_fault``
+    degrade and restore the substrate (``spec.health``), ``attribute()``
+    splits fleet watts per tenant, ``replay()`` drives a churn and fault
+    timeline and ``savings_vs_baseline`` reports the paper's headline
+    metric.  A ``fault.PlacementMonitor`` (``monitor=``) counts
+    rejections, preemptions, faults and stranded services.
 
     from repro_torch.api import CFNSession, PlacementSpec
     spec = PlacementSpec(max_hops=2, power_budget_w=500.0)
@@ -22,9 +25,10 @@
     session.solve(vsrs)                      # batch embedding
     session.add(service); session.defrag()   # online churn, masked defrag
     session.apply_wave([(svc, sid)], departures=[old_sid])   # one wave
+    session.fail_node(p); session.recover_node(p)            # a fault
 
-Not yet ported (ROADMAP Queue 1): substrate health and the fault handlers
-(item 5 (c)); federation (item 6).
+Not yet ported (ROADMAP Queue 1): federation (item 6) and telemetry
+(item 7).
 """
 from __future__ import annotations
 
@@ -37,11 +41,14 @@ import torch
 
 from . import dynamic, embed as embed_mod, vsr as vsr_mod
 from .embed import METHODS
-from .power import Device, PlacementProblem, build_problem
+from .power import Device, PlacementProblem, SubstrateHealth, build_problem
 from .solvers import SolveResult, solve_portfolio
 from .topology import CFNTopology
 
-__all__ = ["PlacementSpec", "CFNSession", "SolveResult", "solve_portfolio"]
+__all__ = ["PlacementSpec", "CFNSession", "SolveResult", "SubstrateHealth",
+           "solve_portfolio"]
+
+_ITEM_7 = "ROADMAP Queue 1, item 7"
 
 _EFFORTS = ("quick", "standard", "high")
 _BACKENDS = ("auto", "delta", "fused", "full")
@@ -58,8 +65,9 @@ class PlacementSpec:
         rows.  ``None`` disables.
       * ``eligible`` -- explicit [R, P] bool mask ANDed on top of the hop
         mask (rows beyond its length are unconstrained).
-      * ``health`` -- substrate up/down state; not ported yet, so a spec
-        that sets it raises.
+      * ``health`` -- substrate up/down state (``power.SubstrateHealth``):
+        dead nodes, and nodes routed from a row's source over a dead
+        network element, leave the mask; ``None`` or all-up adds nothing.
     Admission (the online engine): ``power_budget_w`` / ``violation_tol``
     reject an arrival whose power draw / violation increase exceeds them;
     ``queue_rejected`` parks it for a retry after the next
@@ -82,7 +90,7 @@ class PlacementSpec:
     # constraints --------------------------------------------------------
     max_hops: Optional[Union[int, Sequence[int], np.ndarray]] = None
     eligible: Optional[np.ndarray] = None
-    health: Optional[object] = None
+    health: Optional[SubstrateHealth] = None
     # federation ----------------------------------------------------------
     region_affinity: Optional[Union[int, Sequence[int], np.ndarray]] = None
     region_anti_affinity: Optional[Union[int, Sequence[int],
@@ -131,10 +139,6 @@ class PlacementSpec:
             raise ValueError("priority_classes must be >= 1")
         if self.defrag_rows_per_tick < 0:
             raise ValueError("defrag_rows_per_tick must be >= 0")
-        if self.health is not None:
-            raise NotImplementedError(
-                "PlacementSpec(health=...) needs SubstrateHealth, which "
-                "comes with the fault plane (ROADMAP Queue 1, item 5 (c))")
 
     def replace(self, **changes) -> "PlacementSpec":
         """A copy with ``changes`` applied (validation re-runs)."""
@@ -144,11 +148,15 @@ class PlacementSpec:
     def masks(self, problem: PlacementProblem) -> Optional[np.ndarray]:
         """The [R, P] node-eligibility mask this spec imposes on a problem,
         or ``None`` when unconstrained.  Hop counts come from the problem's
-        own route table, each service's source from its pinned input VM."""
-        if self.max_hops is None and self.eligible is None:
+        own route table, each service's source from its pinned input VM;
+        a degraded substrate (``health``) is ANDed in first."""
+        h_active = self.health is not None and not self.health.all_up
+        if self.max_hops is None and self.eligible is None and not h_active:
             return None
         R, P = problem.R, problem.P
         el = np.ones((R, P), dtype=bool)
+        if h_active:
+            el &= self.health.eligibility(problem)
         if self.max_hops is not None:
             hops = (problem.route_idx < problem.N).sum(-1).cpu().numpy()
             fixed_mask = problem.fixed_mask.cpu().numpy()
@@ -184,26 +192,41 @@ class CFNSession:
     Batch embedding (``solve(vsrs)``), online churn (``add`` / ``remove``,
     ``apply_wave``), the masked full re-pack (``defrag``, or ``solve()``
     with no batch) and its amortized form (``defrag_tick``), admission
-    brownouts, per-tenant power accounting (``attribute``) and timeline
-    replay (``replay``).  The session's engine (``core.dynamic.OnlineEmbedder``)
-    carries the placement and the incremental load state between events;
-    every solve enforces ``spec.masks`` identically.
+    brownouts, substrate faults (``fail_node`` / ``fail_link`` /
+    ``recover_*`` / ``apply_fault``), per-tenant power accounting
+    (``attribute``) and timeline replay (``replay``).  The session's engine
+    (``core.dynamic.OnlineEmbedder``) carries the placement and the
+    incremental load state between events; every solve enforces
+    ``spec.masks`` identically.
 
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
-    default), advanced by every solve.
+    default), advanced by every solve.  ``monitor`` (a
+    ``fault.PlacementMonitor``) receives the engine's admission, fault and
+    strand events.  ``telemetry`` is not ported yet: anything but ``None``
+    raises.
     """
 
     def __init__(self, topo: CFNTopology,
                  spec: Optional[PlacementSpec] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: Device = None):
+                 device: Device = None, monitor=None, telemetry=None):
+        if telemetry is not None:
+            raise NotImplementedError(
+                "CFNSession(telemetry=...) needs the telemetry plane, not "
+                f"yet ported ({_ITEM_7})")
         self.topo = topo
         self._engine = dynamic.OnlineEmbedder(
             topo, spec=spec if spec is not None else PlacementSpec(),
-            generator=generator, device=device)
+            generator=generator, device=device, monitor=monitor)
 
-    # -- introspection ----------------------------------------------------
+    # -- configuration / introspection ------------------------------------
+    def attach_monitor(self, monitor) -> None:
+        """Attach (or replace, or with ``None`` detach) the
+        ``fault.PlacementMonitor`` receiving this session's admission,
+        fault and strand events."""
+        self._engine.monitor = monitor
+
     @property
     def spec(self) -> PlacementSpec:
         return self._engine.spec
@@ -322,6 +345,38 @@ class CFNSession:
         """Restore the budget before ``brownout``; queued services retry."""
         self._engine.brownout_end()
 
+    # -- fault plane ------------------------------------------------------
+    @property
+    def health(self) -> Optional[SubstrateHealth]:
+        return self._engine.spec.health
+
+    def tick(self, t: float) -> None:
+        """Advance the session clock (hours; the availability timestamps)."""
+        self._engine.tick(t)
+
+    def fail_node(self, node: int) -> Optional[SolveResult]:
+        """Fail a processing node: strand services sourced there, mass
+        re-embed displaced VMs on the degraded substrate."""
+        return self._engine.fail_node(node)
+
+    def recover_node(self, node: int) -> Optional[SolveResult]:
+        """Recover a node: survivors re-settle, stranded services retry."""
+        return self._engine.recover_node(node)
+
+    def fail_link(self, n: int) -> Optional[SolveResult]:
+        """Fail a network element: traffic routed across it is re-embedded
+        around the cut."""
+        return self._engine.fail_link(n)
+
+    def recover_link(self, n: int) -> Optional[SolveResult]:
+        """Recover a network element: survivors re-settle, stranded
+        services retry."""
+        return self._engine.recover_link(n)
+
+    def apply_fault(self, ev: "dynamic.FaultEvent"):
+        """Dispatch one ``core.dynamic.FaultEvent`` to the handlers above."""
+        return self._engine.apply_fault(ev)
+
     def attribute(self) -> Dict[int, float]:
         """Per-tenant watts {sid: W}, summing to the fleet total."""
         return self._engine.per_service_power_w()
@@ -330,10 +385,10 @@ class CFNSession:
                make_vsr: Callable[[int], vsr_mod.VSRBatch],
                on_event: Optional[Callable] = None,
                waves: bool = False) -> list:
-        """Drive the session through a churn timeline
-        (``core.dynamic.replay`` on this session's engine).  ``waves=True``
-        batches same-tick events through ``apply_wave`` and runs the
-        amortized defrag tick after each wave."""
+        """Drive the session through a churn timeline, fault events
+        included (``core.dynamic.replay`` on this session's engine).
+        ``waves=True`` batches same-tick events through ``apply_wave`` and
+        runs the amortized defrag tick after each wave."""
         return dynamic.replay(self._engine, events, make_vsr, on_event,
                               waves=waves)
 

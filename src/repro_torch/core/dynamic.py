@@ -8,9 +8,10 @@ both halves of that regime, as the JAX package does:
     24 h diurnal rate profile, exponential service lifetimes, the
     alternating ``churn_trace``, the same-tick waves of
     ``flash_crowd_trace``, scenario presets (``steady``, ``diurnal24``,
-    ``burst``), and ``merge_timelines`` / ``iter_waves`` to order and group
-    them.  Numpy only: the same seed gives the JAX package's events and
-    VSRs.
+    ``burst``), substrate fault timelines (``FaultEvent``; the presets
+    ``single_node``, ``rack_storm``, ``brownout_day``) and
+    ``merge_timelines`` / ``iter_waves`` to order and group them.  Numpy
+    only: the same seed gives the JAX package's events and VSRs.
   * **OnlineEmbedder** -- the live placement state machine: ``add`` /
     ``remove`` carry the previous embedding through ``power.warm_state`` /
     ``power.detach_vsrs`` and re-solve with ``solvers.resolve_incremental``
@@ -21,12 +22,15 @@ both halves of that regime, as the JAX package does:
     class may preempt a lower one, and either every ``spec.defrag_every``
     events a full solve (``embed._embed``) re-packs the substrate, never
     worse than the incremental result it replaces, or ``defrag_tick``
-    re-sweeps ``spec.defrag_rows_per_tick`` rows at a time.
+    re-sweeps ``spec.defrag_rows_per_tick`` rows at a time.  Substrate
+    faults (``fail_node`` / ``fail_link`` and their recoveries) degrade the
+    problem under ``spec.health``: services that lost their source are
+    stranded in the queue, displaced ones mass re-embedded, and a recovery
+    drains the queue.  A ``fault.PlacementMonitor`` counts admission,
+    fault and strand events and integrates stranded service time.
 
 Random draws come from one CPU ``torch.Generator`` (seed 1 by default),
-advanced by every solve.  Not ported here (ROADMAP Queue 1, item 5 (c)):
-substrate faults; a ``FaultEvent`` in a replayed timeline raises
-``NotImplementedError``.
+advanced by every solve.
 
 Times are in hours throughout; rates in services/hour.
 """
@@ -45,8 +49,6 @@ from . import embed as embed_mod
 from . import power, solvers, vsr
 from .power import Device, resolve_device
 from .topology import CFNTopology
-
-_ITEM_5C = "ROADMAP Queue 1, item 5 (c)"
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +182,12 @@ def flash_crowd_trace(n_steady: int, n_waves: int, wave_size: int,
 
 @dataclass(frozen=True)
 class FaultEvent:
-    """One substrate fault at hour ``t`` (``fail_node`` / ``recover_node``
-    and ``fail_link`` / ``recover_link`` on element ``target``;
-    ``brownout`` / ``brownout_end`` with the budget ``value`` in watts).
-    Timelines carry it for ``merge_timelines`` / ``iter_waves``; replaying
-    one needs the fault plane, not yet ported (ROADMAP Queue 1, item
-    5 (c))."""
+    """One substrate fault at hour ``t``: ``fail_node`` / ``recover_node``
+    (``target`` = processing-node id), ``fail_link`` / ``recover_link``
+    (``target`` = network-element id), ``brownout`` / ``brownout_end``
+    (``value`` = the tightened fleet admission budget in watts).  The
+    ``*_region`` kinds belong to a federated session, not yet ported
+    (ROADMAP Queue 1, item 6); a flat engine refuses them."""
     t: float
     kind: str
     target: int = -1
@@ -226,6 +228,69 @@ def iter_waves(events: Iterable) -> Iterator[List]:
             wave.append(ev)
     if wave:
         yield wave
+
+
+def _storm_nodes(topo: CFNTopology, n: int) -> List[int]:
+    """The first ``n`` nodes to fail in a storm preset: mini-fog servers
+    first, then access fog, then the cloud, then anything else."""
+    pool: List[int] = []
+    for layer in ("mf", "af", "cdc"):
+        pool += [p for p in topo.layer_indices(layer) if p not in pool]
+    if len(pool) < n:
+        pool += [p for p in range(topo.P) if p not in pool]
+    return pool[:n]
+
+
+def single_node(topo: CFNTopology, node: Optional[int] = None,
+                t_fail: float = 20.0, outage_h: float = 2.0
+                ) -> List[FaultEvent]:
+    """One fog node dies at the diurnal peak and recovers ``outage_h``
+    later."""
+    if node is None:
+        node = _storm_nodes(topo, 1)[0]
+    return [FaultEvent(t_fail, "fail_node", node),
+            FaultEvent(t_fail + outage_h, "recover_node", node)]
+
+
+def rack_storm(topo: CFNTopology, nodes: Optional[Sequence[int]] = None,
+               n_nodes: int = 4, t_fail: float = 20.0,
+               stagger_h: float = 0.05, outage_h: float = 1.0
+               ) -> List[FaultEvent]:
+    """A cascading rack outage: ``n_nodes`` fog nodes (or ``nodes``) fail
+    ``stagger_h`` apart and recover in the same order after ``outage_h``."""
+    if nodes is None:
+        nodes = _storm_nodes(topo, n_nodes)
+    ev: List[FaultEvent] = []
+    for k, p in enumerate(nodes):
+        ev.append(FaultEvent(t_fail + k * stagger_h, "fail_node", int(p)))
+        ev.append(FaultEvent(t_fail + outage_h + k * stagger_h,
+                             "recover_node", int(p)))
+    return merge_timelines(ev)
+
+
+def brownout_day(topo: CFNTopology, region: int = 0,
+                 budget_w: float = 500.0, t0: float = 10.0,
+                 t1: float = 16.0) -> List[FaultEvent]:
+    """A mid-day brownout: the fleet's admission power budget tightens to
+    ``budget_w`` over ``[t0, t1)`` (``region`` is the target a federated
+    session reads)."""
+    return [FaultEvent(t0, "brownout", region, value=budget_w),
+            FaultEvent(t1, "brownout_end", region)]
+
+
+FAULT_SCENARIOS: Dict[str, Callable] = {
+    "single_node": single_node,
+    "rack_storm": rack_storm,
+    "brownout_day": brownout_day,
+}
+
+
+def fault_preset(name: str, topo: CFNTopology, **kw) -> List[FaultEvent]:
+    """Build a named storm preset on a topology (see FAULT_SCENARIOS)."""
+    if name not in FAULT_SCENARIOS:
+        raise ValueError(f"unknown fault preset {name!r}; choose from "
+                         f"{sorted(FAULT_SCENARIOS)}")
+    return FAULT_SCENARIOS[name](topo, **kw)
 
 
 @dataclass(frozen=True)
@@ -284,7 +349,9 @@ class OnlineStats:
     """Bookkeeping for one engine event."""
     event: str                 # "bootstrap" | "add" | "remove" | "wave"
                                # | "defrag" | "defrag_tick" | "reject"
-                               # | "preempt"
+                               # | "preempt" | "strand" | "fail_node"
+                               # | "recover_node" | "fail_link"
+                               # | "recover_link"
     method: str
     objective: float
     power_w: float
@@ -343,6 +410,17 @@ class OnlineEmbedder:
     ``spec.preempt`` a power refusal may park a lower-class live service
     instead.  Counters in ``admission``.
 
+    Faults: ``fail_node`` / ``fail_link`` set ``spec.health`` and re-embed
+    on the degraded problem (``power.SubstrateHealth.degrade``: dead
+    capacities zeroed, shapes kept); a service whose source died, or which
+    has no admissible node left, is stranded in the queue (an arrival at a
+    dead source is too, whatever ``queue_rejected`` says), and
+    ``recover_*`` re-settles the survivors and drains the queue.  The
+    engine clock (``tick``) stamps strand windows for ``monitor`` (a
+    ``fault.PlacementMonitor``), which also counts rejections, budget
+    violations, preemptions, faults and brownouts at the JAX package's
+    points, with its detail strings.
+
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
     default), advanced by every solve.
@@ -357,7 +435,7 @@ class OnlineEmbedder:
                  admit_power_budget_w: Optional[float] = None,
                  admit_violation_tol: Optional[float] = None,
                  queue_rejected: bool = False,
-                 spec=None, device: Device = None):
+                 spec=None, device: Device = None, monitor=None):
         if spec is None:
             from . import api
             warnings.warn(
@@ -376,6 +454,9 @@ class OnlineEmbedder:
         self.topo = topo
         self.spec = spec
         self.device = resolve_device(device)
+        # a fault.PlacementMonitor (optional): admission, fault and strand
+        # events are counted there instead of being dropped
+        self.monitor = monitor
         self._gen = (solvers.default_generator(1) if generator is None
                      else generator)
         self._add_kw = dict(sweeps=spec.sweeps,
@@ -525,6 +606,11 @@ class OnlineEmbedder:
                                             substrate=self._substrate,
                                             pad_to_rows=self._pad_rows(),
                                             pad_to_cols=self._pad_cols())
+        h = self.spec.health
+        if h is not None and not h.all_up:
+            # value-only substitution into new tensors: dead capacities
+            # zero, same shapes; the cached substrate stays healthy
+            self._problem = h.degrade(self._problem)
 
     def _resolve_kw(self, base: dict) -> dict:
         """Per-event solver kwargs: the sweep list padded to the bucket."""
@@ -609,6 +695,27 @@ class OnlineEmbedder:
             seq = self._qseq
             self._qseq += 1
         heapq.heappush(self._queue, (int(prio), seq, sid, service))
+
+    def _source_down(self, service: vsr.VSRBatch) -> bool:
+        h = self.spec.health
+        return h is not None and not bool(h.node_up[int(service.src[0])])
+
+    def _strand_arrival(self, service: vsr.VSRBatch, sid: int, prio: int,
+                        seq: Optional[int] = None, first: bool = True
+                        ) -> None:
+        """Park an arrival whose pinned source is down.  A fault is not an
+        SLA rejection: the arrival parks whatever ``queue_rejected`` says
+        and retries on recovery; its ``first`` attempt counts as queued and
+        opens its strand window."""
+        self._park(service, sid, prio, seq=seq)
+        if first:
+            self.admission["queued"] += 1
+            if self.monitor is not None:
+                self.monitor.strand(sid, self._now,
+                                    detail=f"sid={sid} source down")
+        self.stats.append(OnlineStats(
+            event="strand", method="fault", objective=self.objective(),
+            power_w=self.power_w(), n_live=self.n_live))
 
     def _priority_of(self, priority: Optional[int]) -> int:
         prio = 0 if priority is None else int(priority)
@@ -742,6 +849,10 @@ class OnlineEmbedder:
         if sid in self._sids:
             raise ValueError(f"sid {sid} is already live")
         self._next_sid = max(self._next_sid, sid + 1)
+        if self._source_down(service):
+            self._strand_arrival(service, sid, prio, seq=_qseq,
+                                 first=not _retry)
+            return None
         prev = self._snapshot()
         prev_X, prev_loads = self._X, self._carry_loads()
         prev_power, prev_viol = self._prev_budgets()
@@ -776,6 +887,10 @@ class OnlineEmbedder:
                     and self._preempt_victim(prio) is not None):
                 return self.add(service, sid=sid, priority=prio,
                                 _retry=_retry, _qseq=_qseq)
+            if self.monitor is not None and not _retry:
+                # distinct arrivals only, as admission["rejected"]
+                self.monitor.count("admission_rejected", detail=f"sid={sid}")
+                self.monitor.count(reason, detail=f"sid={sid}")
             if not _retry:
                 self.admission["rejected"] += 1
                 if self.queue_rejected:
@@ -787,6 +902,10 @@ class OnlineEmbedder:
                 power_w=res.power, n_live=self.n_live))
             return None
         self.admission["admitted"] += 1
+        if self.monitor is not None:
+            # closes the strand window of a service a fault parked (no-op
+            # otherwise)
+            self.monitor.unstrand(sid, self._now)
         if self._defrag_due():
             return self._full_solve("add", incumbent=res)
         self._commit(res, "add")
@@ -806,6 +925,8 @@ class OnlineEmbedder:
         self.remove(vsid, _drain=False)
         self._park(vsvc, vsid, vprio)
         self.admission["preempted"] += 1
+        if self.monitor is not None:
+            self.monitor.count("preempted", detail=f"sid={vsid}")
         self.stats.append(OnlineStats(
             event="preempt", method="admission", objective=self.objective(),
             power_w=self.power_w(), n_live=self.n_live))
@@ -930,6 +1051,16 @@ class OnlineEmbedder:
         """One attempt at a batched wave; admission refusals roll the whole
         attempt back and recurse without the refused arrivals."""
         deferred = [] if deferred is None else deferred
+        # source-down arrivals park at once (a recursive attempt sees the
+        # filtered list)
+        up = []
+        for svc, sid, prio in arr:
+            if self._source_down(svc):
+                self._strand_arrival(svc, sid, prio)
+                wr.queued.append(sid)
+            else:
+                up.append((svc, sid, prio))
+        arr = up
         if not arr and not deps:
             wr.result = self._result
             return self._wave_deferred(wr, deferred)
@@ -997,6 +1128,11 @@ class OnlineEmbedder:
                         deferred.append((svc, sid, prio))
                     else:
                         self.admission["rejected"] += 1
+                        if self.monitor is not None:
+                            self.monitor.count("admission_rejected",
+                                               detail=f"sid={sid}")
+                            self.monitor.count(refused[i],
+                                               detail=f"sid={sid}")
                         if self.queue_rejected:
                             self.admission["queued"] += 1
                             self._park(svc, sid, prio)
@@ -1012,6 +1148,8 @@ class OnlineEmbedder:
         for _, sid, _ in arr:
             wr.admitted.append(sid)
             self.admission["admitted"] += 1
+            if self.monitor is not None:
+                self.monitor.unstrand(sid, self._now)
         if self._defrag_due():
             res = self._full_solve("wave", incumbent=res)
         else:
@@ -1067,8 +1205,8 @@ class OnlineEmbedder:
     def _drain_queue(self) -> None:
         """Retry parked arrivals class by class (FIFO within a class);
         stop at the first re-rejection.  Runs after every
-        capacity-increasing event: departures (per event or wave) and
-        ``brownout_end``."""
+        capacity-increasing event: departures (per event or wave),
+        node / link recoveries and ``brownout_end``."""
         while self._queue:
             prio, seq, sid, service = heapq.heappop(self._queue)
             if self.add(service, sid=sid, priority=prio, _retry=True,
@@ -1082,6 +1220,10 @@ class OnlineEmbedder:
         removed = len(self._queue) < n0
         if removed:
             heapq.heapify(self._queue)
+            if self.monitor is not None:
+                # a stranded service departing from the queue closes its
+                # window without counting as re-embedded
+                self.monitor.unstrand(sid, self._now, re_embedded=False)
         return removed
 
     def defrag(self) -> Optional[solvers.SolveResult]:
@@ -1134,9 +1276,150 @@ class OnlineEmbedder:
                 and self.defrag_every > 0
                 and self._events_since_defrag >= self.defrag_every)
 
+    # -- fault plane ------------------------------------------------------
     def tick(self, t: float) -> None:
-        """Advance the engine clock (hours)."""
+        """Advance the engine clock (hours).  Strand / unstrand timestamps
+        -- the availability integral -- come from this clock."""
         self._now = float(t)
+
+    def _health(self) -> "power.SubstrateHealth":
+        h = self.spec.health
+        return power.SubstrateHealth.fresh(self.topo) if h is None else h
+
+    def _fault_rows(self) -> Tuple[List[int], List[int]]:
+        """(stranded, moved) row indices of the live placement under the
+        just-updated ``spec.health``: stranded rows lost their pinned
+        source -- or every admissible node -- and are parked; moved rows
+        have VMs on dead nodes or traffic routed over dead elements and
+        get mass re-embedded."""
+        h = self.spec.health
+        el = self.spec.masks(self._problem)
+        pair_ok = h.pair_alive(self._problem)
+        all_links = bool(h.link_up.all())
+        X = self._X
+        stranded: List[int] = []
+        moved: List[int] = []
+        for r in range(self.n_live):
+            svc = self._vsrs[r]
+            if not bool(h.node_up[int(svc.src[0])]):
+                stranded.append(r)
+                continue
+            nodes = X[r, :svc.V]
+            hit = bool((~h.node_up[nodes]).any())
+            if not hit and not all_links:
+                uu, vv = np.nonzero(np.asarray(svc.H)[0] > 0)
+                if uu.size:
+                    hit = bool((~pair_ok[nodes[uu], nodes[vv]]).any())
+            if not hit:
+                continue
+            if el is not None and not bool(el[r].any()):
+                # nowhere admissible left: the solvers' all-True fallback
+                # must never see this row
+                stranded.append(r)
+            else:
+                moved.append(r)
+        return stranded, moved
+
+    def _apply_fault_impl(self, event: str) -> Optional[solvers.SolveResult]:
+        """Shared fail / recover re-embedding: strand rows that lost their
+        source (parked in the queue, never dropped), mass re-embed the
+        displaced rows through ``warm_state`` + ``resolve_incremental`` on
+        the degraded problem.  A failed element that hosts nothing only
+        re-scores the placement on the degraded problem ("untouched")."""
+        if self._X is None:
+            return None     # nothing placed; _rebuild_problem degrades later
+        recovery = event.startswith("recover")
+        stranded, moved = ([], []) if recovery else self._fault_rows()
+        state = self._state
+        prev_X = self._X
+        n0 = self.n_live
+        if stranded:
+            state = power.detach_vsrs(self._problem, state, stranded)
+            for r in sorted(stranded, reverse=True):
+                sid = self._sids[r]
+                self._park(self._vsrs[r], sid, self._prio[r])
+                if self.monitor is not None:
+                    self.monitor.strand(sid, self._now,
+                                        detail=f"sid={sid} {event}")
+                del self._vsrs[r]
+                del self._sids[r]
+                del self._prio[r]
+                self._drop_row(r)
+        if not self._vsrs:
+            self._problem = self._X = self._state = self._result = None
+            self._batch_cache = None
+            self.stats.append(OnlineStats(event, "empty", 0.0, 0.0, 0))
+            return None
+        dead = set(stranded)
+        surv = [i for i in range(n0) if i not in dead]
+        moved_new = [surv.index(r) for r in moved]
+        self._rebuild_problem()
+        self._events_since_defrag += 1
+        st = power.warm_state(
+            self._problem, prev_X,
+            prev_loads=(state.omega, state.tm, state.theta, state.lam),
+            row_map=surv + [-1] * (self._problem.R - len(surv)))
+        if not recovery and not moved_new and not stranded:
+            # the dead element hosted nothing: re-score the same placement
+            # on the degraded problem, no solver work
+            res = solvers._result(self._problem, st.X, "untouched")
+            self._commit(res, event)
+            return res
+        kw = self._add_kw if moved_new else self._remove_kw
+        res = solvers.resolve_incremental(
+            self._problem, gen=self._gen, changed_rows=moved_new, state=st,
+            spec=self.spec, **self._resolve_kw(kw))
+        if self._defrag_due():
+            res = self._full_solve(event, incumbent=res)
+        else:
+            self._commit(res, event)
+        if moved_new and self.monitor is not None:
+            self.monitor.count("re_embedded", n=len(moved_new),
+                               detail=f"{event}: {len(moved_new)} displaced")
+        return res
+
+    def _set_health(self, event: str, target: int,
+                    up: bool) -> Optional[solvers.SolveResult]:
+        """One fail / recover handler: a no-op (``None``) when ``target``
+        is already in that state, else the new health, its monitor count,
+        the re-embedding and, on a recovery, the queue drain."""
+        self._check_churn(event)
+        h = self._health()
+        node = event.endswith("node")
+        if bool((h.node_up if node else h.link_up)[target]) == up:
+            return None
+        change = getattr(h, event)
+        self.spec = self.spec.replace(health=change(target))
+        if self.monitor is not None:
+            self.monitor.count(
+                ("node_" if node else "link_")
+                + ("recovered" if up else "failed"),
+                detail=f"{'node' if node else 'link'}={target}")
+        res = self._apply_fault_impl(event)
+        if up:
+            self._drain_queue()
+        return res
+
+    def fail_node(self, node: int) -> Optional[solvers.SolveResult]:
+        """Fail a processing node: services sourced there are stranded
+        (queued for recovery), services with VMs there are mass
+        re-embedded on the degraded substrate."""
+        return self._set_health("fail_node", node, False)
+
+    def recover_node(self, node: int) -> Optional[solvers.SolveResult]:
+        """Recover a node: survivors re-settle onto the restored capacity
+        and stranded / parked services retry admission."""
+        return self._set_health("recover_node", node, True)
+
+    def fail_link(self, n: int) -> Optional[solvers.SolveResult]:
+        """Fail a network element: traffic routed across it is re-embedded
+        around the cut (zero C_net penalizes any load left there)."""
+        return self._set_health("fail_link", n, False)
+
+    def recover_link(self, n: int) -> Optional[solvers.SolveResult]:
+        """Recover a network element: survivors re-settle, parked services
+        retry admission."""
+        return self._set_health("recover_link", n, True)
 
     def brownout(self, budget_w: Optional[float]) -> None:
         """Tighten the fleet admission power budget (arrivals beyond it
@@ -1145,6 +1428,8 @@ class OnlineEmbedder:
         if self._brownout_saved is None:
             self._brownout_saved = (self.spec.power_budget_w,)
         self.spec = self.spec.replace(power_budget_w=budget_w)
+        if self.monitor is not None:
+            self.monitor.count("brownout", detail=f"budget_w={budget_w}")
 
     def brownout_end(self) -> None:
         """Restore the budget before ``brownout`` and drain the queue."""
@@ -1153,7 +1438,23 @@ class OnlineEmbedder:
         (prev_budget,) = self._brownout_saved
         self._brownout_saved = None
         self.spec = self.spec.replace(power_budget_w=prev_budget)
+        if self.monitor is not None:
+            self.monitor.count("brownout_end",
+                               detail=f"budget_w={prev_budget}")
         self._drain_queue()
+
+    def apply_fault(self, ev: FaultEvent):
+        """Dispatch one ``FaultEvent`` to the handlers above (region kinds
+        belong to a federated session; a flat engine refuses them)."""
+        if ev.kind in ("fail_node", "recover_node", "fail_link",
+                       "recover_link"):
+            return getattr(self, ev.kind)(int(ev.target))
+        if ev.kind == "brownout":
+            return self.brownout(ev.value)
+        if ev.kind == "brownout_end":
+            return self.brownout_end()
+        raise ValueError(f"flat engine cannot apply fault kind {ev.kind!r} "
+                         "(region faults need a federated session)")
 
 
 def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
@@ -1167,28 +1468,28 @@ def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
     a rejected arrival or a skipped departure).  Admission counters
     accumulate in ``engine.admission``.
 
-    ``waves=True`` batches each same-tick run of events (``iter_waves``)
-    through ``engine.apply_wave`` -- one re-solve per tick instead of one
-    per event -- and, when the spec carries an amortized defrag budget
+    The timeline may interleave ``FaultEvent``s (``merge_timelines``):
+    each dispatches through ``engine.apply_fault``, after which the live
+    set is re-read (faults strand, recoveries re-admit).  The engine clock
+    is ticked to every event's time, so strand windows are measured on
+    the timeline's clock.
+
+    ``waves=True`` batches each same-tick run of churn events
+    (``iter_waves``; a fault event is a wave of its own) through
+    ``engine.apply_wave`` -- one re-solve per tick instead of one per
+    event -- and, when the spec carries an amortized defrag budget
     (``spec.defrag_rows_per_tick``), runs one ``defrag_tick()`` after each
     wave; ``on_event`` then observes ``(event, WaveResult)`` for every
-    event of the wave.
-
-    Only ``ServiceEvent``s are taken: a fault event raises (the fault
-    plane, item 5 (c)) before any event is applied."""
-    events = list(events)
-    for ev in events:
-        if getattr(ev, "kind", None) not in ("arrive", "depart"):
-            raise NotImplementedError(
-                f"timeline event {ev!r} is not a service arrival or "
-                f"departure; fault events need the fault plane, not yet "
-                f"ported ({_ITEM_5C})")
+    event of the wave."""
     if waves:
         return _replay_waves(engine, events, make_vsr, on_event)
     live = set(engine.sids)
     for ev in events:
         engine.tick(ev.t)
-        if ev.kind == "arrive":
+        if isinstance(ev, FaultEvent):
+            res = engine.apply_fault(ev)
+            live = set(engine.sids)
+        elif ev.kind == "arrive":
             res = engine.add(make_vsr(ev.sid), sid=ev.sid)
             if res is not None:
                 live.add(ev.sid)
@@ -1205,13 +1506,19 @@ def replay(engine: OnlineEmbedder, events: Sequence[ServiceEvent],
     return engine.stats
 
 
-def _replay_waves(engine: OnlineEmbedder, events: List[ServiceEvent],
+def _replay_waves(engine: OnlineEmbedder, events: Sequence,
                   make_vsr: Callable[[int], vsr.VSRBatch],
                   on_event: Optional[Callable]) -> List[OnlineStats]:
     """The ``replay(..., waves=True)`` loop: collect -> apply_wave ->
-    background defrag tick, one pass per same-tick wave."""
+    background defrag tick, one pass per same-tick wave; a fault event
+    is applied on its own."""
     for group in iter_waves(events):
         engine.tick(group[-1].t)
+        if isinstance(group[0], FaultEvent):
+            res = engine.apply_fault(group[0])
+            if on_event is not None:
+                on_event(group[0], res)
+            continue
         live = set(engine.sids)
         arrivals, departures = [], []
         for ev in group:

@@ -32,6 +32,7 @@ Units: W, GFLOPS, Mbps (converted to Gbps where eps/EL are W per Gbps).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass, fields
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
@@ -291,6 +292,106 @@ def apply_pins(problem: PlacementProblem, X: torch.Tensor) -> torch.Tensor:
     """Force pinned VMs (input VMs) onto their source nodes; X [..., R, V]."""
     return torch.where(problem.fixed_mask, problem.fixed_node,
                        as_placement(problem, X))
+
+
+# ---------------------------------------------------------------------------
+# Substrate health: failures degrade capacities by value (no shape changes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SubstrateHealth:
+    """Up/down state of the physical substrate.
+
+    ``node_up`` [P] marks processing nodes, ``link_up`` [N] network
+    elements.  Failures never change tensor shapes: ``degrade`` returns a
+    same-shape ``PlacementProblem`` whose failed elements have zero
+    capacity (NS = 0 servers, C_lan = 0, C_net = 0), so any load left on a
+    dead element draws the capacity penalty, while a drained dead element
+    draws zero watts because every idle term is activity gated.  ``C_pr``,
+    idle powers and routes are untouched.
+
+    ``eligibility`` is the planning-side view: an [R, P] mask that removes
+    dead nodes -- and every node whose route from the row's source crosses
+    a dead network element -- from the solver move set
+    (``PlacementSpec.masks`` ANDs it with the hop / affinity masks).
+
+    Instances are immutable; the ``fail_*`` / ``recover_*`` methods return
+    updated copies.
+    """
+
+    node_up: np.ndarray   # [P] bool
+    link_up: np.ndarray   # [N] bool
+
+    @classmethod
+    def fresh(cls, topo: CFNTopology) -> "SubstrateHealth":
+        return cls(node_up=np.ones(topo.P, dtype=bool),
+                   link_up=np.ones(topo.N, dtype=bool))
+
+    @property
+    def all_up(self) -> bool:
+        return bool(self.node_up.all()) and bool(self.link_up.all())
+
+    def _set(self, field: str, idx: int, up: bool) -> "SubstrateHealth":
+        arr = np.array(getattr(self, field), dtype=bool)
+        arr[int(idx)] = up
+        return dataclasses.replace(self, **{field: arr})
+
+    def fail_node(self, p: int) -> "SubstrateHealth":
+        return self._set("node_up", p, False)
+
+    def recover_node(self, p: int) -> "SubstrateHealth":
+        return self._set("node_up", p, True)
+
+    def fail_link(self, n: int) -> "SubstrateHealth":
+        return self._set("link_up", n, False)
+
+    def recover_link(self, n: int) -> "SubstrateHealth":
+        return self._set("link_up", n, True)
+
+    def degrade(self, problem: PlacementProblem) -> PlacementProblem:
+        """Same-shape problem with dead elements' capacities zeroed: new
+        tensors on the problem's device, never a write into ``problem``
+        (whose substrate tensors the online engine shares across events).
+        The host copies carry over (none of them is a capacity), so no
+        state operation copies the route table back from the device; the
+        problem itself comes back when everything is up."""
+        if self.all_up:
+            return problem
+        nu = torch.as_tensor(self.node_up, device=problem.device)
+        lu = torch.as_tensor(self.link_up, device=problem.device)
+        out = dataclasses.replace(problem,
+                                  NS=torch.where(nu, problem.NS, 0.0),
+                                  C_lan=torch.where(nu, problem.C_lan, 0.0),
+                                  C_net=torch.where(lu, problem.C_net, 0.0))
+        if "host" in problem.__dict__:
+            out.__dict__["host"] = problem.host
+        return out
+
+    def route_ok(self) -> np.ndarray:
+        """[N+1] link aliveness lookup with the sentinel slot alive, for
+        indexing ``route_idx`` (pad entries hold id N)."""
+        return np.concatenate([np.asarray(self.link_up, bool), [True]])
+
+    def pair_alive(self, problem: PlacementProblem) -> np.ndarray:
+        """[P, P] bool: route (a, b) traverses no dead network element."""
+        return self.route_ok()[problem.host.route_idx].all(axis=-1)
+
+    def eligibility(self, problem: PlacementProblem) -> np.ndarray:
+        """[R, P] bool solver mask under the current health.
+
+        A node is eligible for row r iff it is up AND the route from r's
+        pinned source traverses only live network elements.  Rows whose
+        source node is itself dead keep their route mask (the engine
+        strands them before any solve); rows left with an empty mask must
+        likewise be stranded by the caller -- the solvers' all-True
+        fallback would otherwise quietly re-enable dead nodes."""
+        if self.all_up:
+            return np.ones((problem.R, problem.P), dtype=bool)
+        h = problem.host
+        src_of = h.fixed_node[np.arange(problem.R),
+                              h.fixed_mask.argmax(axis=1)]          # [R]
+        el = self.pair_alive(problem)[src_of]                        # [R, P]
+        return el & np.asarray(self.node_up, bool)[None, :]
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,20 @@
 
 ``core.vsr.from_architecture`` turns per-layer GFLOP/token and inter-layer
 activation bytes into the paper's VSR abstraction.  The counts come from
-the real parameter tree: the reference traces ``init_model`` with
-``jax.eval_shape``; the port builds its model on the ``meta`` device,
-which allocates nothing.
+parameter shapes: the reference traces ``init_model`` with
+``jax.eval_shape``; the port makes the same shapes on the ``meta`` device,
+which allocates nothing.  ``layer_costs`` needs only each block's shapes,
+so it also covers the MoE and hymba block kinds, whose forward pass the
+port's model stack does not run yet (ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
+import torch
+
+from . import layers as L
 from . import model as M
 from .config import ArchConfig
 
@@ -35,22 +41,70 @@ def param_breakdown(cfg: ArchConfig) -> Dict[str, int]:
                 nonembed=total - embed)
 
 
+def _block_sizes(cfg: ArchConfig, kind: str) -> Tuple[int, int]:
+    """(parameters, of which expert weights) of one block of ``kind``, from
+    the shapes the reference's ``init_block`` makes, on the meta device.
+    Block kinds past the attention, MoE and hymba ones raise."""
+    ini = L.Init(None, torch.device("meta"), torch.float32)
+    D = cfg.d_model
+    if kind in M.ATTN_KINDS:
+        M.init_block(ini, cfg, kind)
+    elif kind == "attn_moe":
+        E, Fe = cfg.n_experts, cfg.moe_d_ff
+        ini.mk("ln1", (D,), mode="zeros")
+        L.init_attention(ini, cfg)
+        ini.mk("ln2", (D,), mode="zeros")
+        ini.mk("router", (D, E))
+        for name, shape in (("we_gate", (E, D, Fe)), ("we_up", (E, D, Fe)),
+                            ("we_down", (E, Fe, D))):
+            ini.mk(name, shape)
+        if cfg.n_shared_experts:
+            L.init_mlp(ini, D, Fe * cfg.n_shared_experts, cfg.n_layers,
+                       prefix="shared_")
+    elif kind in ("hymba_local", "hymba_global"):
+        # attention and mamba heads in parallel (the reference's
+        # ssm.init_mamba shapes), then the MLP
+        Din, St = cfg.ssm_expand * D, cfg.ssm_state
+        dt_rank = max(1, math.ceil(D / 16))
+        ini.mk("ln1", (D,), mode="zeros")
+        L.init_attention(ini, cfg, prefix="attn_")
+        for name, shape in (("in_proj", (D, 2 * Din)),
+                            ("conv_w", (cfg.conv_kernel, Din)),
+                            ("x_proj", (Din, dt_rank + 2 * St)),
+                            ("dt_proj", (dt_rank, Din)), ("dt_bias", (Din,)),
+                            ("A_log", (Din, St)), ("D_skip", (Din,)),
+                            ("out_proj", (Din, D))):
+            ini.mk("mamba_" + name, shape)
+        ini.mk("ln2", (D,), mode="zeros")
+        L.init_mlp(ini, D, cfg.d_ff, cfg.n_layers)
+    else:
+        raise NotImplementedError(f"the cost of block kind {kind!r} "
+                                  f"{M._TODO}")
+    total = sum(t.numel() for t in ini.params.values())
+    expert = sum(t.numel() for name, t in ini.params.items()
+                 if name.startswith("we_"))
+    return total, expert
+
+
 def layer_costs(cfg: ArchConfig, context: int = 2048,
                 ) -> Tuple[List[float], List[float]]:
     """(gflop_per_token per layer, boundary activation bytes per token).
 
     One transformer layer == one VM in the paper's abstraction.  Inference
-    cost: 2 FLOPs per parameter plus the attention context term at the
-    given context length.
+    cost: 2 FLOPs per active parameter (a MoE block's experts count
+    top_k / n_experts) plus the attention context term at the given
+    context length.
     """
-    model = M.init_model(cfg, device="meta")
     H, Dh = cfg.n_heads, cfg.head_dim
     gflops: List[float] = []
     act_bytes: List[float] = []
-    for gi, grp in enumerate(M.layer_plan(cfg)):
-        for unit in model.groups[gi]:
-            for j, kind in enumerate(grp.kinds):
-                n = sum(p.numel() for p in unit[f"b{j}"].parameters())
+    for grp in M.layer_plan(cfg):
+        sizes = {kind: _block_sizes(cfg, kind) for kind in grp.kinds}
+        for _ in range(grp.repeats):
+            for kind in grp.kinds:
+                n, expert = sizes[kind]
+                if cfg.moe and kind == "attn_moe":
+                    n = n - expert + expert * cfg.top_k / cfg.n_experts
                 w = M.block_window(cfg, kind)
                 kv = min(w, context) if w else context
                 gflops.append((2.0 * n + 4.0 * kv * H * Dh) / 1e9)

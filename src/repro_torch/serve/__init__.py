@@ -1,1 +1,2 @@
-"""Serving of the port: KV-cache specs and the prefill / decode engine."""
+"""Serving of the port: KV-cache specs, the prefill / decode engine, and
+the energy-aware scheduler that places served models on the CFN."""

@@ -12,7 +12,7 @@ import torch
 
 from repro.api import CFNSession as JSession, PlacementSpec as JSpec
 from repro.core import power as jp, topology as jtopo, vsr as jvsr
-from repro_torch.api import CFNSession, PlacementSpec
+from repro_torch.api import CFNSession, PlacementSpec, SubstrateHealth
 from repro_torch.core import embed, power as tp, solvers as ts, \
     topology as ttopo, vsr as tvsr
 
@@ -149,8 +149,11 @@ def test_spec_validation():
                 dict(priority_classes=0), dict(defrag_rows_per_tick=-1)):
         with pytest.raises(ValueError):
             PlacementSpec(**bad)
-    with pytest.raises(NotImplementedError, match="SubstrateHealth"):
-        PlacementSpec(health=object())
+    topo = ttopo.paper_topology()
+    health = SubstrateHealth.fresh(topo).fail_node(3)
+    assert PlacementSpec(health=health).health is health
+    with pytest.raises(NotImplementedError, match=r"item 7"):
+        CFNSession(topo, PlacementSpec(), device="cpu", telemetry=object())
     assert PlacementSpec().replace(max_hops=3).max_hops == 3
 
 

@@ -708,7 +708,7 @@ def test_session_replay_matches_deprecated_engine(paper, max_hops):
 
 # ---------------------------------------------------------------------------
 # the spec options of the queue / priority / defrag-tick plane at churn, and
-# what is left to ROADMAP item 5 (c)
+# fault timelines
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option", [dict(queue_rejected=True),
@@ -762,18 +762,35 @@ def test_churn_options_match_jax(paper, option):
 
 
 def test_unported_timelines_raise(paper):
-    """A fault event in a timeline (the port's FaultEvent or the
-    reference's, merged by either package's merge_timelines) names item
-    5 (c) in both replay modes, and no event is applied."""
-    _, tt = paper
-    ses = CFNSession(tt, TSpec(**DET), device=CPU)
-    make = lambda sid: tvsr.random_vsrs(1, rng=sid, source_nodes=[0])
-    events = tdyn.churn_trace(2, 2, rng=0)
-    for storm in (tdyn.merge_timelines(events, [tdyn.FaultEvent(
-                      0.5, "fail_node", 3)]),
-                  jdyn.merge_timelines(events, [jdyn.FaultEvent(
-                      0.5, "brownout", value=10.0)])):
-        for waves in (False, True):
-            with pytest.raises(NotImplementedError, match=r"item 5 \(c\)"):
-                ses.replay(storm, make, waves=waves)
-    assert ses.n_live == 0 and ses.stats == []
+    """A fault event in a timeline (a node failure, a brownout), once
+    unported, now replays as in the JAX package in both modes: the same
+    live sids, stats, admission counters and health.  A region fault
+    (federation, ROADMAP Queue 1 item 6) raises in both packages, after
+    the events before it."""
+    jt, tt = paper
+    for waves in (False, True):
+        got = []
+        for pkg, dyn, ses in (
+                (jvsr, jdyn, JSession(jt, JSpec(**DET),
+                                      key=jax.random.PRNGKey(7))),
+                (tvsr, tdyn, CFNSession(tt, TSpec(**DET), device=CPU))):
+            make = lambda sid, pkg=pkg: pkg.random_vsrs(1, rng=sid,
+                                                        source_nodes=[0])
+            storm = dyn.merge_timelines(dyn.churn_trace(2, 2, rng=0), [
+                dyn.FaultEvent(0.5, "fail_node", 3),
+                dyn.FaultEvent(0.5, "brownout", value=1e5),
+                dyn.FaultEvent(1.5, "recover_node", 3)])
+            ses.replay(storm, make, waves=waves)
+            got.append((ses.sids, ses.admission,
+                        [(s.event, s.method, s.n_live) for s in ses.stats],
+                        [s.objective for s in ses.stats],
+                        ses.health.node_up.tolist(), ses.spec.power_budget_w))
+            with pytest.raises(ValueError, match="region"):
+                ses.replay([dyn.ServiceEvent(3.0, "arrive", 9),
+                            dyn.FaultEvent(3.5, "fail_region", 0)], make,
+                           waves=waves)
+            assert 9 in ses.sids
+        (js_, ja, jst, jobj, jh, jb), (ts_, ta, tst, tobj, th, tb) = got
+        assert (ts_, ta, tst, th, tb) == (js_, ja, jst, jh, jb)
+        np.testing.assert_allclose(tobj, jobj, rtol=1e-5, atol=5e-2)
+        assert "fail_node" in [e for e, _, _ in tst] and tb == 1e5
