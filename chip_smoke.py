@@ -46,6 +46,15 @@ nvcc per source, in parallel), then
      problem; then a rack storm of two nodes around a flash-crowd wave,
      replayed in waves; each event held to the float64 oracle on the
      degraded problem, no VM on a dead node, no service lost;
+  3g. runs the federation (``FederatedSession``) at four city-scale
+     regions (merged P = 1864): 1024 VSRs through the region-batched
+     solve (lockstep sweeps and anneal vmapped over the regions), its
+     seconds split and one lockstep position profiled, the exact fleet
+     accounting held to the float64 oracle of the merged placement; then,
+     at 4 live services a region, the coordinator's budget migration,
+     adds, removes, a wave, the regional defrag (fused_anneal), a region's
+     failure and recovery, a region brownout and the scheduler on the
+     federation, every call held to the oracles and the fleet invariants;
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
@@ -63,8 +72,9 @@ nvcc per source, in parallel), then
 
 Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
-3 and, as ``launches_churn`` / ``launches_waves`` / ``launches_faults``, in
-phases 3d / 3e / 3f, the global anneal variant's in phase 3c, the flash
+3 and, as ``launches_churn`` / ``launches_waves`` / ``launches_faults`` /
+``launches_federation``, in phases 3d / 3e / 3f / 3g, the global anneal
+variant's in phase 3c, the flash
 kernels' in phase 5;
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -1468,6 +1478,421 @@ def phase_faults(boot_X) -> dict:
     return launches
 
 
+# phase 3g: four city-scale regions -- each the city_p468 fabric (P_r = 466)
+# -- over the 14-node NSFNET core (merged P = 1864, N = 486); 16 IoT
+# sources a region (64 in all, as city_p468's).  (i) the batch of phase 3's
+# size, (ii) the coordinator, churn and region faults at 4 live services a
+# region: cut from 256, because every churn or fault call re-solves once per
+# service it touches, 1.7-4 s a re-solve on the card
+FED_TOPO = dict(n_regions=4, n_olt=16, onus_per_olt=4, iot_per_onu=7)
+FED_SOURCES = 16
+FED_R = 1024
+FED_LIVE = 4
+FED_PROFILE_POSITIONS = 64
+# (ii)'s coordinator passes: on the H100 every migration off region 0 RAISED
+# its watts (the cut links' egress path draws idle network power at home),
+# so the default 4 passes all ran (34 s at 8 services a region); one pass
+# shows the migration and its re-solve
+FED_COORD_PASSES = 1
+
+
+def _sync() -> None:
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def fed_sources(part, rng) -> list:
+    """``FED_SOURCES`` IoT sources of each region (merged ids), drawn from
+    ``rng`` region by region."""
+    topo = part.topo
+    iot = set(topo.layer_indices("iot"))
+    return [rng.choice([p for p in reg.proc_ids if p in iot],
+                       size=FED_SOURCES, replace=False)
+            for reg in part.regions]
+
+
+class FedTimer:
+    """Inside ``with``: the batched solves' seconds split into sweeps (from
+    the end of the warm-start init to the exact refresh), anneal and the
+    float64 breakdowns, by wrapping the federation module's functions with
+    synchronized timers; ``args`` / ``out`` keep the last batched solve's
+    inputs and result."""
+
+    NAMES = ("_init_states", "_anneal_scans", "federated_breakdown",
+             "_solve_regions")
+
+    def __init__(self):
+        from repro_torch.core import federation
+        self.mod = federation
+        self.orig = {n: getattr(federation, n) for n in self.NAMES}
+        self.inits: list = []
+        self.split = {"sweeps": 0.0, "anneal": 0.0, "breakdown": 0.0}
+        self.args = self.out = None
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def run(*args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync()
+            t1 = time.perf_counter()
+            if name == "_init_states":
+                self.inits.append((t0, t1))
+                if len(self.inits) % 2 == 0:        # the exact refresh
+                    self.split["sweeps"] += t0 - self.inits[-2][1]
+            elif name == "_anneal_scans":
+                self.split["anneal"] += t1 - t0
+            elif name == "federated_breakdown":
+                self.split["breakdown"] += t1 - t0
+            else:
+                self.args, self.out = args, out
+            return out
+        return run
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.mod, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+        return False
+
+
+def lockstep_profile(args, n_pos: int = FED_PROFILE_POSITIONS) -> dict:
+    """Device activity of ``n_pos`` lockstep sweep positions of a batched
+    solve (``args``: its ``_solve_regions`` inputs): wall ms, CUDA kernels
+    and the device's busy share per position, as phase 3's
+    ``sweep_profile`` for the flat sweep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import federation
+    problems, auxes, X0, el, pos = args[:5]
+    st = federation._init_states(problems, X0)
+    step = lambda st, k: federation._lockstep(problems, auxes, st,
+                                              pos[:, k, 0], pos[:, k, 1], el)
+    for k in range(8):
+        st = step(st, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(8, 8 + n_pos):
+            st = step(st, k % pos.shape[1])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    return {"positions": n_pos, "regions": int(X0.shape[0]),
+            "ms_per_position": wall_s / n_pos * 1e3,
+            "kernels_per_position": len(kernels) / n_pos,
+            "device_busy_share": busy_s / wall_s if kernels else None}
+
+
+def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
+                     n_batch: int = FED_R, n_live: int = FED_LIVE,
+                     profile: bool = True) -> dict:
+    """Phase 3g: the federation at four city-scale regions, through
+    ``FederatedSession``.
+
+    (i) Batch: ``federated_scale(4, 16, 4, 7)`` (4 regions of P_r = 466,
+    merged P = 1864), 1024 VSRs of 3 VMs (``random_vsrs``, numpy seed 0,
+    sources 16 IoT nodes a region), cfn-milp "standard" (the batched
+    effort: 2 lockstep coordinate sweeps + a 2000-step x 8-chain delta
+    anneal a region), no budgets.  Seconds for the topology and partition
+    builds, the batched sweeps, the batched anneal and the float64
+    breakdowns; a ``lockstep_profile``; regional and inter-region watts.
+    Checks: regional + inter-region == total (1e-9 x total), the total
+    equal to the float64 oracle of the merged placement (1e-7 x
+    max(1, |oracle|), the reference's acceptance bound), no VM of the
+    batch on a pad node.
+
+    (ii) The coordinator, churn and region faults at 4 live services a
+    region: a budget-free solve gives region 0's watts W0; a session with
+    ``region_power_budget_w = [W0 - 1, 1e9, 1e9, 1e9]`` (one coordinator
+    pass, ``FED_COORD_PASSES``), a ``PlacementMonitor`` and per-region
+    monitors solves the same services (the coordinator must migrate),
+    then 4 ``add``s homed in regions 2 and 3 (one with ``region=``), 2
+    ``remove``s, one ``apply_wave`` of 4 arrivals and 4 departures,
+    ``defrag()`` (the regional full solves: ``fused_anneal``),
+    ``fail_region(1)`` / ``recover_region(1)``, ``brownout_region(2, w)``
+    under region 2's watts / ``brownout_end_region(2)``, and
+    ``EnergyAwareScheduler(session=...)`` with two h2o-danube-3-4b
+    services of 2 stages at 5 tokens/s from regions 2 and 3, one then
+    removed.  Per call: seconds, launches, fleet watts.  After every call:
+    every region engine's commit within 5e-2 + 1e-5 |obj| of its float64
+    oracle and the fleet's exact objective within that of the merged
+    placement's oracle, conservation as (i), each service's free VMs in
+    its assigned region (an ``add(region=)`` lands there) and its
+    input VM at its source, no live service homed in a down region, live +
+    queued == admitted, and the ``fleet_monitor()`` roll-up equal to the
+    monitors' sum.  Returns the phase's launches."""
+    import torch
+    from repro_torch.api import FederatedSession, PlacementSpec
+    from repro_torch.configs.h2o_danube_3_4b import CONFIG as DANUBE
+    from repro_torch.core import federation, power, topology, vsr
+    from repro_torch.fault import PlacementMonitor
+    from repro_torch.kernels import placement_power as pp, ref
+    from repro_torch.serve.scheduler import EnergyAwareScheduler, Service
+    t_all = time.perf_counter()
+    pp.reset_launches()
+    t0 = time.perf_counter()
+    topo = topology.federated_scale(**topo_kw)
+    topology_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = federation.RegionPartition.from_topology(topo)
+    part.padded_substrates(device)
+    _sync()
+    partition_s = time.perf_counter() - t0
+    merged_sub = power.substrate_arrays(topo, "cpu")
+    rng = np.random.default_rng(0)
+    srcs = fed_sources(part, rng)
+
+    def conserved(bd, what):
+        check(abs(bd.regional_w.sum() + bd.inter_region_w - bd.total_w)
+              <= 1e-9 * max(1.0, bd.total_w),
+              f"{what}: regional {bd.regional_w.sum()} + inter "
+              f"{bd.inter_region_w} != total {bd.total_w}")
+
+    def merged_oracle(services, X) -> float:
+        vs = vsr.concat_all(services)
+        prob = power.build_problem(topo, vs, substrate=merged_sub)
+        return ref.placement_objective_f64_links(
+            prob, np.asarray(X)[:vs.R, :vs.V])
+
+    # (i) the batch at full width
+    batch = vsr.random_vsrs(n_batch, rng=rng, n_vms=3,
+                            source_nodes=np.concatenate(srcs))
+    ses = FederatedSession(topo, PlacementSpec(), device=device,
+                           partition=part)
+    with FedTimer() as timer:
+        t0 = time.perf_counter()
+        res = ses.solve(batch)
+        _sync()
+        solve_s = time.perf_counter() - t0
+    bd = res.breakdown
+    conserved(bd, "federation (i)")
+    services = [vsr.VSRBatch(F=batch.F[i:i + 1], H=batch.H[i:i + 1],
+                             src=batch.src[i:i + 1],
+                             input_vm=batch.input_vm[i:i + 1])
+                for i in range(batch.R)]
+    f64 = merged_oracle(services, res.X)
+    check(abs(f64 - bd.objective) <= 1e-7 * max(1.0, abs(f64)),
+          f"federation (i): objective {bd.objective} vs float64 oracle {f64}")
+    Xb = timer.out[0]
+    for g, reg in enumerate(part.regions):
+        check(bool((Xb[g] < reg.P).all()),
+              f"federation (i): region {g} placed a VM on a pad node")
+    G, R_pad, V_pad = (int(s) for s in timer.args[2].shape)
+    batch_out = dict(
+        P=topo.P, N=topo.N, P_region=[r.P for r in part.regions],
+        R_pad=R_pad, V_pad=V_pad,
+        lockstep_positions=2 * R_pad * max(1, V_pad - 1),
+        per_region=np.bincount(res.assignments, minlength=G).tolist(),
+        topology_s=topology_s, partition_s=partition_s, solve_s=solve_s,
+        sweeps_s=timer.split["sweeps"], anneal_s=timer.split["anneal"],
+        breakdown_s=timer.split["breakdown"],
+        regional_w=bd.regional_w.tolist(), inter_region_w=bd.inter_region_w,
+        total_w=bd.total_w, objective=bd.objective, f64_objective=f64,
+        violation=bd.violation, region_obj=res.region_obj.tolist(),
+        migrations=res.migrations)
+    if profile:
+        batch_out["sweep_profile"] = lockstep_profile(timer.args)
+    launches_i = dict(pp.LAUNCHES)
+    del ses, res, timer, Xb
+
+    # (ii) coordinator, churn and region faults at n_live a region
+    live = vsr.concat_all([vsr.random_vsrs(n_live, rng=rng, n_vms=3,
+                                           source_nodes=s) for s in srcs])
+    live_svcs = [vsr.VSRBatch(F=live.F[i:i + 1], H=live.H[i:i + 1],
+                              src=live.src[i:i + 1],
+                              input_vm=live.input_vm[i:i + 1])
+                 for i in range(live.R)]
+    t0 = time.perf_counter()
+    probe = FederatedSession(topo, PlacementSpec(), device=device,
+                             partition=part).solve(live)
+    probe_s = time.perf_counter() - t0
+    W0 = float(probe.breakdown.regional_w[0])
+    budget = [W0 - 1.0] + [1e9] * (part.G - 1)
+    mon = PlacementMonitor()
+    ses = FederatedSession(topo, PlacementSpec(region_power_budget_w=budget),
+                           device=device, partition=part, monitor=mon)
+    ses.MAX_COORD_PASSES = FED_COORD_PASSES
+    regional = ses.attach_region_monitors()
+    svc_of = {i: s for i, s in enumerate(live_svcs)}
+    admitted = set(range(live.R))
+    calls = []
+
+    def held(what) -> dict:
+        """The checks after one call; returns its numbers."""
+        bd = ses.breakdown()
+        conserved(bd, what)
+        for g, eng in ses._engines.items():
+            if eng.problem is None:
+                continue
+            obj = eng.objective()
+            f = ref.placement_objective_f64_links(eng.problem, eng.X)
+            check(abs(obj - f) <= 5e-2 + 1e-5 * abs(f),
+                  f"{what}: region {g} objective {obj} vs float64 {f}")
+        f = merged_oracle([svc_of[s] for s in ses.sids], ses.X)
+        check(abs(bd.objective - f) <= 5e-2 + 1e-5 * abs(f),
+              f"{what}: fleet objective {bd.objective} vs float64 {f}")
+        X = ses.X
+        for row, sid in enumerate(ses.sids):
+            plan = ses._plans[sid]
+            reg = part.regions[plan.assigned]
+            iv = int(plan.vsr.input_vm[0])
+            free = [v for v in range(plan.vsr.V) if v != iv]
+            check(X[row, iv] == int(plan.vsr.src[0])
+                  and bool(np.isin(X[row, free], reg.proc_ids).all()),
+                  f"{what}: sid {sid} off its region {plan.assigned}")
+            check(plan.home not in ses.down_regions,
+                  f"{what}: sid {sid} live in down region {plan.home}")
+        lv, qd = set(ses.sids), set(ses.queued_sids)
+        check(lv | qd == admitted and not lv & qd,
+              f"{what}: live {sorted(lv)} + queued {sorted(qd)} != "
+              f"admitted {sorted(admitted)}")
+        fleet = ses.fleet_monitor()
+        for kind, n in fleet.counters.items():
+            check(n == mon.get(kind) + sum(m.get(kind)
+                                           for m in regional.values()),
+                  f"{what}: roll-up {kind} {n}")
+        return dict(total_w=bd.total_w, regional_w=bd.regional_w.tolist(),
+                    inter_region_w=bd.inter_region_w, objective=bd.objective,
+                    f64_objective=f, n_live=len(lv), queued=sorted(qd))
+
+    def call(what, fn) -> object:
+        launch0 = dict(pp.LAUNCHES)
+        _sync()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        seconds = time.perf_counter() - t0
+        calls.append(dict(call=what, seconds=seconds,
+                          launches={k: v - launch0[k]
+                                    for k, v in pp.LAUNCHES.items()},
+                          returned=out if isinstance(out, int) else None,
+                          **held(what)))
+        return out
+
+    def arrival(sid, g, k=0):
+        sv = vsr.random_vsrs(1, rng=3000 + sid, n_vms=3,
+                             source_nodes=[int(srcs[g][k])])
+        svc_of[sid] = sv
+        admitted.add(sid)
+        return sv
+
+    res = call("solve", lambda: ses.solve(live))
+    check(res.migrations >= 1 and mon.get("cross_region_migration")
+          == res.migrations and mon.get("region_budget_breach") >= 1,
+          f"federation (ii): coordinator migrations {res.migrations}, "
+          f"monitor {mon.counters}")
+    coord = dict(W0=W0, budget_w=budget[0], migrations=res.migrations,
+                 breaches=mon.get("region_budget_breach"),
+                 region0_w=float(res.breakdown.regional_w[0]),
+                 cut_links=len(ses._cuts_merged()),
+                 assignments=np.bincount(res.assignments,
+                                         minlength=part.G).tolist(),
+                 probe_s=probe_s)
+    def local(g):
+        """The first live service homed and hosted in region ``g``."""
+        return next(s for s in ses.sids if ses._plans[s].home == g
+                    and not ses._plans[s].migrated)
+
+    nid = live.R
+    for k, (g, region) in enumerate(((2, None), (3, None), (2, None),
+                                     (3, 2))):
+        sid = nid + k
+        sv = arrival(sid, g, k)
+        out = call(f"add({sid}, home {g}"
+                   + (f", region={region})" if region is not None else ")"),
+                   lambda: ses.add(sv, sid=sid, region=region))
+        check(out is not None and (region is None
+                                   or ses.assignment(sid) == region),
+              f"federation (ii): add {sid} refused or misplaced")
+    nid += 4
+    for sid in (next(s for s in ses.sids if ses._plans[s].migrated),
+                local(2)):
+        admitted.discard(sid)
+        call(f"remove({sid})", lambda: ses.remove(sid))
+    deps = [local(g) for g in range(part.G)]
+    arr = [(arrival(nid + k, g, k), nid + k)
+           for k, g in enumerate((2, 3, 2, 3))]
+    admitted.difference_update(deps)
+    wr = call("apply_wave(4 arrivals, 4 departures)",
+              lambda: ses.apply_wave(arr, deps))
+    check(sorted(wr.admitted) == [nid + k for k in range(4)]
+          and not wr.rejected and not wr.queued and wr.departed == deps,
+          f"federation (ii): wave {wr}")
+    nid += 4
+    n0 = dict(pp.LAUNCHES)
+    call("defrag()", ses.defrag)
+    check(pp.LAUNCHES["fused_anneal"] > n0["fused_anneal"],
+          "federation (ii): defrag launched no fused_anneal")
+    homed1 = [s for s in ses.sids if ses._plans[s].home == 1]
+    ses.tick(1.0)
+    n_evac = call("fail_region(1)", lambda: ses.fail_region(1))
+    check(set(homed1) <= set(ses.queued_sids)
+          and mon.get("region_failed") == 1,
+          f"federation (ii): fail_region stranded {ses.queued_sids}")
+    ses.tick(2.0)
+    n_back = call("recover_region(1)", lambda: ses.recover_region(1))
+    check(n_back == len(homed1) and not ses.queued_sids
+          and not mon.stranded_since,
+          f"federation (ii): recovered {n_back} of {len(homed1)}")
+    w2 = float(ses.region_watts()[2])
+    shed = call(f"brownout_region(2, {w2 - 1.0})",
+                lambda: ses.brownout_region(2, w2 - 1.0))
+    # within the budget, or best effort: a shed that cannot cool the
+    # region further stops
+    check(mon.get("brownout") == 1
+          and (float(ses.region_watts()[2]) <= w2 - 1.0 or shed >= 1),
+          f"federation (ii): brownout shed {shed}, region 2 at "
+          f"{float(ses.region_watts()[2])} W")
+    call("brownout_end_region(2)", lambda: ses.brownout_end_region(2))
+    sched = EnergyAwareScheduler(topo, session=ses)
+    served = [Service(f"danube-r{g}", DANUBE, tokens_per_s=5.0, n_stages=2,
+                      source_node=int(srcs[g][0])) for g in (2, 3)]
+    for sv in served:
+        sid = ses._next_sid
+        svc_of[sid] = sched._to_vsr(sv)
+        admitted.add(sid)
+        pls = call(f"scheduler add {sv.name}",
+                   lambda: sched.add_service(sv))
+        check(ses.sids[-1] == sid, f"federation (ii): {sv.name} refused")
+    for p, g in zip(pls, (2, 3)):
+        nodes = set(part.regions[g].topo.proc_names)
+        check(p.power_w > 0 and all(n in nodes for n in p.stage_nodes),
+              f"federation (ii): {p.service} left region {g}")
+    check(sched.total_power_w() == ses.power_w(),
+          "federation (ii): scheduler fleet watts")
+    gone = next(s for s, sv in sched._by_sid.items()
+                if sv.name == served[0].name)
+    admitted.discard(gone)
+    pls = call(f"scheduler remove {served[0].name}",
+               lambda: sched.remove_service(served[0].name))
+    check([p.service for p in pls] == [served[1].name],
+          f"federation (ii): scheduler after removal {pls}")
+    launches = dict(pp.LAUNCHES)
+    for name in MAIN_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"federation: kernel {name} was not launched")
+    emit("federation_4x_city_p468",
+         cut=f"(ii) {n_live} live services a region (phase (i) runs "
+             f"{n_batch} in all): a region failure re-solves once per "
+             "stranded or evacuated service",
+         batch=batch_out, launches_i=launches_i, coordinator=coord,
+         calls=calls, evacuated=n_evac,
+         fleet_monitor=ses.fleet_monitor().snapshot(),
+         launches=launches, seconds_total=time.perf_counter() - t_all)
+    return launches
+
+
 # the reference's kernel test shapes (tests/test_kernels.py:12-21):
 # B, H, KH, Sq, Skv, D, causal, window, cap, dtype
 FLASH_CASES = [
@@ -1985,6 +2410,9 @@ def main() -> int:
     launches = phase_faults(boot_X)
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_faults"] = launches[name]
+    launches = phase_federation()
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["launches_federation"] = launches[name]
     for name in ("placement_power", "fused_anneal", "fused_anneal_global"):
         # no single PyTorch call computes either placement function
         kernels[name]["library_ms"] = None

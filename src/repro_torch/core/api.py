@@ -27,8 +27,12 @@
     session.apply_wave([(svc, sid)], departures=[old_sid])   # one wave
     session.fail_node(p); session.recover_node(p)            # a fault
 
-Not yet ported (ROADMAP Queue 1): federation (item 6) and telemetry
-(item 7).
+  * **FederatedSession** / **RegionPartition** (``core/federation.py``):
+    the same facade over several fog regions joined by a shared core
+    (region assignment, a region-batched solve, exact fleet accounting,
+    cross-region migration on regional budgets, region faults).
+
+Not yet ported (ROADMAP Queue 1): telemetry (item 7).
 """
 from __future__ import annotations
 
@@ -45,8 +49,8 @@ from .power import Device, PlacementProblem, SubstrateHealth, build_problem
 from .solvers import SolveResult, solve_portfolio
 from .topology import CFNTopology
 
-__all__ = ["PlacementSpec", "CFNSession", "SolveResult", "SubstrateHealth",
-           "solve_portfolio"]
+__all__ = ["PlacementSpec", "CFNSession", "SolveResult", "solve_portfolio",
+           "FederatedSession", "RegionPartition", "SubstrateHealth"]
 
 _ITEM_7 = "ROADMAP Queue 1, item 7"
 
@@ -74,9 +78,13 @@ class PlacementSpec:
     capacity-increasing event, in ``priority_classes`` classes (0 drains
     first), and ``preempt`` lets a power refusal park a lower-class live
     service instead.  ``defrag_rows_per_tick`` > 0 replaces the periodic
-    full solve with ``defrag_tick`` over that many rows.  The federation
-    fields (``region_*``, ``inter_region_hops``) wait for ROADMAP Queue 1,
-    item 6.  The batch path ignores all of them.
+    full solve with ``defrag_tick`` over that many rows.  The batch path
+    ignores all of them.  Federation (``FederatedSession`` only; a flat
+    session ignores them): ``region_affinity`` / ``region_anti_affinity``
+    steer services to / away from a region (scalar, or per batch row),
+    ``region_power_budget_w`` (scalar or per region) triggers cross-region
+    migration, ``inter_region_hops`` caps the shared-core hops between a
+    service's home and host regions.
     Shape bucketing: ``bucket_rows``/``bucket_cols`` pad R and V to
     power-of-two buckets (``row_bucket_lo``/``col_bucket_lo`` the smallest).
     Solver: ``method`` (one of ``embed.METHODS``), ``effort`` ("quick",
@@ -409,3 +417,9 @@ class CFNSession:
         saving = 1.0 - opt.power / max(base.power, 1e-9)
         return dict(baseline_w=base.power, optimized_w=opt.power,
                     saving_frac=saving, baseline=base, optimized=opt)
+
+
+# The federation layer (bottom import: it builds on PlacementSpec /
+# CFNSession above, and its lazy ``from . import api`` resolves against
+# this module mid-initialization without a cycle).
+from .federation import FederatedSession, RegionPartition  # noqa: E402

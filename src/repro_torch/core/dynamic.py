@@ -186,8 +186,9 @@ class FaultEvent:
     (``target`` = processing-node id), ``fail_link`` / ``recover_link``
     (``target`` = network-element id), ``brownout`` / ``brownout_end``
     (``value`` = the tightened fleet admission budget in watts).  The
-    ``*_region`` kinds belong to a federated session, not yet ported
-    (ROADMAP Queue 1, item 6); a flat engine refuses them."""
+    ``*_region`` kinds (``target`` = region index) belong to a
+    ``core.federation.FederatedSession``, which also reads ``brownout`` /
+    ``brownout_end`` per region; a flat engine refuses them."""
     t: float
     kind: str
     target: int = -1

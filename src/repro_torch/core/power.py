@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 from .topology import CFNTopology
 from .vsr import VSRBatch
@@ -194,6 +195,33 @@ class PlacementProblem:
                           link_src=n(self.link_src), link_dst=n(self.link_dst),
                           link_h=n(self.link_h), fixed_mask=n(self.fixed_mask),
                           fixed_node=n(self.fixed_node))
+
+
+# A problem is a pytree of its field tensors (``route_dense`` only when
+# present) plus the int64 / packed views already computed, so
+# ``torch.func.vmap`` over a stacked problem (leading region axis,
+# ``core/federation.py``) sees each region's problem with its views
+# precomputed instead of rebuilding them on every call.
+_VIEWS = ("route_long", "route_flat", "ls", "ld", "F_flat", "proc_pack")
+
+
+def _problem_flatten(p: PlacementProblem):
+    names = tuple(f.name for f in fields(PlacementProblem)
+                  if getattr(p, f.name) is not None)
+    views = tuple(k for k in _VIEWS if k in p.__dict__)
+    return ([getattr(p, n) for n in names]
+            + [p.__dict__[k] for k in views], (names, views))
+
+
+def _problem_unflatten(children, context) -> PlacementProblem:
+    names, views = context
+    p = PlacementProblem(**dict(zip(names, children[:len(names)])))
+    p.__dict__.update(zip(views, children[len(names):]))
+    return p
+
+
+_pytree.register_pytree_node(PlacementProblem, _problem_flatten,
+                             _problem_unflatten)
 
 
 def problem_from_numpy(arrays: Dict[str, Optional[np.ndarray]],
@@ -400,9 +428,10 @@ class SubstrateHealth:
 
 def _scatter_rows(n: int, idx: torch.Tensor, val: torch.Tensor):
     """[..., n] sums of ``val`` at ``idx`` along the last axis (``idx`` and
-    ``val`` share their shape [..., m])."""
-    out = torch.zeros(idx.shape[:-1] + (n,), dtype=val.dtype,
-                      device=val.device)
+    ``val`` share their shape [..., m]).  The accumulator is made from
+    ``val`` (``new_zeros``), so the sum also runs under ``torch.func.vmap``
+    (the region-batched solve of ``core/federation.py``)."""
+    out = val.new_zeros(idx.shape[:-1] + (n,))
     return out.scatter_add_(-1, idx, val)
 
 
@@ -441,7 +470,7 @@ def _loads(problem: PlacementProblem, X_flat: torch.Tensor,
     lam = _lam_from_links(p, X_flat)
     tm = None
     if with_tm:
-        tm = torch.zeros(p.P * p.P, dtype=h.dtype, device=h.device)
+        tm = h.new_zeros(p.P * p.P)
         tm = tm.index_add_(0, a * p.P + b, h).reshape(p.P, p.P)
     return omega, tm, lam, theta
 
@@ -740,10 +769,14 @@ def _delta_objective(p: PlacementProblem, omega, theta, lam,
 
 def _one(problem: PlacementProblem, state: PlacementState, r: int, v: int,
          p_new):
-    """Batch-of-one operands of a single-state move."""
+    """Batch-of-one operands of a single-state move; ``r`` / ``v`` are ints
+    or (under ``torch.func.vmap``) int tensors."""
     dev = problem.device
-    # filled on the device: a host-to-device copy would wait for the queue
-    j = torch.full((1,), r * problem.V + v, device=dev)
+    jv = r * problem.V + v
+    # an int is filled on the device: a host-to-device copy would wait for
+    # the queue
+    j = (jv.long().reshape(1) if torch.is_tensor(jv)
+         else torch.full((1,), jv, device=dev))
     pn = torch.as_tensor(p_new, device=dev).long().reshape(1)
     return (state.X.reshape(1, -1), state.omega[None], state.theta[None],
             state.lam[None], j, pn)

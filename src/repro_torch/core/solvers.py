@@ -187,21 +187,29 @@ def _project_eligible(problem: PlacementProblem, X,
 # Coordinate descent (exact single-VM moves, scored by the delta engine)
 # ---------------------------------------------------------------------------
 
+def _sweep_step(problem: PlacementProblem, aux: PlacementAux, state, r, v,
+                eligible: Optional[torch.Tensor] = None):
+    """One coordinate move: VM (r, v) to its best node (``delta_sweep``
+    scores every destination at once; ``eligible`` [R, P] masks them per
+    service row).  ``r`` / ``v`` are ints, or int tensors where the
+    region-batched sweep (``core/federation.py``) vmaps this step.
+    Returns the new state and the best objective."""
+    obj_all = delta_sweep(problem, aux, state, r, v)
+    if eligible is not None:
+        obj_all = torch.where(eligible[r], obj_all,
+                              torch.full_like(obj_all, _INELIGIBLE))
+    best = torch.argmin(obj_all)
+    return apply_move(problem, aux, state, r, v, best), obj_all[best]
+
+
 def _sweep(problem: PlacementProblem, aux: PlacementAux, state,
            positions: np.ndarray, eligible: Optional[torch.Tensor] = None):
-    """One pass over the given free VM positions [M, 2]; each VM moved to
-    its best node (``delta_sweep`` scores every destination at once).
-    ``eligible`` [R, P] masks destinations per service row.  Returns the
-    new state and the last position's best objective."""
+    """One pass over the given free VM positions [M, 2] (``_sweep_step``
+    each).  Returns the new state and the last position's best
+    objective."""
     last = None
     for r, v in positions.tolist():
-        obj_all = delta_sweep(problem, aux, state, r, v)
-        if eligible is not None:
-            obj_all = torch.where(eligible[r], obj_all,
-                                  torch.full_like(obj_all, _INELIGIBLE))
-        best = torch.argmin(obj_all)
-        state = apply_move(problem, aux, state, r, v, best)
-        last = obj_all[best]
+        state, last = _sweep_step(problem, aux, state, r, v, eligible)
     return state, last
 
 
@@ -686,6 +694,23 @@ def _pow2(n: int, lo: int = 2) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# The region-batched portfolio (stack_problems / stack_auxes /
+# solve_portfolio_batched, the primitives above vmapped over a leading
+# region axis) lives in core.federation, its only consumer; lazy aliases
+# keep ``solvers.solve_portfolio_batched`` imports working, as in the JAX
+# package.
+_FEDERATION_MOVED = ("solve_portfolio_batched", "stack_problems",
+                     "stack_auxes", "_pad_links", "_solve_regions",
+                     "_solve_regions_loop", "_BATCH_EFFORT")
+
+
+def __getattr__(name: str):
+    if name in _FEDERATION_MOVED:
+        from . import federation
+        return getattr(federation, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def repair_to_eligible(problem: PlacementProblem, res: SolveResult,

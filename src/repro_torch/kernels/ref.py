@@ -119,6 +119,31 @@ def placement_objective_f64(problem: PlacementProblem, X) -> float:
     return float(per_net.sum() + per_proc.sum() + PENALTY * violation)
 
 
+def placement_objective_f64_links(problem: PlacementProblem, X) -> float:
+    """``placement_objective_f64`` accumulated link by link on the
+    problem's host arrays (``PlacementProblem.host``): each virtual link's
+    bitrate added at its two end nodes and along its route's <= K network
+    nodes.  The same float64 function without the [L, P] one-hots and the
+    [P, P] traffic matrix, so it evaluates a merged federated substrate
+    (P = 1864) in well under a second and reads no device tensor but the
+    per-node parameters."""
+    p, h = problem, problem.host
+    X = np.where(h.fixed_mask, h.fixed_node, _np(X)).reshape(-1)
+    omega = np.bincount(X, np.asarray(h.F, np.float64).reshape(-1),
+                        minlength=p.P)
+    a, b = X[h.link_src], X[h.link_dst]
+    hh = np.asarray(h.link_h, np.float64)
+    theta = (np.bincount(a, hh, minlength=p.P)
+             + np.bincount(b, hh * (a != b), minlength=p.P))
+    ids = h.route_idx[a, b]                                   # [L, K]
+    lam = np.bincount(ids.reshape(-1), np.repeat(hh, ids.shape[1]),
+                      minlength=p.N + 1)[:p.N]
+    per_net, per_proc, violation = eq_terms_f64(
+        {k: getattr(p, k) for k in _PP_KEYS},
+        {k: getattr(p, k) for k in _NN_KEYS}, omega, theta, lam)
+    return float(per_net.sum() + per_proc.sum() + PENALTY * violation)
+
+
 def placement_delta_ref(problem: PlacementProblem, X, r: int, v: int,
                         p_new: int) -> float:
     """Float64 oracle for a single-VM move: objective(X') - objective(X)."""

@@ -203,7 +203,12 @@ class EnergyAwareScheduler:
                     self.queued.append(svc.name)
 
     def _session_queued_sids(self) -> set:
-        return set(self.session.engine.queued_sids)
+        """Parked sids: a flat session's engine queue, or a federated
+        session's region queues and fault queue."""
+        eng = getattr(self.session, "engine", None)
+        if eng is not None:   # flat CFNSession
+            return set(eng.queued_sids)
+        return set(self.session.queued_sids)
 
     def defrag(self) -> List[Placement]:
         """Force a full-portfolio re-pack of the current fleet (the spec's

@@ -216,7 +216,7 @@ def test_import_purity():
     code = ("import sys, repro_torch, repro_torch.api, "
             "repro_torch.kernels.ops, repro_torch.core.embed, "
             "repro_torch.core.dynamic, repro_torch.core.solvers, "
-            "repro_torch.paper_figures, "
+            "repro_torch.core.federation, repro_torch.paper_figures, "
             "repro_torch.configs, repro_torch.models.model, "
             "repro_torch.models.costs, repro_torch.serve.engine, "
             "repro_torch.serve.cache\n"
