@@ -32,7 +32,8 @@
     (region assignment, a region-batched solve, exact fleet accounting,
     cross-region migration on regional budgets, region faults).
 
-Not yet ported (ROADMAP Queue 1): telemetry (item 7).
+Either session takes ``telemetry=`` (a ``repro_torch.telemetry.Telemetry``):
+spans, the energy ledger and the shape and launch attribution.
 """
 from __future__ import annotations
 
@@ -51,8 +52,6 @@ from .topology import CFNTopology
 
 __all__ = ["PlacementSpec", "CFNSession", "SolveResult", "solve_portfolio",
            "FederatedSession", "RegionPartition", "SubstrateHealth"]
-
-_ITEM_7 = "ROADMAP Queue 1, item 7"
 
 _EFFORTS = ("quick", "standard", "high")
 _BACKENDS = ("auto", "delta", "fused", "full")
@@ -211,22 +210,22 @@ class CFNSession:
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
     default), advanced by every solve.  ``monitor`` (a
     ``fault.PlacementMonitor``) receives the engine's admission, fault and
-    strand events.  ``telemetry`` is not ported yet: anything but ``None``
-    raises.
+    strand events; ``telemetry`` (a ``telemetry.Telemetry``) its spans,
+    energy ledger and attribution, and an attached monitor mirrors its
+    counters there too.
     """
 
     def __init__(self, topo: CFNTopology,
                  spec: Optional[PlacementSpec] = None,
                  generator: Optional[torch.Generator] = None,
                  device: Device = None, monitor=None, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "CFNSession(telemetry=...) needs the telemetry plane, not "
-                f"yet ported ({_ITEM_7})")
         self.topo = topo
         self._engine = dynamic.OnlineEmbedder(
             topo, spec=spec if spec is not None else PlacementSpec(),
-            generator=generator, device=device, monitor=monitor)
+            generator=generator, device=device, monitor=monitor,
+            telemetry=telemetry)
+        if monitor is not None and telemetry is not None:
+            monitor.attach_telemetry(telemetry)
 
     # -- configuration / introspection ------------------------------------
     def attach_monitor(self, monitor) -> None:
@@ -234,6 +233,20 @@ class CFNSession:
         ``fault.PlacementMonitor`` receiving this session's admission,
         fault and strand events."""
         self._engine.monitor = monitor
+        if monitor is not None and self.telemetry is not None:
+            monitor.attach_telemetry(self.telemetry)
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Attach (or replace) the ``telemetry.Telemetry`` receiving this
+        session's spans, energy ledger and attribution; an attached
+        monitor mirrors its counters there too."""
+        self._engine.attach_telemetry(telemetry)
+        if self._engine.monitor is not None and telemetry is not None:
+            self._engine.monitor.attach_telemetry(telemetry)
+
+    @property
+    def telemetry(self):
+        return self._engine.telemetry
 
     @property
     def spec(self) -> PlacementSpec:

@@ -27,7 +27,9 @@ both halves of that regime, as the JAX package does:
     problem under ``spec.health``: services that lost their source are
     stranded in the queue, displaced ones mass re-embedded, and a recovery
     drains the queue.  A ``fault.PlacementMonitor`` counts admission,
-    fault and strand events and integrates stranded service time.
+    fault and strand events and integrates stranded service time, and a
+    ``telemetry.Telemetry`` records spans on the entry points, a solve
+    event and an energy-ledger tick per commit.
 
 Random draws come from one CPU ``torch.Generator`` (seed 1 by default),
 advanced by every solve.
@@ -36,8 +38,10 @@ Times are in hours throughout; rates in services/hour.
 """
 from __future__ import annotations
 
+import functools
 import heapq
 import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Sequence, Tuple)
@@ -385,6 +389,22 @@ def _bucket_rows(n: int, lo: int = 2) -> int:
     return solvers._pow2(n, lo=lo)
 
 
+def _traced(name: str):
+    """Wrap an engine entry point in a telemetry span (no-op -- not even a
+    context manager allocation -- when no ``Telemetry`` is attached, so
+    the disabled path stays bit-identical and free)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            tel = self.telemetry
+            if tel is None:
+                return fn(self, *args, **kwargs)
+            with tel.span(name):
+                return fn(self, *args, **kwargs)
+        return wrapper
+    return deco
+
+
 class OnlineEmbedder:
     """Live CFN embedding under service churn, on one device.
 
@@ -420,7 +440,10 @@ class OnlineEmbedder:
     engine clock (``tick``) stamps strand windows for ``monitor`` (a
     ``fault.PlacementMonitor``), which also counts rejections, budget
     violations, preemptions, faults and brownouts at the JAX package's
-    points, with its detail strings.
+    points, with its detail strings.  ``telemetry`` (a
+    ``telemetry.Telemetry``) gets spans on the entry points, a solve event
+    and an energy-ledger tick per commit (with the per-tenant split every
+    ``attribution_every`` commits) and the shape and launch attribution.
 
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
@@ -436,7 +459,8 @@ class OnlineEmbedder:
                  admit_power_budget_w: Optional[float] = None,
                  admit_violation_tol: Optional[float] = None,
                  queue_rejected: bool = False,
-                 spec=None, device: Device = None, monitor=None):
+                 spec=None, device: Device = None, monitor=None,
+                 telemetry=None):
         if spec is None:
             from . import api
             warnings.warn(
@@ -458,6 +482,13 @@ class OnlineEmbedder:
         # a fault.PlacementMonitor (optional): admission, fault and strand
         # events are counted there instead of being dropped
         self.monitor = monitor
+        # a telemetry.Telemetry (optional): spans on the entry points,
+        # energy-ledger ticks and convergence traces on commits, shape and
+        # launch attribution.  None keeps every instrumented path a no-op.
+        self.telemetry = None
+        self._commits_since_attr = 0
+        if telemetry is not None:
+            self.attach_telemetry(telemetry)
         self._gen = (solvers.default_generator(1) if generator is None
                      else generator)
         self._add_kw = dict(sweeps=spec.sweeps,
@@ -538,6 +569,21 @@ class OnlineEmbedder:
         """The row's OWN VM count (columns beyond it are concat padding)."""
         return self._vsrs[row].V
 
+    def attach_telemetry(self, tel) -> None:
+        """Attach (or replace) a ``telemetry.Telemetry``: spans, energy
+        ledger, convergence traces and attribution start flowing from the
+        next event.  Pass ``None`` to detach."""
+        self.telemetry = tel
+        if tel is not None:
+            if tel.ledger.tiers is None:
+                from ..telemetry import tiers_of
+                tel.ledger.set_tiers(tiers_of(self.topo))
+            tel.attach_traces()
+
+    def _span(self, name: str, **attrs):
+        tel = self.telemetry
+        return nullcontext() if tel is None else tel.span(name, **attrs)
+
     def clone(self) -> "OnlineEmbedder":
         """A detached copy sharing the (immutable) arrays: events applied to
         the clone leave this engine untouched.  The clone draws from a copy
@@ -614,11 +660,16 @@ class OnlineEmbedder:
             self._problem = h.degrade(self._problem)
 
     def _resolve_kw(self, base: dict) -> dict:
-        """Per-event solver kwargs: the sweep list padded to the bucket."""
+        """Per-event solver kwargs: the sweep list padded to the bucket,
+        plus convergence-trace recording when telemetry wants it (host-side
+        materialization only: the anneal loop always computes the trace,
+        so the flag changes no solve)."""
         kw = dict(base)
         if self.bucket_rows and self._problem is not None:
             kw["pad_positions_to"] = int(
                 self._problem.R * (self._problem.V - 1))
+        if self.telemetry is not None and self.telemetry.convergence:
+            kw["record_conv"] = True
         return kw
 
     def _drop_row(self, row: int) -> None:
@@ -647,6 +698,31 @@ class OnlineEmbedder:
         self.stats.append(OnlineStats(
             event=event, method=res.method, objective=res.objective,
             power_w=res.power, n_live=self.n_live))
+        if self.telemetry is not None:
+            self._telemetry_commit(res, event)
+
+    def _telemetry_commit(self, res: solvers.SolveResult,
+                          event: str) -> None:
+        """Record one commit into the attached telemetry: a solve event
+        (with the convergence trace when recorded), an energy-ledger tick
+        from the commit's breakdown, and -- every
+        ``telemetry.attribution_every``-th commit -- the exact per-tenant
+        ``power.attribute_power`` split (an O(R) host loop, so it runs on
+        a cadence, never per commit by default)."""
+        tel = self.telemetry
+        per_tenant = None
+        every = tel.attribution_every
+        if every:
+            self._commits_since_attr += 1
+            if self._commits_since_attr >= every:
+                self._commits_since_attr = 0
+                per = power.attribute_power(self._problem, self._X,
+                                            res.breakdown,
+                                            n_rows=self.n_live)
+                per_tenant = {int(s): float(w)
+                              for s, w in zip(self._sids, per)}
+        tel.record_commit(event=event, res=res, t=self._now,
+                          n_live=self.n_live, per_tenant=per_tenant)
 
     def _full_solve(self, event: str,
                     incumbent: Optional[solvers.SolveResult] = None
@@ -727,6 +803,7 @@ class OnlineEmbedder:
         return prio
 
     # -- the online API ---------------------------------------------------
+    @_traced("bootstrap")
     def bootstrap(self, services: Sequence[vsr.VSRBatch],
                   sids: Optional[Sequence[int]] = None,
                   X0: Optional[np.ndarray] = None,
@@ -821,6 +898,7 @@ class OnlineEmbedder:
                 or self.admit_power_budget_w is not None
                 or self.admit_violation_tol is not None)
 
+    @_traced("add")
     def add(self, service: vsr.VSRBatch, sid: Optional[int] = None,
             priority: Optional[int] = None, _retry: bool = False,
             _qseq: Optional[int] = None) -> Optional[solvers.SolveResult]:
@@ -933,6 +1011,7 @@ class OnlineEmbedder:
             power_w=self.power_w(), n_live=self.n_live))
         return vsid
 
+    @_traced("remove")
     def remove(self, sid: int,
                _drain: bool = True) -> Optional[solvers.SolveResult]:
         """Retire a service: detach its loads in O(V*(N+P)), then let the
@@ -975,6 +1054,7 @@ class OnlineEmbedder:
         return res
 
     # -- wave-batched churn ------------------------------------------------
+    @_traced("apply_wave")
     def apply_wave(self, arrivals: Sequence = (),
                    departures: Sequence[int] = ()) -> WaveResult:
         """Apply one churn WAVE -- a tick's worth of arrivals and
@@ -1109,9 +1189,20 @@ class OnlineEmbedder:
                 row_map=surv + [-1] * (self._problem.R - len(surv)))
         # phase 3: ONE batched re-solve for the whole wave
         kw = self._add_kw if new_rows else self._remove_kw
-        res = solvers.resolve_wave(self._problem, st, new_rows,
-                                   gen=self._gen, spec=self.spec,
-                                   **self._resolve_kw(kw))
+        wave_bucket = 0
+        if self.telemetry is not None and new_rows:
+            n_pos = int((~self._problem.host.fixed_mask[new_rows]).sum())
+            wave_bucket = solvers._pow2(n_pos) if n_pos else 0
+        with self._span("resolve_wave", n_arrive=len(new_rows),
+                        n_depart=len(deps), wave_bucket=wave_bucket,
+                        r_bucket=int(self._problem.R)) as sp:
+            res = solvers.resolve_wave(self._problem, st, new_rows,
+                                       gen=self._gen, spec=self.spec,
+                                       **self._resolve_kw(kw))
+            if self.telemetry is not None:
+                # the result is on the host already, so the span closes
+                # on completed device work without an extra sync
+                sp.attrs["objective"] = float(res.objective)
         # phase 4: admission, per arrival in priority order
         if new_rows and self._admission_active:
             refused = self._wave_refusals(res, arr, new_rows,
@@ -1227,6 +1318,7 @@ class OnlineEmbedder:
                 self.monitor.unstrand(sid, self._now, re_embedded=False)
         return removed
 
+    @_traced("defrag")
     def defrag(self) -> Optional[solvers.SolveResult]:
         """Force a full re-pack of the current service set (keeps the live
         placement when the full solve cannot beat it)."""
@@ -1234,6 +1326,7 @@ class OnlineEmbedder:
             return None
         return self._full_solve("defrag", incumbent=self._result)
 
+    @_traced("defrag_tick")
     def defrag_tick(self, rows: Optional[int] = None
                     ) -> Optional[solvers.SolveResult]:
         """Amortized background defrag: ONE targeted sweep over the free
@@ -1444,6 +1537,7 @@ class OnlineEmbedder:
                                detail=f"budget_w={prev_budget}")
         self._drain_queue()
 
+    @_traced("apply_fault")
     def apply_fault(self, ev: FaultEvent):
         """Dispatch one ``FaultEvent`` to the handlers above (region kinds
         belong to a federated session; a flat engine refuses them)."""

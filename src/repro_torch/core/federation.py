@@ -42,12 +42,15 @@ and the online engine underneath, as in the JAX package:
     delegates to the flat ``CFNSession``, so it is the flat session.
 
 Admission rejections, regional budget breaches, migrations, region faults
-and strands go to a ``fault.PlacementMonitor`` when one is attached.  The
-coordinator's telemetry spans wait for ROADMAP Queue 1, item 7.
+and strands go to a ``fault.PlacementMonitor`` when one is attached; with
+a ``telemetry.Telemetry`` the coordinator's calls are spanned and each
+takes one fleet-exact energy-ledger sample (regions plus ``inter_region``
+equal to the total).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from dataclasses import dataclass, field, fields
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -67,7 +70,6 @@ __all__ = ["Region", "RegionPartition", "ServicePlan", "FederatedBreakdown",
            "solve_portfolio_batched", "stack_problems", "stack_auxes"]
 
 _REGION_RE = re.compile(r"^r(\d+)_")
-_ITEM_7 = "ROADMAP Queue 1, item 7"
 
 
 def _region_tag(name: str) -> int:
@@ -596,6 +598,7 @@ _anneal_scans = vmap(solvers._anneal_scan_delta,
 _objectives = vmap(power.objective)
 
 
+@solvers.count_traces("solve_regions")
 def _solve_regions(problems, auxes, X0, eligible, positions, rand_chains,
                    j_prop, p_prop, u_prop, temps, n_sweeps: int):
     """One lockstep program over the stacked region axis: init -> n_sweeps
@@ -775,6 +778,27 @@ class FederatedResult(NamedTuple):
         return self.breakdown.total_w
 
 
+def _traced(name: str, ledger: bool = False):
+    """Span a ``FederatedSession`` coordinator method when telemetry is
+    attached (multi-region only -- the flat path delegates to a flat
+    session whose engine records its own spans); ``ledger=True``
+    additionally takes one fleet-exact energy sample after the call.
+    The no-telemetry path stays a plain call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            tel = self.telemetry
+            if tel is None or self._flat is not None:
+                return fn(self, *args, **kwargs)
+            with tel.span(name):
+                out = fn(self, *args, **kwargs)
+            if ledger:
+                self._record_fleet_energy(name)
+            return out
+        return wrapper
+    return deco
+
+
 class FederatedSession:
     """Hierarchical multi-region placement: one facade over G regions.
 
@@ -796,8 +820,8 @@ class FederatedSession:
     ``device=None`` means the CUDA card (and raises without one); random
     draws come from ``generator`` (a CPU ``torch.Generator``, seed 1 by
     default): each region engine and each batched solve gets a generator
-    seeded from it.  ``telemetry`` is not ported yet: anything but
-    ``None`` raises.
+    seeded from it.  ``telemetry`` (a ``telemetry.Telemetry``): see
+    ``attach_telemetry``.
     """
 
     MAX_COORD_PASSES = 4
@@ -808,10 +832,6 @@ class FederatedSession:
                  partition: Optional[RegionPartition] = None,
                  telemetry=None):
         from . import api as api_mod
-        if telemetry is not None:
-            raise NotImplementedError(
-                "FederatedSession(telemetry=...) needs the telemetry plane, "
-                f"not yet ported ({_ITEM_7})")
         if partition is None:
             partition = (topo if isinstance(topo, RegionPartition)
                          else RegionPartition.from_topology(topo))
@@ -843,6 +863,9 @@ class FederatedSession:
             self._flat.engine.monitor = monitor
         else:
             self._check_spec_supported()
+        self.telemetry = None
+        if telemetry is not None:
+            self.attach_telemetry(telemetry)
 
     # -- config helpers ---------------------------------------------------
     def attach_monitor(self, monitor) -> None:
@@ -854,6 +877,60 @@ class FederatedSession:
             self._flat.attach_monitor(monitor)
         for eng in self._engines.values():
             eng.monitor = monitor
+        if (monitor is not None and self.telemetry is not None
+                and hasattr(monitor, "attach_telemetry")):
+            monitor.attach_telemetry(self.telemetry)
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Attach a ``telemetry.Telemetry`` to the federation.
+
+        Single-region: delegates wholesale to the flat ``CFNSession`` --
+        spans, convergence traces and the energy ledger come from its
+        engine, as on the flat path.  Multi-region: the COORDINATOR is the
+        instrumented layer -- spans around ``solve`` / ``add`` / ``remove``
+        / ``apply_wave`` / ``apply_fault``, one fleet-exact ledger sample
+        (per-region watt splits from ``breakdown()``) after each, and the
+        shape and launch attribution.  Region engines deliberately do NOT
+        tick the shared ledger: their commit samples would carry regional
+        (not fleet) totals and corrupt the fleet watt series."""
+        self.telemetry = telemetry
+        if telemetry is None:
+            if self._flat is not None:
+                self._flat.attach_telemetry(None)
+            return
+        if self._flat is not None:
+            self._flat.attach_telemetry(telemetry)
+            return
+        if telemetry.ledger.tiers is None:
+            from ..telemetry import tiers_of
+            telemetry.ledger.set_tiers(tiers_of(self.topo))
+        telemetry.attach_traces()
+        if (self.monitor is not None
+                and hasattr(self.monitor, "attach_telemetry")):
+            self.monitor.attach_telemetry(telemetry)
+
+    def _record_fleet_energy(self, event: str) -> None:
+        """One fleet-exact ledger sample (multi-region path only): total,
+        Eq.(1) networking and Eq.(2) processing watts with per-region
+        splits, all from the exact ``federated_breakdown`` accounting."""
+        tel = self.telemetry
+        if tel is None or self._flat is not None:
+            return
+        try:
+            bd = self.breakdown()
+        except ValueError:   # empty session (everything departed/refused)
+            return
+        per_region = {int(g): float(w)
+                      for g, w in enumerate(np.asarray(bd.regional_w))}
+        # shared-core watts are in no region: keep the splits summing to
+        # the exact fleet total
+        per_region["inter_region"] = float(bd.inter_region_w)
+        tel.ledger.tick(
+            self._now, total_w=float(bd.total_w),
+            net_w=float(np.asarray(bd.per_net_w).sum()),
+            proc_w=float(np.asarray(bd.per_proc_w).sum()),
+            per_region=per_region, event=event)
+        tel.inc(f"commit.{event}")
 
     def _check_spec_supported(self) -> None:
         if self.spec.eligible is not None or (
@@ -1079,6 +1156,7 @@ class FederatedSession:
         return out
 
     # -- batch path -------------------------------------------------------
+    @_traced("federated_solve", ledger=True)
     def solve(self, vsrs: Optional[vsr_mod.VSRBatch] = None):
         """Embed a whole VSR batch across the federation (empty session),
         or re-pack the live regions (no batch: per-region defrag).
@@ -1292,6 +1370,7 @@ class FederatedSession:
                 raise ValueError(f"{call} with a sequence {kind} is "
                                  f"unsupported{hint}")
 
+    @_traced("federated_add", ledger=True)
     def add(self, service: vsr_mod.VSRBatch, sid: Optional[int] = None,
             region: Optional[int] = None, priority: Optional[int] = None):
         """Admit one service: an incremental churn event on its region's
@@ -1415,6 +1494,7 @@ class FederatedSession:
             self._engines[plan.home].remove(sid)
         self._forget(sid)
 
+    @_traced("federated_remove", ledger=True)
     def remove(self, sid: int):
         """Retire a service from its region engine(s) (body + stub)."""
         if self._flat:
@@ -1428,6 +1508,7 @@ class FederatedSession:
         self._forget(sid)
         return res
 
+    @_traced("federated_wave", ledger=True)
     def apply_wave(self, arrivals: Sequence = (),
                    departures: Sequence[int] = ()):
         """Apply one churn wave across the federation.
@@ -1716,6 +1797,7 @@ class FederatedSession:
             self.monitor.unstrand(sid, self._now, re_embedded=False)
         return removed
 
+    @_traced("federated_fault", ledger=True)
     def apply_fault(self, ev: dynamic.FaultEvent):
         """Dispatch one ``FaultEvent`` at region granularity (node / link
         kinds belong to flat engines; the federated substrate faults whole

@@ -32,6 +32,7 @@ Units: W, GFLOPS, Mbps (converted to Gbps where eps/EL are W per Gbps).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass, fields
@@ -163,6 +164,17 @@ class PlacementProblem:
     @functools.cached_property
     def route_flat(self) -> torch.Tensor:        # [P*P, K] int64
         return self.route_long.reshape(self.P * self.P, self.K)
+
+    @functools.cached_property
+    def route_counts(self) -> torch.Tensor:      # [P*P, N+1] float32
+        """Visits of route (a, b) to each network node (column N: the
+        sentinel), for ``_lam_from_tm`` on CUDA.  Sums of ones are exact
+        in any order, so the atomic scatter builds them reproducibly."""
+        counts = torch.zeros(self.P * self.P, self.N + 1,
+                             device=self.device)
+        return counts.scatter_add_(1, self.route_flat,
+                                   torch.ones_like(self.route_flat,
+                                                   dtype=counts.dtype))
 
     @functools.cached_property
     def ls(self) -> torch.Tensor:                # [L] int64
@@ -426,13 +438,56 @@ class SubstrateHealth:
 # Full evaluation
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def fixed_order(x: torch.Tensor):
+    """A context under which scatter and index sums into ``x`` add in a
+    fixed order.  On CUDA, ``scatter_add_`` and ``index_add_`` add with
+    atomics in no fixed order, so float32 loads of one placement could
+    differ in their last bit from call to call, and a sweep's argmin tie
+    break the other way; torch's deterministic algorithms sum them in a
+    fixed order (a stable sort by index) instead.  The CPU's sums are
+    sequential already."""
+    if x.is_cuda and not torch.are_deterministic_algorithms_enabled():
+        return _deterministic()
+    return contextlib.nullcontext()
+
+
+# On CUDA a sum of at most this many (index, slot) pairs is one reduction
+# over its one-hot product (a few kernels and <= 64 MB, against the sort
+# of ``fixed_order``'s path: the delta engine's per-move sums of <= 2 D K
+# terms, a placement's loads, a few dozen chains' at R = 64); a larger
+# one sorts.
+ONEHOT_MAX = 1 << 24
+
+
+def _onehot_rows(n: int, idx: torch.Tensor, val: torch.Tensor):
+    """``_scatter_rows`` as one reduction over the one-hot product
+    [..., m, n]: its summation order is the reduction's, fixed."""
+    hit = idx[..., None] == torch.arange(n, device=idx.device)
+    return (val[..., None] * hit).sum(-2)
+
+
 def _scatter_rows(n: int, idx: torch.Tensor, val: torch.Tensor):
     """[..., n] sums of ``val`` at ``idx`` along the last axis (``idx`` and
-    ``val`` share their shape [..., m]).  The accumulator is made from
-    ``val`` (``new_zeros``), so the sum also runs under ``torch.func.vmap``
-    (the region-batched solve of ``core/federation.py``)."""
+    ``val`` share their shape [..., m]), in a fixed order: sequential on
+    the CPU; on CUDA a reduction over the one-hot product up to
+    ``ONEHOT_MAX`` pairs, else a scatter under ``fixed_order``.  The
+    accumulator is made from ``val``, so the sum also runs under
+    ``torch.func.vmap`` (the region-batched solve of
+    ``core/federation.py``)."""
+    if val.is_cuda and idx.numel() * n <= ONEHOT_MAX:
+        return _onehot_rows(n, idx, val)
     out = val.new_zeros(idx.shape[:-1] + (n,))
-    return out.scatter_add_(-1, idx, val)
+    with fixed_order(out):
+        return out.scatter_add_(-1, idx, val)
 
 
 def _lam_from_links(problem: PlacementProblem,
@@ -471,7 +526,8 @@ def _loads(problem: PlacementProblem, X_flat: torch.Tensor,
     tm = None
     if with_tm:
         tm = h.new_zeros(p.P * p.P)
-        tm = tm.index_add_(0, a * p.P + b, h).reshape(p.P, p.P)
+        with fixed_order(tm):
+            tm = tm.index_add_(0, a * p.P + b, h).reshape(p.P, p.P)
     return omega, tm, lam, theta
 
 
@@ -480,9 +536,14 @@ def _lam_from_tm(problem: PlacementProblem,
     """lambda [..., N] from traffic matrices tm [..., P, P]: each (a, b)
     entry added at the <= K node ids of route (a, b) (sentinel ids land in
     the dropped N-th slot).  Takes soft (fractional) traffic and is
-    differentiable."""
+    differentiable.  On CUDA the P^2 K terms are one float32 product with
+    ``route_counts``, whose sums run in a fixed order (sorting them every
+    call, as ``fixed_order`` would, made ``relax`` ~30x slower); a caller
+    that enables TF32 matmuls rounds its operands."""
     p = problem
     lead = tm.shape[:-2]
+    if tm.is_cuda:
+        return (tm.reshape(*lead, p.P * p.P) @ p.route_counts)[..., :p.N]
     w = tm[..., None].expand(*lead, p.P, p.P, p.K)
     lam = torch.zeros(*lead, p.N + 1, dtype=tm.dtype, device=tm.device)
     lam.index_add_(-1, p.route_flat.reshape(-1), w.reshape(*lead, -1))

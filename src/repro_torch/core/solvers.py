@@ -27,12 +27,15 @@ the tests feed them the JAX package's streams.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 from .power import (PlacementAux, PlacementProblem, PlacementState,
                     PowerBreakdown, _delta_objective, _move_core, apply_move,
@@ -63,6 +66,82 @@ class SolveResult:
     @property
     def feasible(self) -> bool:
         return float(self.breakdown.violation) <= 1e-6
+
+
+# Fresh-shape counters of the counted solver entries: the port compiles
+# nothing at run time, so ``TRACE_COUNTS[name]`` ticks once per abstract
+# shape fingerprint an entry sees in the process -- exactly the set a jit
+# cache (the JAX package's ``count_traces``) would trace.
+TRACE_COUNTS: Dict[str, int] = {}
+
+# Shape-attribution hooks (``repro_torch.telemetry``): called once per fresh
+# fingerprint with (entry name, abstract shape fingerprint).
+TRACE_HOOKS: List = []
+
+_TRACE_SEEN: Dict[str, set] = {}
+_FINGERPRINT_MAX_LEAVES = 16
+
+
+def clear_trace_cache() -> None:
+    """Forget every fingerprint seen (``jax.clear_caches`` for the
+    counted entries): each entry's next shape counts as fresh again."""
+    _TRACE_SEEN.clear()
+
+
+def _leaves(a) -> list:
+    """Pytree leaves of an argument; a dataclass (``PlacementProblem``)
+    by its fields, so cached views never change its fingerprint."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return [getattr(a, f.name) for f in dataclasses.fields(a)
+                if getattr(a, f.name) is not None]
+    return [x for x in _pytree.tree_leaves(a) if x is not None]
+
+
+def _trace_fingerprint(args, kwargs) -> str:
+    """Abstract shape fingerprint of a counted call's arguments: per leaf
+    ``dtype[shape]`` (``.shape`` / ``.dtype`` reads only), scalars by
+    repr, other statics by type name; at most
+    ``_FINGERPRINT_MAX_LEAVES`` leaves an argument."""
+    parts = []
+    for a in list(args) + [kwargs[k] for k in sorted(kwargs)]:
+        leaves = _leaves(a)
+        if not leaves:
+            parts.append("()" if a is None else type(a).__name__)
+            continue
+        sub = []
+        for leaf in leaves[:_FINGERPRINT_MAX_LEAVES]:
+            shp = getattr(leaf, "shape", None)
+            if shp is not None:
+                dt = str(getattr(leaf, "dtype", "?")).replace("torch.", "")
+                sub.append(f"{dt}[{','.join(str(d) for d in shp)}]")
+            else:
+                sub.append(repr(leaf) if isinstance(
+                    leaf, (bool, int, float, str)) else type(leaf).__name__)
+        if len(leaves) > _FINGERPRINT_MAX_LEAVES:
+            sub.append(f"+{len(leaves) - _FINGERPRINT_MAX_LEAVES}")
+        tag = type(a).__name__
+        parts.append("x".join(sub) if tag in ("Tensor", "ndarray")
+                     and len(sub) == 1 else f"{tag}({','.join(sub)})")
+    return ";".join(parts)
+
+
+def count_traces(name: str):
+    """Mark a counted solver entry: ``TRACE_COUNTS[name]`` ticks once per
+    fresh abstract shape fingerprint of its arguments, not per call, and
+    every hook in ``TRACE_HOOKS`` sees (name, fingerprint) then."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            fp = _trace_fingerprint(args, kwargs)
+            mine = _TRACE_SEEN.setdefault(name, set())
+            if fp not in mine:
+                mine.add(fp)
+                TRACE_COUNTS[name] = TRACE_COUNTS.get(name, 0) + 1
+                for hook in list(TRACE_HOOKS):
+                    hook(name, fp)
+            return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 
 def default_generator(seed: int = 0) -> torch.Generator:
@@ -202,6 +281,7 @@ def _sweep_step(problem: PlacementProblem, aux: PlacementAux, state, r, v,
     return apply_move(problem, aux, state, r, v, best), obj_all[best]
 
 
+@count_traces("sweep")
 def _sweep(problem: PlacementProblem, aux: PlacementAux, state,
            positions: np.ndarray, eligible: Optional[torch.Tensor] = None):
     """One pass over the given free VM positions [M, 2] (``_sweep_step``
@@ -449,6 +529,7 @@ def _accept(delta, u, T):
                                         / torch.clamp_min(T, 1e-9)))
 
 
+@count_traces("anneal_delta")
 def _anneal_scan_delta(problem: PlacementProblem, aux: PlacementAux,
                        Xc, j_prop, p_prop, u_prop, temps):
     """Metropolis chains on incremental per-chain load state.
@@ -487,6 +568,7 @@ def _anneal_scan_delta(problem: PlacementProblem, aux: PlacementAux,
             (torch.stack(best_t), torch.stack(acc_t)))
 
 
+@count_traces("anneal_full")
 def _anneal_scan_full(problem: PlacementProblem, Xc, j_prop, p_prop,
                       u_prop, temps):
     """Annealing with one full batched objective per Metropolis step (the

@@ -34,13 +34,14 @@ what the kernels do not take; ``models.layers.attend`` and
 ``kernels.ops.flash_attention`` pick the plain version only for tensors on
 the CPU.  ``LAUNCHES["flash_attention"]`` counts wrapper calls that
 launched a kernel, ``LAUNCHES["flash_attention_<kernel>"]`` each kernel's
-share of them.
+share of them; each hook in ``LAUNCH_HOOKS`` is called with every name a
+launch counts.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -50,6 +51,9 @@ KERNELS = ("wgmma", "split_kv", "simt")
 # kernel launches since the last reset: all, and per kernel
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             **{f"flash_attention_{n}": 0 for n in KERNELS}}
+# callables hook(counter name), called at every count LAUNCHES takes
+# (two a launch: "flash_attention" and the kernel's own)
+LAUNCH_HOOKS: List = []
 # the split-KV kernel takes calls of at most this many rows (Sq * G) per
 # (batch, kv head) (csrc/flash_attention_decode.cu: kMaxRows)
 SPLIT_KV_MAX_ROWS = 16
@@ -75,6 +79,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+    if LAUNCH_HOOKS:
+        for hook in list(LAUNCH_HOOKS):
+            hook(name)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -361,6 +372,6 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
     if err != 0:
         raise RuntimeError(f"flash attention ({name}) launch failed: error "
                            f"{err}")
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES[f"flash_attention_{name}"] += 1
+    _count_launch("flash_attention")
+    _count_launch(f"flash_attention_{name}")
     return out

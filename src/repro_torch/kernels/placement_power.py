@@ -21,7 +21,9 @@ given CUDA tensors launches its kernel or raises; ``kernels.ops`` picks the
 plain version only for tensors on the CPU.  ``LAUNCHES`` counts kernel
 launches (one per wrapper call that launched; the fused anneal's per
 variant, ``fused_anneal`` and ``fused_anneal_global``), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; each hook in
+``LAUNCH_HOOKS`` (``telemetry.Telemetry.attach_traces``) is called with
+the kernel's name at every launch.
 
 Operands (``pack_problem`` / ``pack_aux``): ``route`` is the int32 CSR
 route table ``[P*P, K]`` (sentinel N), read directly by both kernels --
@@ -34,10 +36,11 @@ Module constants mirror core.power (kernels stay import-clean of core).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..core.power import _scatter_rows
 from . import _build
 
 ACTIVE_EPS = 1.0e-6
@@ -59,11 +62,20 @@ FUSED_LOG = 128
 # variant: state in shared memory, X and best X in global memory)
 LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0,
                             "fused_anneal_global": 0}
+# callables hook(kernel name), called at every launch LAUNCHES counts
+LAUNCH_HOOKS: List = []
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+    if LAUNCH_HOOKS:
+        for hook in list(LAUNCH_HOOKS):
+            hook(name)
 
 
 def placement_power_cluster_size(B: int) -> int:
@@ -188,12 +200,6 @@ def _terms(omega, theta, lam, pp, nn):
                         violation], -1)
 
 
-def _zeros_add(n: int, idx: torch.Tensor, val: torch.Tensor):
-    out = torch.zeros(idx.shape[:-1] + (n,), dtype=val.dtype,
-                      device=val.device)
-    return out.scatter_add_(-1, idx, val)
-
-
 def placement_power_ref(X, link_src, link_dst, F, H, route, proc_params,
                         net_params) -> torch.Tensor:
     """Plain version of ``placement_power_cuda``: X [B, J] int32 (pins
@@ -202,13 +208,13 @@ def placement_power_ref(X, link_src, link_dst, F, H, route, proc_params,
     P, N = proc_params.shape[1], net_params.shape[1]
     K = route.shape[1]
     Xl = X.long()
-    omega = _zeros_add(P, Xl, F.expand(B, J))
+    omega = _scatter_rows(P, Xl, F.expand(B, J))
     a, b = Xl[:, link_src.long()], Xl[:, link_dst.long()]          # [B, L]
     h = H.expand(a.shape)
-    theta = _zeros_add(P, torch.cat([a, b], 1),
+    theta = _scatter_rows(P, torch.cat([a, b], 1),
                        torch.cat([h, h * (a != b)], 1))
     ids = route.long()[a * P + b]                                  # [B, L, K]
-    lam = _zeros_add(N + 1, ids.reshape(B, -1),
+    lam = _scatter_rows(N + 1, ids.reshape(B, -1),
                      H[None, :, None].expand(B, -1, K).reshape(B, -1))
     return _terms(omega, theta, lam[:, :N], proc_params, net_params)
 
@@ -429,7 +435,7 @@ def placement_power_cuda(X, link_src, link_dst, F, H, route, proc_params,
         return out
     placement_power_launch(out, X, link_src, link_dst, F, H, route,
                            proc_params, net_params)
-    LAUNCHES["placement_power"] += 1
+    _count_launch("placement_power")
     return out
 
 
@@ -492,8 +498,8 @@ def fused_anneal_cuda(X, j_prop, p_prop, u_prop, temps, inc_other, inc_h,
     fused_anneal_launch(bX, stats, X, j_prop, p_prop, u_prop, temps,
                         inc_other, inc_h, inc_src, omega0, theta0, lam0,
                         obj0, F, route, proc_params, net_params)
-    LAUNCHES["fused_anneal" if variant == "shared"
-             else "fused_anneal_global"] += 1
+    _count_launch("fused_anneal" if variant == "shared"
+                  else "fused_anneal_global")
     return bX, stats
 
 

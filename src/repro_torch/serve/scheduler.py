@@ -57,12 +57,9 @@ class EnergyAwareScheduler:
         flat session is built from ``spec`` (or the legacy kwargs) on
         ``device`` (``None``: the CUDA card).  ``monitor`` (a
         ``fault.PlacementMonitor``) receives admission rejections and
-        budget violations.  ``telemetry`` is not ported yet (ROADMAP
-        Queue 1, item 7): anything but ``None`` raises."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "EnergyAwareScheduler(telemetry=...) needs the telemetry "
-                "plane, not yet ported (ROADMAP Queue 1, item 7)")
+        budget violations; ``telemetry`` (a ``telemetry.Telemetry``)
+        receives spans, the energy ledger and the attribution from the
+        underlying session."""
         if spec is None:
             spec = cfn_api.PlacementSpec(
                 method=method, defrag_every=defrag_every, max_hops=max_hops,
@@ -71,9 +68,12 @@ class EnergyAwareScheduler:
         if session is not None:
             if monitor is not None:
                 session.attach_monitor(monitor)
+            if telemetry is not None:
+                session.attach_telemetry(telemetry)
             self.session = session
         else:
             self.session = cfn_api.CFNSession(topo, spec, monitor=monitor,
+                                              telemetry=telemetry,
                                               device=device)
         self.services: List[Service] = []
         self.rejected: List[str] = []   # names refused by admission control

@@ -15,6 +15,7 @@ from repro.core import power as jp, topology as jtopo, vsr as jvsr
 from repro_torch.api import CFNSession, PlacementSpec, SubstrateHealth
 from repro_torch.core import embed, power as tp, solvers as ts, \
     topology as ttopo, vsr as tvsr
+from repro_torch.telemetry import Telemetry, tiers_of
 
 REPO = Path(__file__).resolve().parents[1]
 QUICK = dict(method="cfn-milp", bucket_rows=False, bucket_cols=False)
@@ -152,8 +153,15 @@ def test_spec_validation():
     topo = ttopo.paper_topology()
     health = SubstrateHealth.fresh(topo).fail_node(3)
     assert PlacementSpec(health=health).health is health
-    with pytest.raises(NotImplementedError, match=r"item 7"):
-        CFNSession(topo, PlacementSpec(), device="cpu", telemetry=object())
+    tel = Telemetry()
+    sess = CFNSession(topo, PlacementSpec(method="coordinate",
+                                          anneal_steps=0),
+                      device="cpu", telemetry=tel)
+    assert sess.telemetry is tel and tel.ledger.tiers == tiers_of(topo)
+    sess.add(tvsr.random_vsrs(1, rng=0, source_nodes=[0]))
+    assert [e["name"] for e in tel.events if e["type"] == "span"] == ["add"]
+    assert len(tel.ledger.samples) == 1
+    assert tel.ledger.samples[0]["total_w"] == pytest.approx(sess.power_w())
     assert PlacementSpec().replace(max_hops=3).max_hops == 3
 
 

@@ -241,14 +241,25 @@ def test_exports_and_solver_aliases():
 
 def test_device_default_and_telemetry_refused(fed):
     """Without ``device=`` the session runs on the CUDA card and raises
-    without one; ``telemetry=`` waits for its slice."""
-    _, tt, _, _ = fed
+    without one; ``telemetry=`` is taken (no longer refused): the
+    coordinator spans its calls and takes a fleet-exact ledger sample."""
+    _, tt, _, tpart = fed
     import torch
+    from repro_torch.telemetry import Telemetry
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TFed(tt, TSpec(**QUICK))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TFed(tt, TSpec(**QUICK), device=CPU, telemetry=object())
+    tel = Telemetry()
+    sess = TFed(tt, TSpec(**QUICK), device=CPU)
+    sess.attach_telemetry(tel)
+    assert sess.telemetry is tel and tel.ledger.tiers is not None
+    sess.solve(_svc(tvsr, 2, _srcs(tpart), n=3))
+    assert [e["name"] for e in tel.events if e["type"] == "span"] == \
+        ["federated_solve"]
+    (sample,) = tel.ledger.samples
+    assert sample["total_w"] == pytest.approx(sess.power_w(), rel=1e-12)
+    assert sum(sample["region_w"].values()) == pytest.approx(
+        sample["total_w"], rel=1e-9)
 
 
 # ---------------------------------------------------------------------------

@@ -225,17 +225,27 @@ def test_scheduler_preemption_moves_live_to_queued(dc):
 
 
 def test_scheduler_session_argument_and_telemetry(dc):
-    """A pre-built session is used as given (a monitor attaches to it);
-    telemetry is not ported yet and raises naming its ROADMAP item."""
+    """A pre-built session is used as given (a monitor and a telemetry
+    attach to it, the monitor mirrored there); a scheduler built with
+    ``telemetry=`` hands it to its own session, which records the
+    service's commit."""
+    from repro_torch.telemetry import Telemetry
     _, tt = dc
     ses = CFNSession(tt, TSpec(**QUICK), device=CPU)
-    mon = TMonitor()
-    sched = TSched(tt, session=ses, monitor=mon)
+    mon, tel = TMonitor(), Telemetry()
+    sched = TSched(tt, session=ses, monitor=mon, telemetry=tel)
     assert sched.session is ses and ses.engine.monitor is mon
+    assert ses.telemetry is tel and mon.telemetry is tel
     sched.add_service(SchedTwin.svc("hymba")[1])
     assert ses.sids == [0] and len(sched.placements()) == 1
-    with pytest.raises(NotImplementedError, match=r"item 7"):
-        TSched(tt, telemetry=object(), device=CPU)
+    own = Telemetry()
+    sched2 = TSched(tt, spec=TSpec(**QUICK), telemetry=own, device=CPU)
+    assert sched2.session.telemetry is own
+    sched2.add_service(SchedTwin.svc("hymba")[1])
+    for t in (tel, own):
+        assert [e["event"] for e in t.events if e["type"] == "solve"] == \
+            ["add"]
+        assert len(t.ledger.samples) == 1
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b",
