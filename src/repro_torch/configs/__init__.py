@@ -5,7 +5,7 @@ reduced CPU-testable config.  ``SHAPES`` is the assigned shape set; cells are
 (arch x shape) pairs filtered by ``applicable_shapes`` (long_500k only for
 sub-quadratic archs).  A copy of the reference's registry: the
 configurations are data, and every one of them is carried, though only
-the dense attention block kinds run in the port so far.
+the dense attention and MoE-family block kinds run in the port so far.
 """
 from __future__ import annotations
 

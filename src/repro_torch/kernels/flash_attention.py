@@ -15,7 +15,8 @@ their plain PyTorch versions.
         D == Dv in {64, 128} -- prefill on the tensor cores, K/V through a
         TMA ring;
       - ``simt`` (``csrc/flash_attention.cu``): everything else (float32
-        prefill, head dims such as 16, 24, 48 or 256), on the CUDA cores.
+        prefill, head dims such as 16, 24, 48 or 256, and D != Dv: MLA's
+        prefill at 192 / 128), on the CUDA cores.
   * ``flash_attention`` (chunked online softmax) and ``direct_attention``
     (one pass over all slots, for short q) -- the plain versions, line for
     line the reference's ``models/layers.py`` functions; ``attention_plain``

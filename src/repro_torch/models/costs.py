@@ -6,8 +6,8 @@ activation bytes into the paper's VSR abstraction.  The counts come from
 parameter shapes: the reference traces ``init_model`` with
 ``jax.eval_shape``; the port makes the same shapes on the ``meta`` device,
 which allocates nothing.  ``layer_costs`` needs only each block's shapes,
-so it also covers the MoE and hymba block kinds, whose forward pass the
-port's model stack does not run yet (ROADMAP Queue 1, item 8).
+so it also covers the hymba block kinds, whose forward pass the port's
+model stack does not run yet (ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -44,23 +44,11 @@ def param_breakdown(cfg: ArchConfig) -> Dict[str, int]:
 def _block_sizes(cfg: ArchConfig, kind: str) -> Tuple[int, int]:
     """(parameters, of which expert weights) of one block of ``kind``, from
     the shapes the reference's ``init_block`` makes, on the meta device.
-    Block kinds past the attention, MoE and hymba ones raise."""
+    Block kinds past the attention, MoE-family and hymba ones raise."""
     ini = L.Init(None, torch.device("meta"), torch.float32)
     D = cfg.d_model
-    if kind in M.ATTN_KINDS:
+    if kind in M.KINDS:
         M.init_block(ini, cfg, kind)
-    elif kind == "attn_moe":
-        E, Fe = cfg.n_experts, cfg.moe_d_ff
-        ini.mk("ln1", (D,), mode="zeros")
-        L.init_attention(ini, cfg)
-        ini.mk("ln2", (D,), mode="zeros")
-        ini.mk("router", (D, E))
-        for name, shape in (("we_gate", (E, D, Fe)), ("we_up", (E, D, Fe)),
-                            ("we_down", (E, Fe, D))):
-            ini.mk(name, shape)
-        if cfg.n_shared_experts:
-            L.init_mlp(ini, D, Fe * cfg.n_shared_experts, cfg.n_layers,
-                       prefix="shared_")
     elif kind in ("hymba_local", "hymba_global"):
         # attention and mamba heads in parallel (the reference's
         # ssm.init_mamba shapes), then the MLP
@@ -103,7 +91,7 @@ def layer_costs(cfg: ArchConfig, context: int = 2048,
         for _ in range(grp.repeats):
             for kind in grp.kinds:
                 n, expert = sizes[kind]
-                if cfg.moe and kind == "attn_moe":
+                if cfg.moe and kind in ("attn_moe", "mla_moe"):
                     n = n - expert + expert * cfg.top_k / cfg.n_experts
                 w = M.block_window(cfg, kind)
                 kv = min(w, context) if w else context

@@ -1,6 +1,6 @@
-"""Model assembly of the port, dense subset (the reference's
-``models/model.py``): configs -> layer plan -> an ``nn.Module`` of
-per-layer blocks -> prefill / decode forward passes.
+"""Model assembly of the port (the reference's ``models/model.py``):
+configs -> layer plan -> an ``nn.Module`` of per-layer blocks -> prefill /
+decode forward passes.
 
 The layer plan is the reference's (a list of groups, each a repeating unit
 of block kinds).  The reference stacks a group's parameters along a
@@ -9,9 +9,11 @@ leading ``repeats`` axis and scans over it; the port keeps one
 runs ``remat_policy="none"``).  The JAX package's ``shard(...)`` calls are
 no-ops on one device and are dropped.
 
-Runs the ``attn`` / ``attn_local`` / ``attn_global`` block kinds; every
-other kind, the encoder-decoder and the VLM patch stub raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Runs the attention block kinds (``attn`` / ``attn_local`` /
+``attn_global``) and the MoE family's (``attn_moe``, and MLA's
+``mla_dense`` / ``mla_moe``); the SSM and hymba kinds, the
+encoder-decoder and the VLM patch stub raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ from torch import nn
 
 from ..core.power import Device, resolve_device
 from .config import ArchConfig
-from .layers import (Init, attention, init_attention, init_mlp, mlp,
-                     rms_norm, softcap)
+from .layers import (Init, attention, init_attention, init_mla, init_mlp,
+                     init_moe, mla_attention, mlp, moe, rms_norm, softcap)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
+MOE_KINDS = ("attn_moe", "mla_dense", "mla_moe")
+KINDS = ATTN_KINDS + MOE_KINDS
 _TODO = "comes with its slice (ROADMAP Queue 1, item 8)"
 
 # ---------------------------------------------------------------------------
@@ -140,7 +144,7 @@ def _torch_dtype(name) -> torch.dtype:
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
+    if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} {_TODO}")
 
 
@@ -154,13 +158,27 @@ def _check_supported(cfg: ArchConfig) -> None:
             _check_kind(kind)
 
 
+def _dense_ff(cfg: ArchConfig) -> int:
+    # deepseek-v2's first (dense) layer uses a wider FFN than the per-expert
+    # width; public config: 12288.  Everything else uses cfg.d_ff.
+    if cfg.use_mla and cfg.moe:
+        return 12288 if cfg.d_ff <= 2048 else cfg.d_ff
+    return cfg.d_ff
+
+
 def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
     _check_kind(kind)
     D = cfg.d_model
     ini.mk("ln1", (D,), mode="zeros")
-    init_attention(ini, cfg)
+    if kind.startswith("mla"):
+        init_mla(ini, cfg)
+    else:
+        init_attention(ini, cfg)
     ini.mk("ln2", (D,), mode="zeros")
-    init_mlp(ini, D, cfg.d_ff, cfg.n_layers)
+    if kind in ("attn_moe", "mla_moe"):
+        init_moe(ini, cfg)
+    else:
+        init_mlp(ini, D, _dense_ff(cfg), cfg.n_layers)
 
 
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
@@ -168,11 +186,17 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     _check_kind(kind)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    a, new_cache = attention(params, h, cfg, positions=positions,
-                             cache=cache, window=block_window(cfg, kind))
+    if kind.startswith("mla"):
+        a, new_cache = mla_attention(params, h, cfg, positions=positions,
+                                     cache=cache)
+    else:
+        a, new_cache = attention(params, h, cfg, positions=positions,
+                                 cache=cache, window=block_window(cfg, kind))
     x = x + a
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + mlp(params, h), new_cache
+    ff = moe(params, h, cfg) if kind in ("attn_moe", "mla_moe") \
+        else mlp(params, h)
+    return x + ff, new_cache
 
 
 def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -217,9 +241,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
 
     Each ``g{gi}`` leaf carries a leading ``repeats`` axis (the
     reference's group stacking); repeat r becomes the r-th per-layer
-    module.  Matrices are cast once to ``cfg.dtype``, where the reference
-    casts each weight to the activation dtype at every use: the numbers
-    are the same.  1-D norm scales stay float32, as the reference reads
+    module (expert weights ``[repeats, E, D, F]`` become ``[E, D, F]``).
+    Matrices are cast once to ``cfg.dtype``, where the reference casts
+    each weight to the activation dtype at every use: the numbers are the
+    same.  1-D norm scales stay float32, as the reference reads
     them in float32."""
     _check_supported(cfg)
     dev = resolve_device(device)

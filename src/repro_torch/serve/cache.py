@@ -1,5 +1,5 @@
-"""Decode-state (KV cache) specifications of the port, attention kinds
-(the reference's ``serve/cache.py``).
+"""Decode-state (KV cache) specifications of the port, attention and MLA
+kinds (the reference's ``serve/cache.py``).
 
 Caches mirror the layer plan: a list with one entry per layer group, each a
 dict ``{"b{j}": leaves}`` whose leaves carry the group's ``repeats`` axis
@@ -8,9 +8,11 @@ sharding axes have no use on one device); ``zeros`` turns a spec tree into
 torch tensors on a device.
 
 Sizing: a full-attention layer holds ``Smax = max_len`` slots, a
-sliding-window layer ``min(window, max_len)`` (a ring buffer).  The cache
-dtype must be the model's activation dtype: the port writes the cache in
-place.  MLA, SSM and cross-attention states come with their slices.
+sliding-window layer ``min(window, max_len)`` (a ring buffer).  An MLA
+layer holds the compressed KV (``kv_lora_rank + rope_head_dim`` values a
+token) in place of per-head K and V.  The cache dtype must be the model's
+activation dtype: the port writes the cache in place.  SSM and
+cross-attention states come with their slices.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from ..core.power import Device, resolve_device
 from ..models.config import ArchConfig
-from ..models.model import ATTN_KINDS, _TODO, block_window, layer_plan
+from ..models.model import KINDS, _TODO, block_window, layer_plan
 
 
 @dataclass(frozen=True)
@@ -70,12 +72,20 @@ def _attn_spec(cfg: ArchConfig, B: int, smax: int, dtype) -> Dict:
                 pos_ids=TSpec((smax,), torch.int32))
 
 
+def _mla_spec(cfg: ArchConfig, B: int, smax: int, dtype) -> Dict:
+    return dict(c_kv=TSpec((B, smax, cfg.kv_lora_rank), dtype),
+                k_rope=TSpec((B, smax, cfg.rope_head_dim), dtype),
+                pos_ids=TSpec((smax,), torch.int32))
+
+
 def block_cache_spec(cfg: ArchConfig, kind: str, B: int, max_len: int,
                      dtype=torch.bfloat16) -> Dict:
-    if kind not in ATTN_KINDS:
+    if kind not in KINDS:
         raise NotImplementedError(f"cache of block kind {kind!r} {_TODO}")
     window = block_window(cfg, kind)
     smax = min(window, max_len) if window else max_len
+    if kind.startswith("mla"):
+        return _mla_spec(cfg, B, smax, dtype)
     return _attn_spec(cfg, B, smax, dtype)
 
 

@@ -1,13 +1,15 @@
 """Model-serving slice of the PyTorch port against the JAX package: the
 qwen3-4b smoke configuration with the JAX weights carried across
-(``params_from_numpy``), the KV-cache specs, parameter counts, and the
-architecture-to-VSR bridge.
+(``params_from_numpy``), the KV-cache specs, parameter counts and costs
+(the MoE family's too), the architecture-to-VSR bridge, and the serving
+CLI.
 
 Tolerances: float32 logits and hidden states rtol 1e-4 / atol 1e-4 (the
 same arithmetic, summed in another order); greedy ids equal; bfloat16
 logits within 3e-2 of the largest logit (the reference's own bound for
 cached decode, tests/test_models.py); VSR arrays rtol 1e-6."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,9 @@ from repro_torch.models import costs as tcosts, model as TM
 from repro_torch.serve import cache as TC, engine as tengine
 
 DENSE = ("qwen3-4b", "h2o-danube-3-4b", "gemma2-27b", "command-r-plus-104b")
+# the architectures the port serves: the dense ones and the MoE family
+# (tests/test_torch_moe.py and tests/test_torch_mla.py hold its blocks)
+SERVED = DENSE + ("olmoe-1b-7b", "deepseek-v2-236b")
 B, S, GEN = 2, 16, 8
 # the reference's entry points, compiled (cfg and n_steps static)
 j_forward = jax.jit(JM.forward_hidden, static_argnums=1)
@@ -147,7 +152,7 @@ def test_prefill_decode_bf16_within_reference_bound():
     assert _rel(dt, dj) < 3e-2
 
 
-@pytest.mark.parametrize("arch,smoke", [(a, s) for a in DENSE
+@pytest.mark.parametrize("arch,smoke", [(a, s) for a in SERVED
                                         for s in (True, False)])
 def test_cache_spec_matches_reference(arch, smoke):
     get_j = jconfigs.get_smoke if smoke else jconfigs.get
@@ -171,7 +176,7 @@ def test_cache_zeros_fill():
     assert float(c[0]["b0"]["v"].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_param_count_on_meta_matches_reference(arch):
     want = jcosts.param_breakdown(jconfigs.get(arch))
     got = tcosts.param_breakdown(tconfigs.get(arch))
@@ -180,7 +185,7 @@ def test_param_count_on_meta_matches_reference(arch):
                                         device="meta")) == want["total"]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_from_architecture_matches_reference(arch):
     kw = dict(tokens_per_s=1234.5, n_stages=4, context=1536, source_node=3)
     want = jvsr.from_architecture(jconfigs.get(arch), **kw)
@@ -190,11 +195,43 @@ def test_from_architecture_matches_reference(arch):
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_family_costs_match_reference(arch):
+    """The full configs' parameter split (expert, active) and per-layer
+    costs (a MoE layer's experts at top_k / n_experts) on meta."""
+    cfg_j, cfg_t = jconfigs.get(arch), tconfigs.get(arch)
+    assert tcosts.param_breakdown(cfg_t) == jcosts.param_breakdown(cfg_j)
+    for ctx in (2048, 1064):
+        got, want = tcosts.layer_costs(cfg_t, ctx), jcosts.layer_costs(
+            cfg_j, ctx)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+        assert got[1] == want[1]
+
+
 def test_unported_kinds_raise():
-    for arch in ("xlstm-1.3b", "olmoe-1b-7b", "deepseek-v2-236b",
-                 "hymba-1.5b", "whisper-base", "internvl2-2b"):
+    for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-base",
+                 "internvl2-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.init_model(tconfigs.get_smoke(arch), device="meta")
+
+
+def test_serve_cli_moe_smoke_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve`` on olmoe's smoke config on
+    the CPU: the generated ids and one placement line per service."""
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "olmoe-1b-7b", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4",
+                       "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    ids = lines[0].split(":", 1)
+    assert ids[0] == "generated token ids (first row)"
+    assert len(json.loads(ids[1])) == 4
+    assert "tok/s on CPU" in lines[1]
+    placed = [json.loads(ln) for ln in lines[2:]]
+    assert len(placed) == 1 and placed[0]["service"] == "olmoe-1b-7b"
+    assert len(placed[0]["nodes"]) == 5 and placed[0]["power_w"] > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_layer_plan_and_registry_match_reference():
