@@ -71,11 +71,12 @@ nvcc per source, in parallel), then
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
-     and at the serving path's prefill and decode shapes; times each new
-     kernel there in turns with the SIMT kernel, beside SDPA (timed only,
-     as a yardstick), and counts the wgmma kernel's tensor-core (HGMMA)
-     and TMA (UTMALDG) instructions in its SASS; holds and times the SIMT
-     kernel at deepseek-v2's MLA prefill shape (D 192, Dv 128, 128 heads);
+     and at the serving path's prefill and decode shapes, and deepseek-v2's
+     MLA prefill shape (D 192, Dv 128, 128 heads), where the dispatch
+     takes the wgmma kernel; times each new kernel there in turns with the
+     SIMT kernel, beside SDPA (timed only, as a yardstick), and counts the
+     wgmma kernel's tensor-core (HGMMA) and TMA (UTMALDG) instructions in
+     its SASS;
   5. serves qwen3-4b at full width and depth (random bf16 weights from a
      seed) for 8 requests of 1024 prompt tokens and 32 generated tokens,
      checks that its 36 prefill attention calls went through the wgmma
@@ -87,12 +88,14 @@ nvcc per source, in parallel), then
   5b. serves the MoE family through the same protocol: olmoe-1b-7b at full
      width and depth (64 experts, top-8; 16 wgmma prefill and 496 split-KV
      decode calls, checked) and deepseek-v2-236b at full width, 4 of its
-     60 layers (MLA and 160 routed + 2 shared experts, top-6; 4 SIMT
-     prefill calls, the absorbed decode calling no kernel, checked); the
-     first MoE layer's dropped (token, k) share; cached decode against
-     the forward pass in float32 at the lossless capacity factor (the
-     reference's own test's setting); then places the served olmoe on the
-     datacenter CFN.
+     60 layers (MLA and 160 routed + 2 shared experts, top-6; 4 wgmma
+     prefill calls at D 192 / Dv 128, the absorbed decode calling no
+     kernel, checked); deepseek's first MLA layer's prefill attention on
+     the wgmma kernel against the SIMT kernel forced; the first MoE
+     layer's dropped (token, k) share; cached decode against the forward
+     pass in float32 at the lossless capacity factor (the reference's own
+     test's setting; its attention on the SIMT kernel, counted apart);
+     then places the served olmoe on the datacenter CFN.
 
 Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
@@ -101,7 +104,8 @@ kernels line (launches on the main paths: the placement kernels' in phase
 3g / 3h, the global anneal
 variant's in phase 3c, the flash
 kernels' in phase 5, and every kernel's in phase 5b as ``launches_moe``
-(the placement kernels' in the served olmoe's placement);
+(the placement kernels' in the served olmoe's placement) and, for the
+flash kernels, ``launches_moe_float32`` (5b's float32 checks);
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
@@ -2414,8 +2418,9 @@ def phase_flash(kernels: dict) -> None:
     out["decode"]["planted_slot"] = {"max_abs_err": err,
                                      "max_abs_gap_without_slot": gap}
     # deepseek-v2's MLA prefill (phase 5b): K of 128 + 64 rope dims, V of
-    # 128, 128 heads, no GQA.  Only the SIMT kernel takes D != Dv; timed
-    # twice, beside SDPA
+    # 128, 128 heads, no GQA.  The dispatch takes the wgmma kernel; it is
+    # held and timed in turns with the SIMT kernel forced (SIMT, wgmma,
+    # wgmma, SIMT: the SIMT kernel's time is the "before"), beside SDPA
     del q, k, v, vp
     H, D, Dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
     q, k, v = (rnd(s, bf) for s in ((B, S, H, D), (B, Smax, H, D),
@@ -2423,40 +2428,68 @@ def phase_flash(kernels: dict) -> None:
     qp = torch.arange(S, dtype=torch.int32, device=dev)
     kp = torch.full((Smax,), -1, dtype=torch.int32, device=dev)
     kp[:S] = qp
-    check(fa.choose_kernel(bf, D, Dv, S) == "simt",
-          "flash mla_prefill: the dispatch does not choose simt")
-    rec = {"shape": [B, H, H, S, Smax, D, Dv], "kernel": "simt",
-           "simt": held(q, k, v, qp, kp, 2e-2)}
-    call = lambda: fa.flash_attention_cuda(q, k, v, qp, kp)
-    rec["simt"].update(ms=[cuda_ms(call, 3) for _ in range(2)],
-                       graph_ms=[graph_ms(call, 3) for _ in range(2)])
+    check(fa.choose_kernel(bf, D, Dv, S) == "wgmma",
+          "flash mla_prefill: the dispatch does not choose wgmma")
+    rec = {"shape": [B, H, H, S, Smax, D, Dv], "kernel": "wgmma",
+           "wgmma": held(q, k, v, qp, kp, 2e-2),
+           "simt": held(q, k, v, qp, kp, 2e-2, kernel="simt")}
+    call = {kn: (lambda kn=kn: fa.flash_attention_cuda(
+                q, k, v, qp, kp, kernel=kn)) for kn in ("wgmma", "simt")}
+    times = {kn: {"ms": [], "graph_ms": []} for kn in call}
+    for kn in ("simt", "wgmma", "wgmma", "simt"):
+        reps = 3 if kn == "simt" else 20
+        times[kn]["ms"].append(cuda_ms(call[kn], reps))
+        times[kn]["graph_ms"].append(graph_ms(call[kn], reps))
+    for kn in call:
+        rec[kn].update(times[kn])
     sdpa = sdpa_call(q, k, v, qp, kp)
-    rec["library_ms"] = cuda_ms(sdpa, 3)
-    rec["library_graph_ms"] = graph_ms(sdpa, 3)
-    rec["plain_ms"] = cuda_ms(lambda: fa.attention_plain(
+    rec["library_ms"] = cuda_ms(sdpa, 5)
+    rec["library_graph_ms"] = [graph_ms(sdpa, 5) for _ in range(2)]
+    rec["plain_ms"] = cuda_ms(lambda: fa.tensor_core_attention_plain(
+        q, k, v, q_positions=qp, kv_positions=kp), 2)
+    rec["simt_plain_ms"] = cuda_ms(lambda: fa.attention_plain(
         q, k, v, q_positions=qp, kv_positions=kp), 2)
     rec["bound_ms"], rec["bound_by"] = flash_attention_bound(q, k, v, qp, kp)
-    rec["simt"]["tflop_per_s"] = flash_attention_ops(q, k, v, qp, kp) / (
-        min(rec["simt"]["graph_ms"]) * 1e-3) / 1e12
+    n_ops = flash_attention_ops(q, k, v, qp, kp)
+    for kn in call:
+        rec[kn]["tflop_per_s"] = n_ops / (
+            min(rec[kn]["graph_ms"]) * 1e-3) / 1e12
+        check(max(rec[kn]["graph_ms"]) > 0, "flash mla_prefill: no time")
+    check(max(rec["wgmma"]["graph_ms"]) < min(rec["simt"]["graph_ms"]),
+          "flash mla_prefill: wgmma not faster than the SIMT kernel")
     out["mla_prefill"] = rec
     del q, k, v
     out["sass_flash_attention_wgmma"] = sass_counts("flash_attention_wgmma")
     check(all(out["sass_flash_attention_wgmma"].values()),
           f"flash wgmma: SASS {out['sass_flash_attention_wgmma']}")
-    # each kernel's numbers at the shape its main-path launches take: the
-    # SIMT kernel's at MLA prefill (its qwen-shape time beside them)
+    # each kernel's numbers at a shape its main-path launches take: the
+    # wgmma kernel's at qwen3-4b's prefill (its MLA-prefill numbers
+    # beside them), the SIMT kernel's at MLA prefill, forced, where it ran
+    # before the wgmma kernel took D 192 / Dv 128 (its qwen-shape time
+    # beside them)
     for name, kn in (("prefill", "wgmma"), ("decode", "split_kv"),
                      ("mla_prefill", "simt")):
         rec = out[name]
+        plain = rec["simt_plain_ms"] if kn == "simt" else rec["plain_ms"]
         kernels[f"flash_attention_{kn}"].update(
             max_abs_err=max(errs[kn]), ms=min(rec[kn]["graph_ms"]),
-            event_ms=min(rec[kn]["ms"]), plain_ms=rec["plain_ms"],
+            event_ms=min(rec[kn]["ms"]), plain_ms=plain,
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_graph_ms"],
+            library_ms=min(np.atleast_1d(rec["library_graph_ms"])),
             shape=f"{name} [B, H, KH, Sq, Skv, D(, Dv)] = {rec['shape']}, "
-                  "bf16")
-    kernels["flash_attention_simt"]["ms_qwen_prefill"] = min(
-        out["prefill"]["simt"]["graph_ms"])
+                  "bf16" + (", forced" if kn == "simt" else ""))
+    mla = out["mla_prefill"]
+    kernels["flash_attention_wgmma"].update(
+        ms_mla_prefill=min(mla["wgmma"]["graph_ms"]),
+        event_ms_mla_prefill=min(mla["wgmma"]["ms"]),
+        plain_ms_mla_prefill=mla["plain_ms"],
+        bound_ms_mla_prefill=mla["bound_ms"],
+        bound_by_mla_prefill=mla["bound_by"],
+        library_ms_mla_prefill=min(mla["library_graph_ms"]),
+        tflop_per_s_mla_prefill=mla["wgmma"]["tflop_per_s"])
+    kernels["flash_attention_simt"].update(
+        ms_mla_prefill_before=min(mla["simt"]["graph_ms"]),
+        ms_qwen_prefill=min(out["prefill"]["simt"]["graph_ms"]))
     emit("flash_attention_vs_plain", **out)
 
 
@@ -2701,6 +2734,59 @@ def first_moe_input(model, cfg, tokens):
     raise ValueError(f"{cfg.name} has no MoE layer")
 
 
+def first_mla_attend(model, cfg, tokens) -> dict:
+    """The first MLA layer's bf16 prefill attention, as the serving path
+    calls it (``tokens`` prefilled into a fresh cache of SERVE_SMAX slots):
+    the expanded q, k, v that ``mla_attention`` hands ``attend`` are
+    caught, then run through the dispatch's kernel (wgmma) and through the
+    SIMT kernel forced; their largest difference must be <= 2e-2 of the
+    output's largest value."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.serve import cache as C
+    check(M.layer_plan(cfg)[0].kinds[0].startswith("mla"),
+          f"serve {cfg.name}: its first layer is not MLA")
+    seen = []
+
+    def catch(q, k, v, **kw):
+        seen.append((q, k, v, kw))
+        return torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                           device=q.device)
+
+    blk = model.groups[0][0]["b0"]
+    cache = C.zeros(C.cache_spec(cfg, tokens.shape[0], SERVE_SMAX),
+                    device=tokens.device)[0]["b0"]
+    real = L.attend
+    with torch.no_grad():
+        x = M.embed_tokens(model, cfg, tokens)
+        h = L.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        L.attend = catch
+        try:
+            L.mla_attention(blk, h, cfg, positions=M._positions(
+                tokens.shape[1], x.device),
+                cache={k: v[0] for k, v in cache.items()})
+        finally:
+            L.attend = real
+        (q, k, v, kw), = seen
+        qp, kp = kw.pop("q_positions"), kw.pop("kv_positions")
+        rows = q.shape[1] * q.shape[2] // k.shape[2]
+        kernel = fa.choose_kernel(q.dtype, q.shape[-1], v.shape[-1], rows)
+        check(kernel == "wgmma", f"serve {cfg.name}: MLA prefill "
+                                 f"dispatched to {kernel}")
+        got = fa.flash_attention_cuda(q, k, v, qp, kp, **kw).float()
+        simt = fa.flash_attention_cuda(q, k, v, qp, kp, kernel="simt",
+                                       **kw).float()
+    err = float((got - simt).abs().max())
+    scale = float(simt.abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= 2e-2 * scale,
+          f"serve {cfg.name}: first MLA layer, wgmma vs SIMT {err} "
+          f"(max |out| {scale})")
+    return dict(shape=[list(q.shape), list(k.shape), list(v.shape)],
+                kernel=kernel, max_abs_wgmma_vs_simt=err, max_abs_out=scale,
+                rel=err / scale)
+
+
 def moe_drops(model, cfg, tokens) -> dict:
     """The dropped (token, k) share of the first MoE layer of a forward
     pass of ``tokens``, on the path ``moe`` takes there."""
@@ -2713,19 +2799,23 @@ def moe_drops(model, cfg, tokens) -> dict:
     return dict(path=path, capacity=cap, dropped_share=share)
 
 
-def phase_serve_moe() -> dict:
+def phase_serve_moe() -> tuple:
     """Phase 5b: serve olmoe-1b-7b at full width and depth and
     deepseek-v2-236b at full width (4 layers), each through phase 5's
-    protocol; place the served olmoe on the datacenter CFN.  Returns the
-    phase's launches by kernel-line name: the flash kernels' in both warm
-    calls, the placement kernels' in olmoe's placement."""
+    protocol; hold deepseek's first MLA layer's prefill attention on the
+    wgmma kernel against the SIMT kernel; place the served olmoe on the
+    datacenter CFN.  Returns the phase's launches by kernel-line name (the
+    flash kernels' in both warm calls, the placement kernels' in olmoe's
+    placement) and the flash kernels' in both float32 decode-vs-forward
+    checks."""
     import dataclasses
     import torch
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
     from repro_torch.serve import cache as C
     t_all = time.perf_counter()
-    cells, total = {}, {}
+    cells, total, total_f32 = {}, {}, {}
     for arch, n_layers in MOE_CELLS:
         t0 = time.perf_counter()
         cfg = configs.get(arch)
@@ -2737,9 +2827,9 @@ def phase_serve_moe() -> dict:
         model, init_s, tokens = build_served(cfg)
         spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
         n_attn = sum(len(g.kinds) * g.repeats for g in M.layer_plan(cfg))
-        # MLA prefill (D 192, Dv 128) takes the SIMT kernel, MLA decode the
-        # absorbed path (no flash call); olmoe's attention as qwen3-4b's
-        want = ({"wgmma": 0, "split_kv": 0, "simt": n_attn} if cfg.use_mla
+        # MLA prefill (D 192, Dv 128) takes the wgmma kernel, MLA decode
+        # the absorbed path (no flash call); olmoe's attention as qwen3-4b's
+        want = ({"wgmma": n_attn, "split_kv": 0, "simt": 0} if cfg.use_mla
                 else {"wgmma": n_attn, "split_kv": n_attn * (SERVE_GEN - 1),
                       "simt": 0})
         rec = serve_protocol(model, cfg, tokens, spec, want)
@@ -2747,6 +2837,9 @@ def phase_serve_moe() -> dict:
             name = f"flash_attention_{kn}"
             total[name] = total.get(name, 0) + n
         rec["moe_first_layer_prefill"] = moe_drops(model, cfg, tokens)
+        if cfg.use_mla:
+            rec["mla_first_layer_attend"] = first_mla_attend(model, cfg,
+                                                             tokens)
         # the bf16 model's gap at the default capacity: recorded, not held
         rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(model, cfg,
                                                               tokens)
@@ -2758,7 +2851,14 @@ def phase_serve_moe() -> dict:
                                     capacity_factor=MOE_LOSSLESS)
         small = tokens[:MOE_CHECK_B]
         rec["lossless_first_layer"] = moe_drops(model, cfg32, small)
+        # float32 runs its attention on the SIMT kernel (and on split-KV
+        # for olmoe's decode step): counted apart from the bf16 serving
+        fa.reset_launches()
         rel = decode_vs_forward(model, cfg32, small)
+        for kn in fa.KERNELS:
+            name = f"flash_attention_{kn}"
+            total_f32[name] = (total_f32.get(name, 0)
+                               + fa.LAUNCHES[name])
         check(rel < 3e-2, f"serve {arch}: cached decode vs forward rel "
                           f"{rel} (float32, lossless; bound 3e-2)")
         del model
@@ -2780,8 +2880,9 @@ def phase_serve_moe() -> dict:
                   f"serve {arch}: its placement launched no "
                   f"placement_power ({total})")
     emit("serve_moe", cells=cells, launches=total,
+         launches_float32=total_f32,
          seconds_total=time.perf_counter() - t_all)
-    return total
+    return total, total_f32
 
 
 def schedule_served(cfg, tok_s: float) -> dict:
@@ -2920,8 +3021,11 @@ def main() -> int:
     phase_flash(kernels)
     for kn, n in phase_serve().items():
         kernels[f"flash_attention_{kn}"]["launches"] = n
-    for name, n in phase_serve_moe().items():
+    launches, launches_f32 = phase_serve_moe()
+    for name, n in launches.items():
         kernels[name]["launches_moe"] = n
+    for name, n in launches_f32.items():
+        kernels[name]["launches_moe_float32"] = n
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

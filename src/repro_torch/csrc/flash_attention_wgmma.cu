@@ -1,12 +1,16 @@
 // Flash attention (forward) on Hopper's tensor cores, for prefill.
 //
 // Replaces flash_attention_tpu (src/repro/kernels/flash_attention.py:81)
-// for bfloat16 inputs with D == Dv in {64, 128}; the function is the one
-// csrc/flash_attention.cu computes (that kernel stays for the shapes this
-// one does not take):
+// for bfloat16 inputs with (D, Dv) in {(64, 64), (128, 128), (192, 128)}.
+// The Pallas kernel takes D == Dv only; at (192, 128) this kernel computes
+// the JAX package's attend (src/repro/models/layers.py:321) as its MLA
+// prefill calls it (:494): K of 128 + 64 rope dims, V of 128.  The
+// function is the one csrc/flash_attention.cu computes (that kernel stays
+// for the shapes this one does not take):
 //
-//   q [B, Sq, H, D], k/v [B, Skv, KH, D] bfloat16, q_pos [Sq], kv_pos [Skv]
-//   int32  ->  out [B, Sq, H, D] bfloat16.  Query head h reads kv head
+//   q [B, Sq, H, D], k [B, Skv, KH, D], v [B, Skv, KH, Dv] bfloat16,
+//   q_pos [Sq], kv_pos [Skv] int32  ->  out [B, Sq, H, Dv] bfloat16.
+//   Query head h reads kv head
 //   h / G.  A kv slot with a negative position is masked; with causal, a
 //   pair needs 0 <= q_pos - kv_pos (< window when window > 0).  Scores
 //   are (q . k) * D^-0.5, then cap * tanh(s / cap) when cap > 0.  A row
@@ -26,18 +30,23 @@
 // K/V tiles (64 slots each) in flight with TMA: one mbarrier per stage for
 // "full" (the TMA's transaction bytes) and one for "empty" (one arrival
 // per consumer warp).  Each consumer warpgroup, per tile:
-//   S = Q K^T      wgmma m64n64k16, Q and K from shared memory (K-major);
+//   S = Q K^T      D / 16 steps of wgmma m64n64k16, Q and K from shared
+//                  memory (K-major);
 //   scale / softcap / mask / online softmax on S in registers (exp2, the
 //                  running max and sum per row; a quad of lanes shares a
 //                  row);
-//   O = O * corr + P V   P converted to bfloat16 in registers is the A
-//                  operand, V in shared memory the B operand read MN-major
-//                  (transposed by the instruction); O stays in the
-//                  accumulator registers for the whole kv loop.
+//   O = O * corr + P V   wgmma m64n{Dv}k16: P converted to bfloat16 in
+//                  registers is the A operand, V in shared memory the B
+//                  operand read MN-major (transposed by the instruction);
+//                  O stays in the accumulator registers for the whole kv
+//                  loop.
 // The softmax of tile it + 1 runs while P V of tile it is in flight on
-// the tensor cores.  Tiles are swizzled 128-byte rows
-// (SWIZZLE_128B), so D = 128 is two 64-column boxes; the wgmma descriptors
-// match that layout.
+// the tensor cores.  Tiles are swizzled 128-byte rows (SWIZZLE_128B): a
+// Q or K row of D columns is D / 64 boxes of 64 columns (3 at D = 192), a
+// V row and O's row Dv / 64 (2 at Dv = 128); the wgmma descriptors step
+// from box to box by the box's pitch (kQChunk for Q, kKVChunk for K and
+// V).  Registers per consumer thread depend on Dv alone, since Q stays in
+// shared memory: 32 floats of S, Dv / 2 of O, 16 words of P.
 //
 // Tile skipping: before any K/V is requested, every warp scans the kv
 // positions and marks each 64-slot tile live (it holds a slot some row of
@@ -48,12 +57,18 @@
 // zero-filled by TMA.  The logit cap is a template parameter, so a model
 // without one runs no tanh.
 //
-// Bound on the H100: the 4 * D operations of each unmasked (row, slot)
-// pair at the dense bf16 tensor-core rate.  Known limits: 64-slot tiles
-// (m64n64 S products at half the width wgmma allows); the softmax's
-// exp2 and max per element on two warpgroups, with no third to ping-pong;
-// one block per SM (132 KB of shared memory at D = 128), so each block's
-// start (position scan, query load) is not hidden by another block.
+// Bound on the H100: the 2 * (D + Dv) operations of each unmasked (row,
+// slot) pair (4 * D where Dv == D) at the dense bf16 tensor-core rate, or
+// the bytes of q, the attended K/V rows and the output at 3.35 TB/s,
+// whichever is longer.  Known limits: 64-slot tiles (m64n64 S products at
+// half the width wgmma allows); the softmax's exp2 and max per element on
+// two warpgroups, with no third to ping-pong; one block per SM, so each
+// block's start (position scan, query load) is not hidden by another
+// block.  Shared memory a block: 1 KB of alignment, Q (D / 64 boxes of
+// 16 KB) and kStages stages of K (D / 64) and V (Dv / 64) boxes of 8 KB,
+// then the barriers and the tile list: 132 KB at (128, 128); 169 KB at
+// (192, 128), 48 KB of Q and 3 x 40 KB of ring, under the 227 KB a block
+// may use.
 //
 // The TMA descriptors come from libcuda's cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library links no
@@ -243,8 +258,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* Qw,
 // registers, V's 16-slot slices (two 8-row groups of 1024 bytes) from
 // shared memory, its 64-column boxes kKVChunk apart (the leading byte
 // offset)
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&pf)[16],
                                          const uint8_t* Vs) {
 #pragma unroll
@@ -252,7 +267,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
     const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
                            pf[4 * kk + 3]};
     const uint64_t dv = make_desc(Vs + kk * 2048, kKVChunk);
-    if constexpr (D == 128) {
+    if constexpr (DV == 128) {
       wgmma_rs_n128(o, a, dv);
     } else {
       wgmma_rs_n64(o, a, dv);
@@ -345,11 +360,11 @@ __device__ __forceinline__ void pack_p(const float (&sc)[32],
     }
 }
 
-template <int D>
-__device__ __forceinline__ void rescale(float (&o)[D / 2],
+template <int DV>
+__device__ __forceinline__ void rescale(float (&o)[DV / 2],
                                         const float (&corr)[2]) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       o[4 * j + 2 * h] *= corr[h];
@@ -357,14 +372,15 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
     }
 }
 
-template <int D, bool CAP>
+template <int D, int DV, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const Params prm) {
-  constexpr int NCH = D / kCols;                    // 64-column boxes
-  constexpr int kStageBytes = 2 * NCH * kKVChunk;   // K and V of one tile
+  constexpr int NCH = D / kCols;                    // Q and K boxes
+  constexpr int NCV = DV / kCols;                   // V and O boxes
+  constexpr int kStageBytes = (NCH + NCV) * kKVChunk;   // K and V of a tile
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -485,6 +501,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int c = 0; c < NCH; ++c) {
           tma_load_4d(Ks + c * kKVChunk, &tk, &full[st], c * kCols, kh, s0,
                       b);
+        }
+        for (int c = 0; c < NCV; ++c) {
           tma_load_4d(Vs + c * kKVChunk, &tv, &full[st], c * kCols, kh, s0,
                       b);
         }
@@ -513,9 +531,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     qp[h] = row_ok[h] ? prm.q_pos[i] : 0;
   }
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
   float sc[32], corr[2];
   uint32_t pf[16];
@@ -552,10 +570,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_wait();
       fence_regs(sc);
     }
-    rescale<D>(o, corr);
+    rescale<DV>(o, corr);
     fence_regs(o);
     wg_fence();
-    issue_pv<D>(o, pf, Vs);
+    issue_pv<DV>(o, pf, Vs);
     wg_commit();
     if (next) softmax_tile<CAP>(sc, corr, m_run, l_run, kp, e & 1, qp, prm);
     wg_wait();
@@ -576,9 +594,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r = rA + 8 * h;
     const int i = p0 + r / prm.GB, g = g0 + r % prm.GB;
     __nv_bfloat16* dst =
-        prm.out + (((size_t)b * prm.Sq + i) * prm.H + kh * prm.G + g) * D;
+        prm.out + (((size_t)b * prm.Sq + i) * prm.H + kh * prm.G + g) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) = pack_bf16(
           o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
     }
@@ -631,18 +649,21 @@ CUresult make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-size_t smem_bytes(int D, int n_tiles) {
-  const int NCH = D / kCols;
-  return 1024 + (size_t)NCH * kQChunk + (size_t)kStages * 2 * NCH * kKVChunk +
-         8 * (1 + 2 * kStages) + 4 * (4 + 2 * (size_t)n_tiles);
+// alignment, Q, the K/V ring (K and V boxes counted apart), the
+// barriers, the live-tile count and the tile flags and list
+size_t smem_bytes(int D, int DV, int n_tiles) {
+  const int NCH = D / kCols, NCV = DV / kCols;
+  return 1024 + (size_t)NCH * kQChunk +
+         (size_t)kStages * (NCH + NCV) * kKVChunk + 8 * (1 + 2 * kStages) +
+         4 * (4 + 2 * (size_t)n_tiles);
 }
 
-template <int D, bool CAP>
+template <int D, int DV, bool CAP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Params& prm, int B,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, prm.n_tiles);
-  auto kern = flash_attention_wgmma_kernel<D, CAP>;
+  const size_t smem = smem_bytes(D, DV, prm.n_tiles);
+  auto kern = flash_attention_wgmma_kernel<D, DV, CAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -654,21 +675,24 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 }  // namespace
 
-// bfloat16 only; D must be 64 or 128 (Dv == D).  window <= 0 means none;
-// logit_cap <= 0 means none.  Returns cudaGetLastError() after the
+// bfloat16 only; (D, Dv) must be (64, 64), (128, 128) or (192, 128).
+// The scores' scale is D^-0.5 (the query/key dim).  window <= 0 means
+// none; logit_cap <= 0 means none.  Returns cudaGetLastError() after the
 // launch, or 10000 + the CUresult of a failed tensor-map encode, or -1
 // when libcuda's cuTensorMapEncodeTiled cannot be reached.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int KH,
-    int D, int causal, int window, float logit_cap, void* stream) {
+    int D, int Dv, int causal, int window, float logit_cap, void* stream) {
+  const bool dims_ok = (D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
+                       (D == 192 && Dv == 128);
   if (B <= 0 || Sq <= 0 || Skv < 0 || H <= 0 || KH <= 0 || H % KH != 0 ||
-      (D != 64 && D != 128)) {
+      !dims_ok) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Skv == 0) {   // nothing to attend: every row gives 0
-    cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, s);
+    cudaMemsetAsync(out, 0, (size_t)B * Sq * H * Dv * 2, s);
     return (int)cudaGetLastError();
   }
   if (encode_tiled() == nullptr) return -1;
@@ -694,13 +718,17 @@ extern "C" int flash_attention_wgmma_launch(
   CUtensorMap tq, tk, tv;
   CUresult r = make_map(&tq, q, D, H, Sq, B, prm.GB, prm.P);
   if (r == CUDA_SUCCESS) r = make_map(&tk, k, D, KH, Skv, B, 1, kSlots);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, v, D, KH, Skv, B, 1, kSlots);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, v, Dv, KH, Skv, B, 1, kSlots);
   if (r != CUDA_SUCCESS) return 10000 + (int)r;
   const bool cap = logit_cap > 0.0f;
-  if (D == 128) {
-    return cap ? launch<128, true>(tq, tk, tv, prm, B, s)
-               : launch<128, false>(tq, tk, tv, prm, B, s);
+  if (D == 192) {
+    return cap ? launch<192, 128, true>(tq, tk, tv, prm, B, s)
+               : launch<192, 128, false>(tq, tk, tv, prm, B, s);
   }
-  return cap ? launch<64, true>(tq, tk, tv, prm, B, s)
-             : launch<64, false>(tq, tk, tv, prm, B, s);
+  if (D == 128) {
+    return cap ? launch<128, 128, true>(tq, tk, tv, prm, B, s)
+               : launch<128, 128, false>(tq, tk, tv, prm, B, s);
+  }
+  return cap ? launch<64, 64, true>(tq, tk, tv, prm, B, s)
+             : launch<64, 64, false>(tq, tk, tv, prm, B, s);
 }

@@ -12,11 +12,11 @@ their plain PyTorch versions.
         the cache; the kv axis split into 64-slot chunks across blocks,
         then a combine pass;
       - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with
-        D == Dv in {64, 128} -- prefill on the tensor cores, K/V through a
-        TMA ring;
+        (D, Dv) in ``WGMMA_HEAD_DIMS`` -- (64, 64), (128, 128) and MLA's
+        (192, 128) -- prefill on the tensor cores, K/V through a TMA ring;
       - ``simt`` (``csrc/flash_attention.cu``): everything else (float32
-        prefill, head dims such as 16, 24, 48 or 256, and D != Dv: MLA's
-        prefill at 192 / 128), on the CUDA cores.
+        prefill, head dims such as 16, 24, 48 or 256, and D != Dv other
+        than (192, 128)), on the CUDA cores.
   * ``flash_attention`` (chunked online softmax) and ``direct_attention``
     (one pass over all slots, for short q) -- the plain versions, line for
     line the reference's ``models/layers.py`` functions; ``attention_plain``
@@ -65,9 +65,10 @@ SPLIT_KV_CHUNK = 64
 SPLIT_KV_TARGET_BLOCKS = 512
 SPLIT_KV_MAX_CHUNKS = 16
 # kv slots per tile of the wgmma kernel (csrc/flash_attention_wgmma.cu:
-# kSlots) and the head dims it takes
+# kSlots) and the (D, Dv) pairs it takes; (192, 128) is MLA's prefill (K of
+# 128 + 64 rope dims, V of 128)
 WGMMA_KV_TILE = 64
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 # Q sequence lengths up to this use the direct (unchunked) plain path
 DECODE_DIRECT_MAX_Q = 8
 # kv chunk of the chunked plain path when ``attention_plain`` dispatches to
@@ -267,7 +268,7 @@ def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
         return (rows <= SPLIT_KV_MAX_ROWS and (D * dtype.itemsize) % 16 == 0
                 and (Dv * dtype.itemsize) % 16 == 0)
     if kernel == "wgmma":
-        return dtype == torch.bfloat16 and D == Dv and D in WGMMA_HEAD_DIMS
+        return dtype == torch.bfloat16 and (D, Dv) in WGMMA_HEAD_DIMS
     if kernel == "simt":
         return True
     raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
@@ -276,8 +277,8 @@ def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
 def choose_kernel(dtype, D: int, Dv: int, rows: int) -> str:
     """The kernel ``flash_attention_cuda`` launches: ``split_kv`` for at
     most ``SPLIT_KV_MAX_ROWS`` rows per (batch, kv head) with 16-byte K/V
-    rows, else ``wgmma`` for bfloat16 at D == Dv in {64, 128}, else
-    ``simt``."""
+    rows, else ``wgmma`` for bfloat16 at (D, Dv) in ``WGMMA_HEAD_DIMS``,
+    else ``simt``."""
     if _takes("split_kv", dtype, D, Dv, rows):
         return "split_kv"
     if _takes("wgmma", dtype, D, Dv, rows):
@@ -354,7 +355,7 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
     cap = 0.0 if logit_cap is None else float(logit_cap)
     if name == "wgmma":
         err = _build.library("flash_attention_wgmma") \
-            .flash_attention_wgmma_launch(*ptrs, B, Sq, Skv, H, KH, D,
+            .flash_attention_wgmma_launch(*ptrs, B, Sq, Skv, H, KH, D, Dv,
                                           int(causal), win, cap, stream)
     elif name == "split_kv":
         cps = split_kv_chunks_per_split(B, KH, Skv)

@@ -313,6 +313,15 @@ def test_split_kv_plain_dead_splits_and_masked_rows():
     (torch.bfloat16, 48, 48, 400, "simt"),
     (torch.bfloat16, 256, 256, 100, "simt"),
     (torch.bfloat16, 128, 64, 4096, "simt"),      # Dv != D
+    # deepseek-v2's MLA prefill (K of 128 + 64 rope dims, V of 128, G 1):
+    # the wgmma kernel in bf16, the SIMT kernel in float32, split-KV at
+    # 16 rows; other pairs with D != Dv stay on the SIMT kernel
+    (torch.bfloat16, 192, 128, 4096, "wgmma"),
+    (torch.float32, 192, 128, 4096, "simt"),
+    (torch.bfloat16, 192, 128, 16, "split_kv"),
+    (torch.bfloat16, 192, 192, 4096, "simt"),
+    (torch.bfloat16, 128, 192, 4096, "simt"),
+    (torch.bfloat16, 192, 64, 4096, "simt"),
     # few rows: split-KV in either dtype, up to 16 rows and 256 wide
     (torch.float32, 128, 128, 4, "split_kv"),
     (torch.bfloat16, 256, 256, 16, "split_kv"),
@@ -326,6 +335,35 @@ def test_dispatch_rule(dtype, D, Dv, rows, want):
     assert tfa.choose_kernel(dtype, D, Dv, rows) == want
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plain", ["tensor_core", "attention_plain"])
+def test_plains_at_mla_dims_vs_reference_attend(plain, dtype):
+    """At MLA's prefill dims (D 192, Dv 128) the wgmma kernel's plain
+    version and ``attention_plain`` against the JAX package's ``attend``:
+    B 1, H = KH 2, Sq 130 (past two 64-slot tiles and a 128-row block),
+    Skv 200 with 8 unwritten (-1) slots, causal.  atol 2e-3 in float32,
+    2e-2 in bfloat16 (the tensor-core plain rounds P before P . V)."""
+    B, H, Sq, Skv, D, Dv = 1, 2, 130, 200, 192, 128
+    r = np.random.default_rng(23)
+    q = r.standard_normal((B, Sq, H, D), dtype=np.float32)
+    k = r.standard_normal((B, Skv, H, D), dtype=np.float32)
+    v = r.standard_normal((B, Skv, H, Dv), dtype=np.float32)
+    kpos = np.arange(Skv, dtype=np.int32)
+    kpos[r.choice(Skv, 8, replace=False)] = -1
+    qpos = np.arange(Skv - Sq, Skv, dtype=np.int32)
+    want = _jattend(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                    q_positions=jnp.asarray(qpos),
+                    kv_positions=jnp.asarray(kpos), causal=True)
+    fn = NEW_PLAINS.get(plain, tfa.attention_plain)
+    tq, tk, tv = (torch.as_tensor(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = fn(tq, tk, tv, q_positions=torch.as_tensor(qpos),
+             kv_positions=torch.as_tensor(kpos), causal=True)
+    assert got.dtype == torch.float32 and got.shape == (B, Sq, H, Dv)
+    np.testing.assert_allclose(_f32(got.to(tq.dtype)), _f32(want),
+                               atol=_atol(dtype))
+
+
 def test_launch_counts_have_one_key_per_kernel():
     assert set(tfa.LAUNCHES) == {"flash_attention"} | {
         f"flash_attention_{n}" for n in tfa.KERNELS}
@@ -334,19 +372,25 @@ def test_launch_counts_have_one_key_per_kernel():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,KH,Sq,Skv,D,window,cap,causal", [
-    (2, 8, 2, 64, 64, 128, None, None, True),       # one kv tile
-    (1, 8, 8, 128, 256, 64, None, 50.0, True),      # G 1, softcap
-    (2, 10, 2, 33, 65, 64, 16, None, True),         # G 5 (hymba), window
-    (1, 8, 2, 100, 80, 128, None, None, False),     # non-causal
-    (1, 256, 1, 2, 70, 64, None, None, True),       # G > 128
-    (2, 8, 2, 300, 700, 128, 100, None, True),      # skipped tiles
+@pytest.mark.parametrize("B,H,KH,Sq,Skv,D,Dv,window,cap,causal", [
+    (2, 8, 2, 64, 64, 128, 128, None, None, True),      # one kv tile
+    (1, 8, 8, 128, 256, 64, 64, None, 50.0, True),      # G 1, softcap
+    (2, 10, 2, 33, 65, 64, 64, 16, None, True),         # G 5, window
+    (1, 8, 2, 100, 80, 128, 128, None, None, False),    # non-causal
+    (1, 256, 1, 2, 70, 64, 64, None, None, True),       # G > 128
+    (2, 8, 2, 300, 700, 128, 128, 100, None, True),     # skipped tiles
+    # MLA's prefill dims: K of 192 (three 64-column boxes), V of 128
+    (2, 8, 2, 64, 64, 192, 128, None, None, True),      # one kv tile
+    (2, 128, 128, 130, 200, 192, 128, None, None, True),   # G 1, 128 heads
+    (2, 8, 8, 300, 700, 192, 128, 100, None, True),     # skipped, masked
+    (1, 4, 4, 128, 256, 192, 128, None, 50.0, True),    # softcap
+    (1, 4, 4, 20, 0, 192, 128, None, None, True),       # Skv == 0
 ])
-def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, window, cap,
-                               causal):
+def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, Dv, window,
+                               cap, causal):
     g = torch.Generator(device=hopper).manual_seed(Sq)
     q, k, v = (torch.randn(s, generator=g, device=hopper).bfloat16()
-               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, Dv)))
     kw = dict(q_positions=torch.arange(Skv - Sq, Skv, dtype=torch.int32,
                                        device=hopper),
               kv_positions=torch.arange(Skv, dtype=torch.int32,
@@ -357,6 +401,9 @@ def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, window, cap,
                                    kw.pop("kv_positions"), **kw).float()
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["flash_attention_wgmma"] == n + 1
+    assert got.shape == (B, Sq, H, Dv)
+    if Skv == 0:
+        assert float(got.abs().max()) == 0.0
     kw.update(q_positions=torch.arange(Skv - Sq, Skv, dtype=torch.int32,
                                        device=hopper),
               kv_positions=torch.arange(Skv, dtype=torch.int32,
@@ -365,6 +412,21 @@ def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, window, cap,
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
     ref = tfa.attention_plain(q, k, v, **kw).bfloat16().float()
     torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_other_head_dim_pairs(hopper):
+    """Forced onto (192, 64) or (128, 192), the wrapper raises from
+    ``_takes`` and launches nothing."""
+    pos = torch.arange(64, dtype=torch.int32, device=hopper)
+    for D, Dv in ((192, 64), (128, 192)):
+        q, k = (torch.zeros((1, 64, 2, D), device=hopper).bfloat16()
+                for _ in range(2))
+        v = torch.zeros((1, 64, 2, Dv), device=hopper).bfloat16()
+        before = dict(tfa.LAUNCHES)
+        with pytest.raises(ValueError, match="wgmma kernel does not take"):
+            tfa.flash_attention_cuda(q, k, v, pos, pos, kernel="wgmma")
+        assert tfa.LAUNCHES == before
 
 
 @pytest.mark.gpu

@@ -9,6 +9,8 @@ against it (the absorbed path, in the compressed space).  End to end:
 ``forward_hidden``, prefill and decode logits, greedy ids; cached decode
 of the last prompt token against the forward pass at the reference's
 lossless capacity; in bfloat16, each block against the reference's.
+On the meta device, the q, k and v that deepseek's full-width prefill
+hands ``attend``, and the kernel the dispatch picks for them (wgmma).
 
 Tolerances: float32 rtol 1e-4 / atol 1e-4 (the same arithmetic summed in
 another order); greedy ids equal; cached decode, and bfloat16 blocks,
@@ -215,6 +217,41 @@ def test_cached_decode_vs_forward_f32(arch):
 def _rel(got, want) -> float:
     got, want = _np(got), _np(want)
     return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_mla_prefill_attend_takes_the_wgmma_kernel(monkeypatch):
+    """deepseek-v2-236b's full-width MLA block, prefilling 8 x 1024 tokens
+    into a cache of 1064 slots, on the meta device (shapes only): the
+    expanded q, k and v it passes to ``attend`` are contiguous bf16 at D
+    192 / Dv 128, and the dispatch sends them to the wgmma kernel."""
+    from repro_torch.kernels import flash_attention as tfa
+    cfg = dataclasses.replace(tconfigs.get("deepseek-v2-236b"), n_layers=1)
+    block = TM.init_model(cfg, device="meta").groups[0][0]["b0"]
+    seen = []
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v))
+        return torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                           device=q.device)
+
+    monkeypatch.setattr(TL, "attend", record)
+    n, s, smax = 8, 1024, 1064
+    cache = TC.zeros(TC.cache_spec(cfg, n, smax), device="meta")[0]["b0"]
+    x = torch.empty((n, s, cfg.d_model), dtype=torch.bfloat16, device="meta")
+    y, _ = TL.mla_attention(
+        block, x, cfg, positions=torch.arange(s, dtype=torch.int32,
+                                              device="meta"),
+        cache={k: v[0] for k, v in cache.items()})
+    assert y.shape == (n, s, cfg.d_model)
+    (q, k, v), = seen
+    H = cfg.n_heads
+    assert q.shape == (n, s, H, 192) and k.shape == (n, smax, H, 192)
+    assert v.shape == (n, smax, H, 128)
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous()
+               for t in (q, k, v))
+    rows = s * H // k.shape[2]
+    assert tfa.choose_kernel(q.dtype, q.shape[-1], v.shape[-1],
+                             rows) == "wgmma"
 
 
 def test_mla_bf16_within_reference_bound():
