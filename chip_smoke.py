@@ -71,7 +71,9 @@ nvcc per source, in parallel), then
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
      reference's test shapes, their decode steps and more wgmma shapes,
-     and at the serving path's prefill and decode shapes, and deepseek-v2's
+     and at the serving path's prefill and decode shapes, at hymba-1.5b's
+     (G 5, D 64, a 1024-slot window ring: the prefill, and the decode
+     step that wraps to slot 0), and deepseek-v2's
      MLA prefill shape (D 192, Dv 128, 128 heads), where the dispatch
      takes the wgmma kernel; times each new kernel there in turns with the
      SIMT kernel, beside SDPA (timed only, as a yardstick), and counts the
@@ -95,7 +97,17 @@ nvcc per source, in parallel), then
      layer's dropped (token, k) share; cached decode against the forward
      pass in float32 at the lossless capacity factor (the reference's own
      test's setting; its attention on the SIMT kernel, counted apart);
-     then places the served olmoe on the datacenter CFN.
+     then places the served olmoe on the datacenter CFN;
+  5c. serves the recurrent families through the same protocol, at full
+     width and depth: xlstm-1.3b (42 mLSTM and 6 sLSTM blocks; no flash
+     call, checked; its state's bytes independent of max_len, checked)
+     and hymba-1.5b (attention beside mamba in every layer; 32 wgmma
+     prefill and 992 split-KV decode calls, 0 SIMT, checked; the first
+     decode step wraps its 1024-slot windowed ring buffers); cached decode
+     at position 1024, past the window, against the forward pass over
+     1025 tokens in float32 on 2 prompts (attention on the SIMT kernel
+     and split-KV, counted apart); places each served model on the
+     datacenter CFN.
 
 Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
@@ -103,9 +115,10 @@ kernels line (launches on the main paths: the placement kernels' in phase
 ``launches_federation`` / ``launches_telemetry``, in phases 3d / 3e / 3f /
 3g / 3h, the global anneal
 variant's in phase 3c, the flash
-kernels' in phase 5, and every kernel's in phase 5b as ``launches_moe``
-(the placement kernels' in the served olmoe's placement) and, for the
-flash kernels, ``launches_moe_float32`` (5b's float32 checks);
+kernels' in phase 5, and every kernel's in phases 5b and 5c as
+``launches_moe`` / ``launches_ssm`` (the placement kernels' in the served
+models' placements) and, for the flash kernels,
+``launches_moe_float32`` / ``launches_ssm_float32`` (the float32 checks);
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
@@ -2268,6 +2281,69 @@ WGMMA_CASES = [
 ]
 
 
+def hymba_attention(held, rnd) -> dict:
+    """hymba-1.5b's attention branch (phase 5c) at its serving shapes, on
+    its local layers' ring buffer of ``window`` = 1024 slots: 25 query
+    heads on 5 KV heads (G 5), D 64, 8 prompts.  Prefill fills slots
+    0-1023 (the wgmma kernel); the first decode step, position 1024,
+    wraps to slot 0, so split-KV reads slot 0 = 1024 and slots 1-1023 =
+    1-1023.  Each kernel held against both plain versions (prefill 2e-2,
+    decode 2e-3 as the qwen shape's) and timed beside SDPA (CUDA-graph
+    replays); a value planted in the wrapped slot 0 must reach the decode
+    output.  ``held`` and ``rnd`` are phase 4's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    cfg = configs.get("hymba-1.5b")
+    B, S, W = SERVE_B, SERVE_S, cfg.sliding_window
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    check(W == S, f"flash hymba: window {W}, prompt {S}")
+    bf, i32, dev = torch.bfloat16, torch.int32, torch.device("cuda")
+    k, v = rnd((B, W, KH, D), bf), rnd((B, W, KH, D), bf)
+    out = {}
+    for name, Sq, kernel in (("hymba_prefill", S, "wgmma"),
+                             ("hymba_decode_wrapped", 1, "split_kv")):
+        q = rnd((B, Sq, H, D), bf)
+        if Sq == S:
+            qp = torch.arange(S, dtype=i32, device=dev)
+            kp = qp.clone()
+        else:
+            qp = torch.tensor([W], dtype=i32, device=dev)
+            kp = torch.arange(W, dtype=i32, device=dev)
+            kp[0] = W
+        check(fa.choose_kernel(bf, D, D, Sq * H // KH) == kernel,
+              f"flash {name}: the dispatch does not choose {kernel}")
+        tol = 2e-2 if Sq == S else 2e-3
+        rec = {"shape": [B, H, KH, Sq, W, D], "window": W, "kernel": kernel,
+               kernel: held(q, k, v, qp, kp, tol, window=W)}
+        reps = 20 if Sq == S else 200
+        rec[kernel]["graph_ms"] = graph_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, qp, kp, window=W), reps)
+        # at these positions the window masks no pair (q - kv <= 1023), so
+        # SDPA's causal mask computes the same function
+        rec["library_graph_ms"] = graph_ms(sdpa_call(q, k, v, qp, kp), reps)
+        rec["bound_ms"], rec["bound_by"] = flash_attention_bound(
+            q, k, v, qp, kp)
+        out[name] = rec
+    vp = v.clone()
+    vp[:, 0] = 4.0
+    got = fa.flash_attention_cuda(q, k, vp, qp, kp, window=W).float()
+    want = fa.attention_plain(q, k, vp, q_positions=qp, kv_positions=kp,
+                              window=W)
+    kp_drop = kp.clone()
+    kp_drop[0] = -1
+    drop = fa.attention_plain(q, k, vp, q_positions=qp,
+                              kv_positions=kp_drop, window=W)
+    err = float((got - want.to(bf).float()).abs().max())
+    gap = float((got - drop.to(bf).float()).abs().max())
+    check(err <= 2e-3 and gap > 5e-3,
+          f"flash hymba decode, planted wrapped slot 0: err {err}, gap "
+          f"without it {gap}")
+    out["hymba_decode_wrapped"]["planted_slot"] = {
+        "max_abs_err": err, "max_abs_gap_without_slot": gap}
+    return out
+
+
 def phase_flash(kernels: dict) -> None:
     """Phase 4: each flash-attention kernel against its plain version and
     the reference's ``attend`` arithmetic; the serving shapes timed in
@@ -2417,11 +2493,12 @@ def phase_flash(kernels: dict) -> None:
           f"flash decode, planted slot {S}: err {err}, gap without it {gap}")
     out["decode"]["planted_slot"] = {"max_abs_err": err,
                                      "max_abs_gap_without_slot": gap}
+    del q, k, v, vp
+    out.update(hymba_attention(held, rnd))
     # deepseek-v2's MLA prefill (phase 5b): K of 128 + 64 rope dims, V of
     # 128, 128 heads, no GQA.  The dispatch takes the wgmma kernel; it is
     # held and timed in turns with the SIMT kernel forced (SIMT, wgmma,
     # wgmma, SIMT: the SIMT kernel's time is the "before"), beside SDPA
-    del q, k, v, vp
     H, D, Dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
     q, k, v = (rnd(s, bf) for s in ((B, S, H, D), (B, Smax, H, D),
                                     (B, Smax, H, Dv)))
@@ -2487,19 +2564,48 @@ def phase_flash(kernels: dict) -> None:
         bound_by_mla_prefill=mla["bound_by"],
         library_ms_mla_prefill=min(mla["library_graph_ms"]),
         tflop_per_s_mla_prefill=mla["wgmma"]["tflop_per_s"])
+    for name, kn in (("hymba_prefill", "wgmma"),
+                     ("hymba_decode_wrapped", "split_kv")):
+        kernels[f"flash_attention_{kn}"][f"ms_{name}"] = out[name][kn][
+            "graph_ms"]
     kernels["flash_attention_simt"].update(
         ms_mla_prefill_before=min(mla["simt"]["graph_ms"]),
         ms_qwen_prefill=min(out["prefill"]["simt"]["graph_ms"]))
     emit("flash_attention_vs_plain", **out)
 
 
-def serve_profile(model, cfg, tokens, cache) -> dict:
+def device_events(prof, tree: bool) -> dict:
+    """Durations in ms of the CUDA activities the profiler recorded, by
+    name: from its raw kineto event list (``prof.profiler.kineto_results``,
+    a private attribute, read on torch 2.11), or, with ``tree``, from its
+    public FunctionEvent tree (``prof.events()``).  Building that tree
+    takes ~65 us an event on the host: tens of seconds for xlstm's prefill
+    (~150 k operations in its sLSTM loop)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict = {}
+    if tree:
+        for e in prof.events():
+            if e.device_type == cuda:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() * 1e-3)
+        return by_name
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            by_name.setdefault(e.name(), []).append(e.duration_ns() * 1e-6)
+    return by_name
+
+
+def serve_profile(model, cfg, tokens, cache, cross_check=False) -> dict:
     """Device activity of one prefill and one decode step of the serving
     path (under the profiler, whose own host cost is in the wall time):
     wall ms, CUDA kernels, the share of the wall time the device was busy
     (summed kernel time; one stream), the flash kernels' share of the
     device time (every kernel named flash_attention*: wgmma, split and
-    combine, SIMT), and the five kernels that took most device time."""
+    combine, SIMT), and the five kernels that took most device time, read
+    from the raw event list.  ``cross_check``: also read the FunctionEvent
+    tree and check that both readers see the same kernels and busy time
+    (to 1% and a microsecond a kernel, should the tree round)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine
@@ -2517,11 +2623,7 @@ def serve_profile(model, cfg, tokens, cache) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us() * 1e-3)
+        by_name = device_events(prof, tree=False)
         busy_ms = sum(sum(v) for v in by_name.values())
         flash_ms = sum(sum(v) for k, v in by_name.items()
                        if "flash_attention" in k)
@@ -2533,16 +2635,30 @@ def serve_profile(model, cfg, tokens, cache) -> dict:
             "flash_share_of_device_time": (flash_ms / busy_ms if busy_ms
                                            else None),
             "top_kernels_ms": [[k[:80], sum(v), len(v)] for k, v in top]}
+        if cross_check:
+            readers = {"raw": by_name, "tree": device_events(prof, True)}
+            readers = {tag: {"kernels": sum(len(v) for v in ev.values()),
+                             "busy_ms": sum(sum(v) for v in ev.values())}
+                       for tag, ev in readers.items()}
+            raw, tree = readers["raw"], readers["tree"]
+            check(raw["kernels"] == tree["kernels"] and abs(
+                      raw["busy_ms"] - tree["busy_ms"])
+                  <= 1e-2 * raw["busy_ms"] + 1e-3 * raw["kernels"],
+                  f"serve {cfg.name} {name}: the profile's readers "
+                  f"disagree: {readers}")
+            out[name]["readers"] = readers
     return out
 
 
-def serve_protocol(model, cfg, tokens, spec, want: dict) -> dict:
+def serve_protocol(model, cfg, tokens, spec, want: dict,
+                   cross_check=False) -> dict:
     """Phase 5's protocol on a built model: a cold, then a warm
     ``greedy_generate`` call (the main path as a user runs it, synchronized
     only around the whole call), the warm call's flash launches by kernel
     equal to ``want``; then a step-by-step pass, synchronized per step, its
-    logits finite and its ids those of the calls; then the serving profile.
-    Returns the fields to print ("launches", "tokens_per_s", ...)."""
+    logits finite and its ids those of the calls; then the serving profile
+    (``cross_check``: its two readers held together).  Returns the fields
+    to print ("launches", "tokens_per_s", ...)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import cache as C, engine
@@ -2595,7 +2711,7 @@ def serve_protocol(model, cfg, tokens, spec, want: dict) -> dict:
     check(bool(torch.equal(torch.stack(ids, 1), seq)),
           f"serve {cfg.name}: the step-by-step pass chose other ids than "
           "greedy_generate")
-    profile = serve_profile(model, cfg, tokens, cache)
+    profile = serve_profile(model, cfg, tokens, cache, cross_check)
     return dict(
         batch=B, prompt_len=S, gen=GEN, max_len=SERVE_SMAX,
         cache_bytes=C.cache_bytes(spec), prefill_s=times["prefill"][0],
@@ -2684,7 +2800,7 @@ def phase_serve() -> dict:
     # through the split-KV kernel, none through the SIMT kernel
     rec = serve_protocol(model, cfg, tokens, spec, {
         "wgmma": cfg.n_layers, "split_kv": cfg.n_layers * (SERVE_GEN - 1),
-        "simt": 0})
+        "simt": 0}, cross_check=True)
     rel = decode_vs_forward(model, cfg, tokens)
     check(rel < 3e-2,
           f"serve: cached decode vs forward rel {rel} (bf16 bound 3e-2)")
@@ -2841,8 +2957,14 @@ def phase_serve_moe() -> tuple:
             rec["mla_first_layer_attend"] = first_mla_attend(model, cfg,
                                                              tokens)
         # the bf16 model's gap at the default capacity: recorded, not held
+        # one token past the prompt: prefill 1024, decode at position
+        # 1024 (hymba's local rings wrap to slot 0) against a forward pass
+        # over 1025 tokens
+        past = torch.cat([tokens, torch.as_tensor(
+            np.random.default_rng(1).integers(0, cfg.vocab, (SERVE_B, 1)),
+            dtype=tokens.dtype, device=tokens.device)], 1)
         rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(model, cfg,
-                                                              tokens)
+                                                              past)
         # the checked comparison: float32, lossless, 2 prompts
         torch.cuda.empty_cache()
         for p in model.parameters():
@@ -2880,6 +3002,96 @@ def phase_serve_moe() -> tuple:
                   f"serve {arch}: its placement launched no "
                   f"placement_power ({total})")
     emit("serve_moe", cells=cells, launches=total,
+         launches_float32=total_f32,
+         seconds_total=time.perf_counter() - t_all)
+    return total, total_f32
+
+
+# phase 5c: the recurrent families at full width and depth, the phase 5
+# protocol.  xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, no attention, a
+# state that does not grow with the context; hymba-1.5b: attention and
+# mamba side by side in every layer, 30 of 32 layers windowed at 1024 over
+# a ring buffer that the first decode step after the 1024-token prompt
+# wraps.  Their decode-vs-forward check decodes that step (position 1024)
+# and runs in float32 on the first 2 prompts, as 5b's does (bf16 rounding
+# compounds along the recurrences; the bf16 gap is recorded)
+SSM_CELLS = ("xlstm-1.3b", "hymba-1.5b")
+SSM_CHECK_B = 2
+
+
+def phase_serve_ssm() -> tuple:
+    """Phase 5c: serve xlstm-1.3b and hymba-1.5b at full width and depth
+    through phase 5's protocol, check cached decode against the forward
+    pass in float32 and xlstm's state independent of max_len, and place
+    each served model on the datacenter CFN.  Returns the phase's launches
+    by kernel-line name (the flash kernels' in both warm calls, the
+    placement kernels' in both placements) and the flash kernels' in both
+    float32 decode-vs-forward checks."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C
+    t_all = time.perf_counter()
+    cells, total, total_f32 = {}, {}, {}
+    for arch in SSM_CELLS:
+        t0 = time.perf_counter()
+        cfg = configs.get(arch)
+        model, init_s, tokens = build_served(cfg)
+        spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
+        # hymba's attention branch as qwen3-4b's attention (D 64, G 5):
+        # prefill on the wgmma kernel, decode on split-KV; xlstm attends
+        # nowhere
+        n_attn = sum(grp.repeats * sum(k in M.HYBRID_KINDS
+                                       for k in grp.kinds)
+                     for grp in M.layer_plan(cfg))
+        rec = serve_protocol(model, cfg, tokens, spec, {
+            "wgmma": n_attn, "split_kv": n_attn * (SERVE_GEN - 1),
+            "simt": 0})
+        for kn, n in rec["flash_launches_by_kernel"].items():
+            name = f"flash_attention_{kn}"
+            total[name] = total.get(name, 0) + n
+        # one token past the prompt: prefill 1024, decode at position
+        # 1024 (hymba's local rings wrap to slot 0) against a forward pass
+        # over 1025 tokens
+        past = torch.cat([tokens, torch.as_tensor(
+            np.random.default_rng(1).integers(0, cfg.vocab, (SERVE_B, 1)),
+            dtype=tokens.dtype, device=tokens.device)], 1)
+        rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(model, cfg,
+                                                              past)
+        # the checked comparison: float32 weights, 2 prompts (its attention
+        # on the SIMT kernel and split-KV, counted apart)
+        torch.cuda.empty_cache()
+        for p in model.parameters():
+            p.data = p.data.float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        fa.reset_launches()
+        rel = decode_vs_forward(model, cfg32, past[:SSM_CHECK_B])
+        for kn in fa.KERNELS:
+            name = f"flash_attention_{kn}"
+            total_f32[name] = total_f32.get(name, 0) + fa.LAUNCHES[name]
+        check(rel < 3e-2, f"serve {arch}: cached decode vs forward rel "
+                          f"{rel} (float32; bound 3e-2)")
+        del model
+        torch.cuda.empty_cache()
+        bytes_2x = C.cache_bytes(C.cache_spec(cfg, SERVE_B, 2 * SERVE_SMAX))
+        if arch == "xlstm-1.3b":
+            check(bytes_2x == rec["cache_bytes"],
+                  f"serve {arch}: cache {rec['cache_bytes']} B at max_len "
+                  f"{SERVE_SMAX}, {bytes_2x} B at {2 * SERVE_SMAX}")
+        cells[arch] = dict(
+            config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+            params=M.param_count(M.init_model(cfg, device="meta")),
+            init_s=init_s, **rec, cache_bytes_at_2x_max_len=bytes_2x,
+            decode_vs_forward_rel=rel,
+            **place_served(cfg, rec["tokens_per_s"]),
+            seconds=time.perf_counter() - t0)
+        for name, n in cells[arch]["placement_launches"].items():
+            total[name] = total.get(name, 0) + n
+        check(cells[arch]["placement_launches"]["placement_power"] >= 1,
+              f"serve {arch}: its placement launched no placement_power")
+    emit("serve_ssm", cells=cells, launches=total,
          launches_float32=total_f32,
          seconds_total=time.perf_counter() - t_all)
     return total, total_f32
@@ -3026,6 +3238,11 @@ def main() -> int:
         kernels[name]["launches_moe"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_moe_float32"] = n
+    launches, launches_f32 = phase_serve_ssm()
+    for name, n in launches.items():
+        kernels[name]["launches_ssm"] = n
+    for name, n in launches_f32.items():
+        kernels[name]["launches_ssm_float32"] = n
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

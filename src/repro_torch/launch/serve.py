@@ -8,10 +8,10 @@ Serves the architecture's smoke configuration with random weights from
 ``--seed`` on ``--device`` (default: the CUDA card), prints the first
 request's generated ids and the token rate, then places the full
 architecture at that rate on the datacenter CFN through the energy-aware
-scheduler, one JSON line per placement.  Architectures whose block kinds
-the port does not run yet (the SSM and hymba kinds, whisper's
-encoder-decoder, internvl2's patch stub) raise ``NotImplementedError``
-naming their ROADMAP item.
+scheduler, one JSON line per placement.  The dense, MoE-family, xLSTM
+and hymba architectures serve; whisper-base (encoder-decoder) and
+internvl2-2b (the patch stub) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 

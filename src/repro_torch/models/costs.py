@@ -5,13 +5,10 @@
 activation bytes into the paper's VSR abstraction.  The counts come from
 parameter shapes: the reference traces ``init_model`` with
 ``jax.eval_shape``; the port makes the same shapes on the ``meta`` device,
-which allocates nothing.  ``layer_costs`` needs only each block's shapes,
-so it also covers the hymba block kinds, whose forward pass the port's
-model stack does not run yet (ROADMAP Queue 1, item 8).
+which allocates nothing.  ``layer_costs`` needs only each block's shapes.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -43,31 +40,11 @@ def param_breakdown(cfg: ArchConfig) -> Dict[str, int]:
 
 def _block_sizes(cfg: ArchConfig, kind: str) -> Tuple[int, int]:
     """(parameters, of which expert weights) of one block of ``kind``, from
-    the shapes the reference's ``init_block`` makes, on the meta device.
-    Block kinds past the attention, MoE-family and hymba ones raise."""
+    the shapes ``init_block`` makes, on the meta device.  Block kinds the
+    port does not run (whisper's ``dec_attn``) raise, naming their ROADMAP
+    item."""
     ini = L.Init(None, torch.device("meta"), torch.float32)
-    D = cfg.d_model
-    if kind in M.KINDS:
-        M.init_block(ini, cfg, kind)
-    elif kind in ("hymba_local", "hymba_global"):
-        # attention and mamba heads in parallel (the reference's
-        # ssm.init_mamba shapes), then the MLP
-        Din, St = cfg.ssm_expand * D, cfg.ssm_state
-        dt_rank = max(1, math.ceil(D / 16))
-        ini.mk("ln1", (D,), mode="zeros")
-        L.init_attention(ini, cfg, prefix="attn_")
-        for name, shape in (("in_proj", (D, 2 * Din)),
-                            ("conv_w", (cfg.conv_kernel, Din)),
-                            ("x_proj", (Din, dt_rank + 2 * St)),
-                            ("dt_proj", (dt_rank, Din)), ("dt_bias", (Din,)),
-                            ("A_log", (Din, St)), ("D_skip", (Din,)),
-                            ("out_proj", (Din, D))):
-            ini.mk("mamba_" + name, shape)
-        ini.mk("ln2", (D,), mode="zeros")
-        L.init_mlp(ini, D, cfg.d_ff, cfg.n_layers)
-    else:
-        raise NotImplementedError(f"the cost of block kind {kind!r} "
-                                  f"{M._TODO}")
+    M.init_block(ini, cfg, kind)
     total = sum(t.numel() for t in ini.params.values())
     expert = sum(t.numel() for name, t in ini.params.items()
                  if name.startswith("we_"))
@@ -80,8 +57,8 @@ def layer_costs(cfg: ArchConfig, context: int = 2048,
 
     One transformer layer == one VM in the paper's abstraction.  Inference
     cost: 2 FLOPs per active parameter (a MoE block's experts count
-    top_k / n_experts) plus the attention context term at the given
-    context length.
+    top_k / n_experts) plus, for every kind that attends (not mLSTM or
+    sLSTM), the attention context term at the given context length.
     """
     H, Dh = cfg.n_heads, cfg.head_dim
     gflops: List[float] = []
@@ -93,8 +70,11 @@ def layer_costs(cfg: ArchConfig, context: int = 2048,
                 n, expert = sizes[kind]
                 if cfg.moe and kind in ("attn_moe", "mla_moe"):
                     n = n - expert + expert * cfg.top_k / cfg.n_experts
-                w = M.block_window(cfg, kind)
-                kv = min(w, context) if w else context
-                gflops.append((2.0 * n + 4.0 * kv * H * Dh) / 1e9)
+                fl = 2.0 * n
+                if kind not in M.SSM_KINDS:
+                    w = M.block_window(cfg, kind)
+                    kv = min(w, context) if w else context
+                    fl += 4.0 * kv * H * Dh
+                gflops.append(fl / 1e9)
                 act_bytes.append(2.0 * cfg.d_model)
     return gflops, act_bytes

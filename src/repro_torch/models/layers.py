@@ -29,8 +29,8 @@ from ..kernels.flash_attention import (DECODE_DIRECT_MAX_Q, direct_attention,
                                        flash_attention, softcap)
 from .config import ArchConfig
 
-__all__ = ["Init", "rms_norm", "rope", "softcap", "flash_attention",
-           "direct_attention", "attend", "init_attention", "attention",
+__all__ = ["Init", "FLOAT32_LEAVES", "leaf_dtype", "rms_norm", "rope",
+           "softcap", "flash_attention", "direct_attention", "attend", "init_attention", "attention",
            "init_mla", "mla_attention", "init_mlp", "mlp", "init_moe",
            "moe", "moe_plan", "route", "queue_ranks", "moe_dropped",
            "DECODE_DIRECT_MAX_Q"]
@@ -40,13 +40,31 @@ __all__ = ["Init", "rms_norm", "rope", "softcap", "flash_attention",
 # ---------------------------------------------------------------------------
 
 
+# leaves the reference reads in float32 whatever the activation dtype:
+# mamba's A_log (src/repro/models/ssm.py:318) and sLSTM's recurrent
+# matrices (ssm.py:243); rounding them would change every recurrence step
+FLOAT32_LEAVES = ("A_log", "rz", "ri", "rf", "ro")
+
+
+def leaf_dtype(name: str, ndim: int, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a parameter leaf is kept in: float32 for 1-D leaves (norm
+    scales, biases: the reference reads them in float32 or casts them at
+    use) and for ``FLOAT32_LEAVES`` under any prefix, ``dtype`` for the
+    other matrices."""
+    if ndim == 1 or any(name == leaf or name.endswith("_" + leaf)
+                        for leaf in FLOAT32_LEAVES):
+        return torch.float32
+    return dtype
+
+
 class Init:
     """Collects named parameter tensors, made from one ``torch.Generator``.
 
     The reference's scales: normal with 1/sqrt(fan_in) unless given, zeros
-    for norms.  Matrices are made in ``dtype`` (drawn in float32, cast
-    once); 1-D norm scales stay float32, as the reference reads them in
-    ``rms_norm``.  On the ``meta`` device nothing is allocated or drawn.
+    for norms, ones where asked (mamba's ``A_log`` and ``D_skip``).
+    Leaves take ``leaf_dtype``: matrices are made in ``dtype`` (drawn in
+    float32, cast once); 1-D leaves and ``FLOAT32_LEAVES`` stay float32.
+    On the ``meta`` device nothing is allocated or drawn.
     """
 
     def __init__(self, generator: Optional[torch.Generator],
@@ -56,11 +74,13 @@ class Init:
 
     def mk(self, name: str, shape, scale: Optional[float] = None,
            mode: str = "normal") -> None:
-        dtype = torch.float32 if len(shape) == 1 else self.dtype
+        dtype = leaf_dtype(name, len(shape), self.dtype)
         if self.device.type == "meta":
             val = torch.empty(shape, dtype=dtype, device=self.device)
         elif mode == "zeros":
             val = torch.zeros(shape, dtype=dtype, device=self.device)
+        elif mode == "ones":
+            val = torch.ones(shape, dtype=dtype, device=self.device)
         else:
             if scale is None:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]

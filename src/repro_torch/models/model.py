@@ -10,8 +10,10 @@ runs ``remat_policy="none"``).  The JAX package's ``shard(...)`` calls are
 no-ops on one device and are dropped.
 
 Runs the attention block kinds (``attn`` / ``attn_local`` /
-``attn_global``) and the MoE family's (``attn_moe``, and MLA's
-``mla_dense`` / ``mla_moe``); the SSM and hymba kinds, the
+``attn_global``), the MoE family's (``attn_moe``, and MLA's
+``mla_dense`` / ``mla_moe``), the recurrent ones (xLSTM's ``mlstm`` /
+``slstm``, ``models/ssm.py``) and hymba's hybrid ``hymba_local`` /
+``hymba_global`` (attention and mamba side by side); the
 encoder-decoder and the VLM patch stub raise ``NotImplementedError``
 naming the ROADMAP item that brings them.
 """
@@ -26,13 +28,18 @@ import torch
 from torch import nn
 
 from ..core.power import Device, resolve_device
+from . import ssm
 from .config import ArchConfig
 from .layers import (Init, attention, init_attention, init_mla, init_mlp,
-                     init_moe, mla_attention, mlp, moe, rms_norm, softcap)
+                     init_moe, leaf_dtype, mla_attention, mlp, moe, rms_norm,
+                     softcap)
+from .tree import tmap
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
 MOE_KINDS = ("attn_moe", "mla_dense", "mla_moe")
-KINDS = ATTN_KINDS + MOE_KINDS
+SSM_KINDS = ("mlstm", "slstm")
+HYBRID_KINDS = ("hymba_local", "hymba_global")
+KINDS = ATTN_KINDS + MOE_KINDS + SSM_KINDS + HYBRID_KINDS
 _TODO = "comes with its slice (ROADMAP Queue 1, item 8)"
 
 # ---------------------------------------------------------------------------
@@ -168,10 +175,17 @@ def _dense_ff(cfg: ArchConfig) -> int:
 
 def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
     _check_kind(kind)
+    if kind == "mlstm":
+        return ssm.init_mlstm_block(ini, cfg)
+    if kind == "slstm":
+        return ssm.init_slstm_block(ini, cfg)
     D = cfg.d_model
     ini.mk("ln1", (D,), mode="zeros")
     if kind.startswith("mla"):
         init_mla(ini, cfg)
+    elif kind in HYBRID_KINDS:
+        init_attention(ini, cfg, prefix="attn_")
+        ssm.init_mamba(ini, cfg, prefix="mamba_")
     else:
         init_attention(ini, cfg)
     ini.mk("ln2", (D,), mode="zeros")
@@ -184,8 +198,25 @@ def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 positions: torch.Tensor, cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One block of ``kind``; its cache slice (``serve.cache``) is
+    written in place and returned."""
     _check_kind(kind)
+    if kind == "mlstm":
+        return x + ssm.mlstm_block(params, x, cfg, state=cache), cache
+    if kind == "slstm":
+        return x + ssm.slstm_block(params, x, cfg, state=cache), cache
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    if kind in HYBRID_KINDS:
+        # attention and mamba heads on the same input, mean-combined
+        a, _ = attention(params, h, cfg, positions=positions,
+                         cache=None if cache is None else cache["attn"],
+                         window=block_window(cfg, kind), prefix="attn_")
+        m = ssm.mamba(params, h, cfg,
+                      state=None if cache is None else cache["mamba"],
+                      prefix="mamba_")
+        x = x + 0.5 * (a + m)
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp(params, h), cache
     if kind.startswith("mla"):
         a, new_cache = mla_attention(params, h, cfg, positions=positions,
                                      cache=cache)
@@ -244,24 +275,25 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
     module (expert weights ``[repeats, E, D, F]`` become ``[E, D, F]``).
     Matrices are cast once to ``cfg.dtype``, where the reference casts
     each weight to the activation dtype at every use: the numbers are the
-    same.  1-D norm scales stay float32, as the reference reads
-    them in float32."""
+    same.  Leaves stay float32 where ``layers.leaf_dtype`` says (1-D norm
+    scales and biases, ``A_log``, sLSTM's ``r*``), as ``init_model`` makes
+    them."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
 
-    def conv(a) -> torch.Tensor:
+    def conv(name: str, a) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=dev, dtype=torch.float32 if t.dim() == 1 else dt)
+        return t.to(device=dev, dtype=leaf_dtype(name, t.dim(), dt))
 
-    top = {k: conv(tree[k]) for k in ("embed", "final_norm", "lm_head")
+    top = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head")
            if k in tree}
     groups = []
     for gi, grp in enumerate(layer_plan(cfg)):
         gtree = tree[f"g{gi}"]
         units = []
         for r in range(grp.repeats):
-            units.append({f"b{j}": {name: conv(np.asarray(a)[r])
+            units.append({f"b{j}": {name: conv(name, np.asarray(a)[r])
                                     for name, a in gtree[f"b{j}"].items()}
                           for j in range(len(grp.kinds))})
         groups.append(units)
@@ -284,13 +316,14 @@ def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
     """Run x through all layer groups, one layer at a time.  ``caches``
     (``serve.cache.zeros``) is a per-group list whose leaves carry the
     group's ``repeats`` axis first; each layer reads and writes its slice
-    in place, and the same list comes back."""
+    (the whole tree of views: hymba's ``{attn, mamba}``, mLSTM's ``cell``
+    tuple) in place, and the same list comes back."""
     for gi, grp in enumerate(plan):
         gcache = None if caches is None else caches[gi]
         for r, unit in enumerate(model.groups[gi]):
             for j, kind in enumerate(grp.kinds):
-                c = None if gcache is None else {
-                    name: buf[r] for name, buf in gcache[f"b{j}"].items()}
+                c = None if gcache is None else tmap(
+                    lambda buf: buf[r], gcache[f"b{j}"])
                 x, _ = apply_block(unit[f"b{j}"], x, cfg, kind,
                                    positions=positions, cache=c)
     return x, caches

@@ -1,5 +1,5 @@
-"""Decode-state (KV cache) specifications of the port, attention and MLA
-kinds (the reference's ``serve/cache.py``).
+"""Decode-state (KV cache / recurrent state) specifications of the port
+(the reference's ``serve/cache.py``).
 
 Caches mirror the layer plan: a list with one entry per layer group, each a
 dict ``{"b{j}": leaves}`` whose leaves carry the group's ``repeats`` axis
@@ -10,9 +10,11 @@ torch tensors on a device.
 Sizing: a full-attention layer holds ``Smax = max_len`` slots, a
 sliding-window layer ``min(window, max_len)`` (a ring buffer).  An MLA
 layer holds the compressed KV (``kv_lora_rank + rope_head_dim`` values a
-token) in place of per-head K and V.  The cache dtype must be the model's
-activation dtype: the port writes the cache in place.  SSM and
-cross-attention states come with their slices.
+token) in place of per-head K and V.  mLSTM, sLSTM and mamba states are
+O(1) in the sequence length and float32 (hymba's cache is its attention
+K/V beside its mamba state).  The KV cache dtype must be the model's
+activation dtype: the port writes the cache in place.  The
+cross-attention cache comes with its slice.
 """
 from __future__ import annotations
 
@@ -24,33 +26,15 @@ import torch
 
 from ..core.power import Device, resolve_device
 from ..models.config import ArchConfig
-from ..models.model import KINDS, _TODO, block_window, layer_plan
+from ..models.model import (HYBRID_KINDS, KINDS, _TODO, block_window,
+                            layer_plan)
+from ..models.tree import leaves, tmap
 
 
 @dataclass(frozen=True)
 class TSpec:
     shape: Tuple[int, ...]
     dtype: Any
-
-
-def tmap(fn, tree):
-    if isinstance(tree, TSpec):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: tmap(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tmap(fn, v) for v in tree)
-    raise TypeError(f"not a spec tree: {type(tree)}")
-
-
-def leaves(tree) -> List:
-    """The spec tree's leaves in the reference's pytree order (dict keys
-    sorted)."""
-    if isinstance(tree, TSpec):
-        return [tree]
-    items = ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
-             else tree)
-    return [leaf for sub in items for leaf in leaves(sub)]
 
 
 def zeros(tree, device: Device = None):
@@ -78,14 +62,43 @@ def _mla_spec(cfg: ArchConfig, B: int, smax: int, dtype) -> Dict:
                 pos_ids=TSpec((smax,), torch.int32))
 
 
+def _mlstm_spec(cfg: ArchConfig, B: int) -> Dict:
+    Din = cfg.ssm_expand * cfg.d_model
+    H = cfg.n_heads
+    dqk, dv = Din // H // 2, Din // H
+    f32 = torch.float32
+    return dict(conv=TSpec((B, cfg.conv_kernel - 1, Din), f32),
+                cell=(TSpec((B, H, dqk, dv), f32), TSpec((B, H, dqk), f32),
+                      TSpec((B, H), f32)))
+
+
+def _slstm_spec(cfg: ArchConfig, B: int) -> Dict:
+    H = cfg.n_heads
+    t = TSpec((B, H, cfg.d_model // H), torch.float32)
+    return dict(h=t, c=t, n=t, m=t)
+
+
+def _mamba_spec(cfg: ArchConfig, B: int) -> Dict:
+    Din = cfg.ssm_expand * cfg.d_model
+    return dict(conv=TSpec((B, cfg.conv_kernel - 1, Din), torch.float32),
+                h=TSpec((B, Din, cfg.ssm_state), torch.float32))
+
+
 def block_cache_spec(cfg: ArchConfig, kind: str, B: int, max_len: int,
                      dtype=torch.bfloat16) -> Dict:
     if kind not in KINDS:
         raise NotImplementedError(f"cache of block kind {kind!r} {_TODO}")
+    if kind == "mlstm":
+        return _mlstm_spec(cfg, B)
+    if kind == "slstm":
+        return _slstm_spec(cfg, B)
     window = block_window(cfg, kind)
     smax = min(window, max_len) if window else max_len
     if kind.startswith("mla"):
         return _mla_spec(cfg, B, smax, dtype)
+    if kind in HYBRID_KINDS:
+        return dict(attn=_attn_spec(cfg, B, smax, dtype),
+                    mamba=_mamba_spec(cfg, B))
     return _attn_spec(cfg, B, smax, dtype)
 
 

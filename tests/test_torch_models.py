@@ -1,8 +1,9 @@
 """Model-serving slice of the PyTorch port against the JAX package: the
 qwen3-4b smoke configuration with the JAX weights carried across
-(``params_from_numpy``), the KV-cache specs, parameter counts and costs
-(the MoE family's too), the architecture-to-VSR bridge, and the serving
-CLI.
+(``params_from_numpy``), the recurrent ones (xlstm-1.3b, hymba-1.5b) end
+to end, the KV-cache and recurrent-state specs, parameter counts and costs
+(the MoE family's and the recurrent ones' too), the architecture-to-VSR
+bridge, and the serving CLI.
 
 Tolerances: float32 logits and hidden states rtol 1e-4 / atol 1e-4 (the
 same arithmetic, summed in another order); greedy ids equal; bfloat16
@@ -30,6 +31,9 @@ DENSE = ("qwen3-4b", "h2o-danube-3-4b", "gemma2-27b", "command-r-plus-104b")
 # the architectures the port serves: the dense ones and the MoE family
 # (tests/test_torch_moe.py and tests/test_torch_mla.py hold its blocks)
 SERVED = DENSE + ("olmoe-1b-7b", "deepseek-v2-236b")
+# the recurrent architectures (tests/test_torch_ssm.py holds their blocks)
+RECURRENT = ("xlstm-1.3b", "hymba-1.5b")
+SERVED = SERVED + RECURRENT
 B, S, GEN = 2, 16, 8
 # the reference's entry points, compiled (cfg and n_steps static)
 j_forward = jax.jit(JM.forward_hidden, static_argnums=1)
@@ -195,10 +199,14 @@ def test_from_architecture_matches_reference(arch):
                                    rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ("olmoe-1b-7b", "deepseek-v2-236b")
+                         + RECURRENT)
 def test_moe_family_costs_match_reference(arch):
     """The full configs' parameter split (expert, active) and per-layer
-    costs (a MoE layer's experts at top_k / n_experts) on meta."""
+    costs on meta, for the MoE family (a MoE layer's experts at top_k /
+    n_experts) and the recurrent models (no attention term for mLSTM and
+    sLSTM layers; hymba's attention and mamba branches from their
+    shapes)."""
     cfg_j, cfg_t = jconfigs.get(arch), tconfigs.get(arch)
     assert tcosts.param_breakdown(cfg_t) == jcosts.param_breakdown(cfg_j)
     for ctx in (2048, 1064):
@@ -208,9 +216,97 @@ def test_moe_family_costs_match_reference(arch):
         assert got[1] == want[1]
 
 
+# the prompt of the recurrent models' parity test: 128 tokens take
+# xlstm's chunkwise mLSTM (one chunk of 128); hymba's 64 fill its smoke
+# window's ring buffer (64 slots), so the decode step wraps to slot 0
+RECURRENT_PROMPT = {"xlstm-1.3b": 128, "hymba-1.5b": 64}
+
+
+@pytest.fixture(scope="module", params=RECURRENT)
+def recurrent_f32(request):
+    return request.param, _pair(request.param, "float32")
+
+
+def test_recurrent_forward_prefill_decode_match_f32(recurrent_f32):
+    """The forward pass from no state (the stabilizer m at -inf), a
+    prefill into a zeros cache (m at 0) and one decode step, against the
+    reference's ``forward_hidden`` and ``engine``: hidden states, logits
+    and every cache leaf (written in place); then the cached decode
+    against the port's own forward over the whole sequence (the
+    reference's bound, 3e-2 of the largest logit)."""
+    arch, (jcfg, jparams, tcfg, model) = recurrent_f32
+    P = RECURRENT_PROMPT[arch]
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab, (B, P + 1)) \
+        .astype(np.int32)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    h_j = j_forward(jparams, jcfg, {"tokens": jtok[:, :P]})
+    h_t = TM.forward_hidden(model, tcfg, {"tokens": ttok[:, :P]})
+    np.testing.assert_allclose(_np(h_t), _np(h_j), rtol=1e-4, atol=2e-4)
+
+    max_len = P + 8
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, max_len, dtype=jnp.float32))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                      device="cpu")
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :P]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :P]},
+                                 tcache)
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-4, atol=2e-4)
+    jleaves = jax.tree_util.tree_leaves(jcache)
+    tleaves = TC.leaves(tcache)
+    assert len(tleaves) == len(jleaves)
+    for a, b in zip(tleaves, jleaves):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=2e-4)
+    dj, _ = j_decode(jparams, jcfg, jtok[:, P:], jnp.asarray(P, jnp.int32),
+                     jcache)
+    dt, tcache = tengine.decode_step(model, tcfg, ttok[:, P:], P, tcache)
+    np.testing.assert_allclose(_np(dt), _np(dj), rtol=1e-4, atol=2e-4)
+    h_all = TM.forward_hidden(model, tcfg, {"tokens": ttok})
+    assert _rel(dt, TM.logits_fn(model, tcfg, h_all[:, -1:])[:, 0]) < 3e-2
+
+
+def test_recurrent_greedy_generate_ids_equal_f32(recurrent_f32):
+    arch, (jcfg, jparams, tcfg, model) = recurrent_f32
+    toks = _tokens(jcfg.vocab, seed=5)
+    max_len = S + GEN + 8
+    jseq, _ = j_generate(
+        jparams, jcfg, {"tokens": jnp.asarray(toks)},
+        JC.zeros(JC.cache_spec(jcfg, B, max_len)), GEN)
+    tseq, _ = tengine.greedy_generate(
+        model, tcfg, {"tokens": torch.as_tensor(toks)},
+        TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                 device="cpu"), GEN)
+    np.testing.assert_array_equal(tseq.numpy(), np.asarray(jseq))
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_decode_bf16_within_reference_bound(arch):
+    jcfg, jparams, tcfg, model = _pair(arch, "bfloat16")
+    toks = _tokens(jcfg.vocab, seed=3)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, S + 8))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, S + 8), device="cpu")
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :-1]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :-1]},
+                                 tcache)
+    assert _rel(lt, lj) < 3e-2
+    dj, _ = j_decode(jparams, jcfg, jtok[:, -1:],
+                     jnp.asarray(S - 1, jnp.int32), jcache)
+    dt, _ = tengine.decode_step(model, tcfg, ttok[:, -1:], S - 1, tcache)
+    assert _rel(dt, dj) < 3e-2
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_cache_bytes_against_max_len(arch):
+    """xlstm's state is O(1): its cache bytes do not grow with max_len;
+    hymba's attention K/V do."""
+    cfg = tconfigs.get(arch)
+    nbytes = [TC.cache_bytes(TC.cache_spec(cfg, 8, n))
+              for n in (1064, 2 * 1064)]
+    assert (nbytes[0] == nbytes[1]) == (arch == "xlstm-1.3b")
+
+
 def test_unported_kinds_raise():
-    for arch in ("xlstm-1.3b", "hymba-1.5b", "whisper-base",
-                 "internvl2-2b"):
+    for arch in ("whisper-base", "internvl2-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.init_model(tconfigs.get_smoke(arch), device="meta")
 
@@ -232,6 +328,20 @@ def test_serve_cli_moe_smoke_on_cpu(capsys):
     assert len(placed[0]["nodes"]) == 5 and placed[0]["power_w"] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(["--arch", "whisper-base", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_serve_cli_recurrent_smoke_on_cpu(arch, capsys):
+    """The serving CLI on xlstm's and hymba's smoke configs on the CPU."""
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
+                       "--gen", "4", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(json.loads(lines[0].split(":", 1)[1])) == 4
+    assert "tok/s on CPU" in lines[1]
+    placed = [json.loads(ln) for ln in lines[2:]]
+    assert len(placed) == 1 and placed[0]["service"] == arch
+    assert len(placed[0]["nodes"]) == 5 and placed[0]["power_w"] > 0
 
 
 def test_layer_plan_and_registry_match_reference():
