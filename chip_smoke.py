@@ -39,8 +39,9 @@ nvcc per source, in parallel), then
      and 8 arrivals, each one batched re-solve re-scored by
      placement_power, then an amortized defrag tick over 8 rows), each
      wave held to the oracle and its warm start, its seconds split by
-     stage beside 3d's per event; then the admission plane on the same
-     placement: a zero-watt brownout, a wave whose class-0 arrival
+     stage beside 3d's per event; then the admission plane on 16 of
+     those services, placed by a solve of their own and adopted: a
+     zero-watt brownout, a wave whose class-0 arrival
      preempts the two class-1 services, the queue's order and counters,
      and its drain when the brownout ends;
   3f. drives the fault plane there with a ``PlacementMonitor``: on the
@@ -73,7 +74,10 @@ nvcc per source, in parallel), then
      reference's test shapes, their decode steps and more wgmma shapes,
      and at the serving path's prefill and decode shapes, at hymba-1.5b's
      (G 5, D 64, a 1024-slot window ring: the prefill, and the decode
-     step that wraps to slot 0), and deepseek-v2's
+     step that wraps to slot 0), at phase 5d's (whisper-base's
+     non-causal encoder and cross-attention prefill on the wgmma kernel,
+     its non-causal cross-attention decode on split-KV, internvl2-2b's
+     prefill), and deepseek-v2's
      MLA prefill shape (D 192, Dv 128, 128 heads), where the dispatch
      takes the wgmma kernel; times each new kernel there in turns with the
      SIMT kernel, beside SDPA (timed only, as a yardstick), and counts the
@@ -107,7 +111,16 @@ nvcc per source, in parallel), then
      at position 1024, past the window, against the forward pass over
      1025 tokens in float32 on 2 prompts (attention on the SIMT kernel
      and split-KV, counted apart); places each served model on the
-     datacenter CFN.
+     datacenter CFN;
+  5d. serves whisper-base (6 encoder and 6 decoder layers, 1500 frames,
+     a 187-token decoder prompt; 18 wgmma prefill calls -- encoder,
+     self- and cross-attention -- and 372 split-KV decode calls, 0 SIMT,
+     checked; its cross cache unchanged by the decode steps, checked) and
+     internvl2-2b (256 patches before 768 text tokens; 24 wgmma and 744
+     split-KV calls, checked) at full width and depth through the same
+     protocol; cached decode against the forward pass in bf16 and in
+     float32 on 2 prompts (both checked); places each served model on
+     the datacenter CFN, both placement kernels launched.
 
 Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
@@ -115,10 +128,11 @@ kernels line (launches on the main paths: the placement kernels' in phase
 ``launches_federation`` / ``launches_telemetry``, in phases 3d / 3e / 3f /
 3g / 3h, the global anneal
 variant's in phase 3c, the flash
-kernels' in phase 5, and every kernel's in phases 5b and 5c as
-``launches_moe`` / ``launches_ssm`` (the placement kernels' in the served
-models' placements) and, for the flash kernels,
-``launches_moe_float32`` / ``launches_ssm_float32`` (the float32 checks);
+kernels' in phase 5, and every kernel's in phases 5b, 5c and 5d as
+``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` (the placement
+kernels' in the served models' placements) and, for the flash kernels,
+``launches_moe_float32`` / ``launches_ssm_float32`` /
+``launches_encdec_float32`` (the float32 checks);
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
@@ -196,36 +210,38 @@ def placement_power_bound(Xf, operands):
     return bound_ms(n_bytes, n_ops)
 
 
-def _attended(q_pos, kv_pos):
-    """[Sq, Skv] bool: the causal pairs some query attends (kv position
-    >= 0 and <= the query's)."""
-    rel = q_pos[:, None].long() - kv_pos[None, :].long()
-    return (kv_pos >= 0)[None, :] & (rel >= 0)
+def _attended(q_pos, kv_pos, causal=True):
+    """[Sq, Skv] bool: the pairs some query attends: kv position >= 0 and,
+    with ``causal``, <= the query's."""
+    ok = (kv_pos >= 0)[None, :].expand(q_pos.shape[0], -1)
+    if causal:
+        ok = ok & (q_pos[:, None].long() >= kv_pos[None, :].long())
+    return ok
 
 
-def flash_attention_ops(q, k, v, q_pos, kv_pos) -> float:
-    """Operations of one causal flash-attention call on these inputs: the
-    two products, 2 * (D + Dv) per unmasked (query head, kv slot) pair."""
+def flash_attention_ops(q, k, v, q_pos, kv_pos, causal=True) -> float:
+    """Operations of one flash-attention call on these inputs: the two
+    products, 2 * (D + Dv) per unmasked (query head, kv slot) pair."""
     B, _, H, D = q.shape
-    pairs = int(_attended(q_pos, kv_pos).sum())
+    pairs = int(_attended(q_pos, kv_pos, causal).sum())
     return 2.0 * (D + v.shape[-1]) * pairs * B * H
 
 
-def flash_attention_bound(q, k, v, q_pos, kv_pos):
-    """Least time of one causal flash-attention call on these inputs: q
-    and both position vectors read once, the K/V rows of the slots some
-    query attends read once (an unwritten cache slot, position -1, never
+def flash_attention_bound(q, k, v, q_pos, kv_pos, causal=True):
+    """Least time of one flash-attention call on these inputs: q and both
+    position vectors read once, the K/V rows of the slots some query
+    attends read once (an unwritten cache slot, position -1, never
     affects the output, so a kernel need not read it), the output written
     once; against ``flash_attention_ops`` at the bf16 dense tensor-core
     rate."""
     B, Sq, H, D = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
-    slots = int(_attended(q_pos, kv_pos).any(0).sum())
+    slots = int(_attended(q_pos, kv_pos, causal).any(0).sum())
     n_bytes = (q.element_size() * (q.numel() + B * Sq * H * Dv
                                    + B * slots * KH * (D + Dv))
                + 4 * (q_pos.numel() + kv_pos.numel()))
-    return bound_ms(n_bytes, flash_attention_ops(q, k, v, q_pos, kv_pos),
-                    BF16_FLOP_PER_S)
+    return bound_ms(n_bytes, flash_attention_ops(q, k, v, q_pos, kv_pos,
+                                                 causal), BF16_FLOP_PER_S)
 
 
 def fused_anneal_bound(args, rows_read, D):
@@ -921,6 +937,13 @@ CHURN_EVENTS = 8
 WAVES = 4
 WAVE_SIZE = 16
 TICK_ROWS = 8
+# phase 3e (ii): the admission plane on the first 16 of those services,
+# placed by a cfn-milp solve of their own (a 64-service placement cut to
+# 16 leaves nodes on that a re-solve switches off, and the zero-watt
+# brownout then admits).  Cut from 64: each refused, preempted or drained
+# admission re-solves the live set (73.5 s of the script's 942 s at 64,
+# NVIDIA H100 80GB HBM3, 700.00 W)
+ADMISSION_R = 16
 
 
 def churn_vsr(sources, sid: int):
@@ -1155,10 +1178,10 @@ def phase_waves(churn_event_s: list) -> dict:
     the wave's warm start, with 64 live services; every tick must not
     raise the objective and must advance its cursor by 8 mod 64.
 
-    (ii) Adopt (i)'s bootstrap placement (no second solve) under
+    (ii) Adopt a cfn-milp placement of (i)'s first ``ADMISSION_R``
+    services (no solve in the adopting engine) under
     ``PlacementSpec(defrag_every=0, priority_classes=2,
-    queue_rejected=True, preempt=True)`` with the last two services in
-    class 1, ``brownout(0.0)``, then one wave of a class-0 and a class-1
+    queue_rejected=True, preempt=True)`` with the last two in class 1, ``brownout(0.0)``, then one wave of a class-0 and a class-1
     arrival: both refused, the class-0 one preempting the two class-1
     services (newest first), four services queued in class-then-FIFO
     order; ``brownout_end()`` drains all four in that order, every commit
@@ -1259,19 +1282,22 @@ def phase_waves(churn_event_s: list) -> dict:
     wave_s = sum(w["seconds"] for w in waves)
 
     # (ii) the admission plane, on (i)'s bootstrap placement
+    n_adm = ADMISSION_R
     services = [vsr.VSRBatch(F=batch.F[i:i + 1], H=batch.H[i:i + 1],
                              src=batch.src[i:i + 1],
                              input_vm=batch.input_vm[i:i + 1])
-                for i in range(batch.R)]
+                for i in range(n_adm)]
     adm = CFNSession(topo, PlacementSpec(
         defrag_every=0, priority_classes=2, queue_rejected=True,
         preempt=True), device="cuda")
     aeng = adm.engine
-    adopted = aeng.bootstrap(services, X0=boot.X[:CHURN_R],
-                             priorities=[0] * (CHURN_R - 2) + [1] * 2)
-    check(abs(adopted.objective - boot.objective)
-          <= 1e-3 + 1e-6 * abs(boot.objective),
-          f"admission: adopted {adopted.objective} vs {boot.objective}")
+    placed = CFNSession(topo, PlacementSpec(defrag_every=0),
+                        device="cuda").solve(vsr.concat_all(services))
+    adopted = aeng.bootstrap(services, X0=placed.X[:n_adm],
+                             priorities=[0] * (n_adm - 2) + [1] * 2)
+    check(abs(adopted.objective - placed.objective)
+          <= 1e-3 + 1e-6 * abs(placed.objective),
+          f"admission: adopted {adopted.objective} vs {placed.objective}")
     hold_to_oracle(adm, "admission: adopted")
     commit, commits = aeng._commit, []
 
@@ -1298,10 +1324,10 @@ def phase_waves(churn_event_s: list) -> dict:
           f"admission: wave verdicts {wr}")
     check(queued == [200, 201] + victims,
           f"admission: queue {queued}, victims {victims}")
-    check(adm.admission == dict(admitted=CHURN_R, rejected=2, queued=2,
+    check(adm.admission == dict(admitted=n_adm, rejected=2, queued=2,
                                 preempted=2),
           f"admission: counters {adm.admission}")
-    check(adm.n_live == CHURN_R - 2 and not set(victims) & set(adm.sids),
+    check(adm.n_live == n_adm - 2 and not set(victims) & set(adm.sids),
           f"admission: {adm.n_live} live after preemption")
     n_commits = len(commits)
     t0 = time.perf_counter()
@@ -1310,7 +1336,7 @@ def phase_waves(churn_event_s: list) -> dict:
     drain_s = time.perf_counter() - t0
     del aeng._commit
     check(adm.sids[-4:] == queued and not aeng.queued_sids
-          and adm.n_live == CHURN_R + 2,
+          and adm.n_live == n_adm + 2,
           f"admission: drained {adm.sids[-4:]}, queue {aeng.queued_sids}")
     check([c["event"] for c in commits[n_commits:]] == ["add"] * 4,
           f"admission: drain commits {commits[n_commits:]}")
@@ -1323,7 +1349,9 @@ def phase_waves(churn_event_s: list) -> dict:
     emit("waves_city_p468_R64",
          cut=f"R={CHURN_R} live services and {WAVES} waves of "
              f"{WAVE_SIZE} events (phase 3d's size): a wave's polish "
-             "sweeps every free VM, padded to R x (V - 1) positions, twice",
+             "sweeps every free VM, padded to R x (V - 1) positions, "
+             f"twice; (ii) on the first {n_adm} of them (cut from "
+             f"{CHURN_R}: each admission re-solves the live set)",
          P=session.problem.P, N=session.problem.N, K=session.problem.K,
          R=session.problem.R, V=session.problem.V,
          bootstrap_s=boot_s, bootstrap_objective=boot.objective,
@@ -2247,12 +2275,12 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sdpa_call(q, k, v, q_pos, kv_pos):
+def sdpa_call(q, k, v, q_pos, kv_pos, causal=True):
     """SDPA on the same inputs (GQA where q has more heads than k,
-    boolean mask from the positions): the library yardstick, timed here
-    and used nowhere in the port."""
+    boolean mask from the positions, ``_attended``'s): the library
+    yardstick, timed here and used nowhere in the port."""
     import torch.nn.functional as F
-    mask = (kv_pos[None, :] >= 0) & (q_pos[:, None] >= kv_pos[None, :])
+    mask = _attended(q_pos, kv_pos, causal).contiguous()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -2341,6 +2369,74 @@ def hymba_attention(held, rnd) -> dict:
           f"without it {gap}")
     out["hymba_decode_wrapped"]["planted_slot"] = {
         "max_abs_err": err, "max_abs_gap_without_slot": gap}
+    return out
+
+
+# phase 5d's attention shapes: whisper-base's 30-second window after its
+# conv stem (n_audio_ctx = 1500 frames) and its decoder prompt of
+# launch/specs.py::dec_len(1500) = max(64, int(1500 x 0.125)) = 187
+# tokens; internvl2-2b's 256 patches before 768 text tokens, the 1024-slot
+# prompt of the reference's token_specs at seq_len 1024
+WHISPER_ENC_LEN, WHISPER_DEC_LEN = 1500, 187
+VLM_TEXT_LEN = 768
+
+
+def encdec_attention(held, rnd) -> dict:
+    """The attention calls of phase 5d at their serving shapes, bf16, 8
+    prompts: whisper-base's encoder (non-causal, 1500 x 1500 frames, H =
+    KH = 8, D 64) and its cross-attention's prefill (187 queries at
+    position 0 over the 1500 encoder slots) on the wgmma kernel, the
+    cross-attention's decode step on split-KV (non-causal, its only mask
+    the slots' positions), and internvl2-2b's causal prefill (H 16, KH 8,
+    D 128; 1024 = 256 + 768 prompt slots written of a 1064-slot cache) on
+    the wgmma kernel.  Each held against both plain versions (prefill
+    2e-2, decode 2e-3), timed as CUDA-graph replays beside SDPA on the
+    same function (the non-causal ones under the mask kv_pos >= 0), with
+    the bound from this call's attended pairs.  ``held`` and ``rnd`` are
+    phase 4's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    bf, i32, dev = torch.bfloat16, torch.int32, torch.device("cuda")
+    ar = lambda n: torch.arange(n, dtype=i32, device=dev)
+    whisper, vlm = configs.get("whisper-base"), configs.get("internvl2-2b")
+    B, E = SERVE_B, WHISPER_ENC_LEN
+    S_vlm = vlm.vision_prefix_tokens + VLM_TEXT_LEN
+    smax_vlm = S_vlm + SERVE_GEN + 8
+    kp_vlm = torch.full((smax_vlm,), -1, dtype=i32, device=dev)
+    kp_vlm[:S_vlm] = ar(S_vlm)
+    zeros = lambda n: torch.zeros(n, dtype=i32, device=dev)
+    # name: config, Sq, Skv, q positions, kv positions, causal, kernel
+    cases = (
+        ("whisper_encoder", whisper, E, E, ar(E), ar(E), False, "wgmma"),
+        ("whisper_cross_prefill", whisper, WHISPER_DEC_LEN, E,
+         zeros(WHISPER_DEC_LEN), ar(E), False, "wgmma"),
+        ("whisper_cross_decode", whisper, 1, E, zeros(1), ar(E), False,
+         "split_kv"),
+        ("internvl2_prefill", vlm, S_vlm, smax_vlm, ar(S_vlm), kp_vlm, True,
+         "wgmma"))
+    out = {}
+    for name, cfg, Sq, Skv, qp, kp, causal, kernel in cases:
+        H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = (rnd(s, bf) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                        (B, Skv, KH, D)))
+        check(fa.choose_kernel(bf, D, D, Sq * H // KH) == kernel,
+              f"flash {name}: the dispatch does not choose {kernel}")
+        tol = 2e-2 if kernel == "wgmma" else 2e-3
+        rec = {"shape": [B, H, KH, Sq, Skv, D], "causal": causal,
+               "kernel": kernel,
+               kernel: held(q, k, v, qp, kp, tol, causal=causal)}
+        reps = 20 if kernel == "wgmma" else 200
+        rec[kernel]["graph_ms"] = graph_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal),
+            reps)
+        rec["library_graph_ms"] = graph_ms(
+            sdpa_call(q, k, v, qp, kp, causal), reps)
+        rec["bound_ms"], rec["bound_by"] = flash_attention_bound(
+            q, k, v, qp, kp, causal)
+        rec["tflop_per_s"] = flash_attention_ops(
+            q, k, v, qp, kp, causal) / (rec[kernel]["graph_ms"] * 1e-3) / 1e12
+        out[name] = rec
     return out
 
 
@@ -2495,6 +2591,7 @@ def phase_flash(kernels: dict) -> None:
                                      "max_abs_gap_without_slot": gap}
     del q, k, v, vp
     out.update(hymba_attention(held, rnd))
+    out.update(encdec_attention(held, rnd))
     # deepseek-v2's MLA prefill (phase 5b): K of 128 + 64 rope dims, V of
     # 128, 128 heads, no GQA.  The dispatch takes the wgmma kernel; it is
     # held and timed in turns with the SIMT kernel forced (SIMT, wgmma,
@@ -2568,6 +2665,14 @@ def phase_flash(kernels: dict) -> None:
                      ("hymba_decode_wrapped", "split_kv")):
         kernels[f"flash_attention_{kn}"][f"ms_{name}"] = out[name][kn][
             "graph_ms"]
+    for name in ("whisper_encoder", "whisper_cross_prefill",
+                 "whisper_cross_decode", "internvl2_prefill"):
+        rec = out[name]
+        kernels[f"flash_attention_{rec['kernel']}"].update({
+            f"ms_{name}": rec[rec["kernel"]]["graph_ms"],
+            f"library_ms_{name}": rec["library_graph_ms"],
+            f"bound_ms_{name}": rec["bound_ms"],
+            f"bound_by_{name}": rec["bound_by"]})
     kernels["flash_attention_simt"].update(
         ms_mla_prefill_before=min(mla["simt"]["graph_ms"]),
         ms_qwen_prefill=min(out["prefill"]["simt"]["graph_ms"]))
@@ -2596,7 +2701,7 @@ def device_events(prof, tree: bool) -> dict:
     return by_name
 
 
-def serve_profile(model, cfg, tokens, cache, cross_check=False) -> dict:
+def serve_profile(model, cfg, batch, cache, cross_check=False) -> dict:
     """Device activity of one prefill and one decode step of the serving
     path (under the profiler, whose own host cost is in the wall time):
     wall ms, CUDA kernels, the share of the wall time the device was busy
@@ -2609,11 +2714,12 @@ def serve_profile(model, cfg, tokens, cache, cross_check=False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine
-    B, S = tokens.shape
-    steps = {"prefill": lambda: engine.prefill(
-                 model, cfg, {"tokens": tokens}, cache),
+    tokens = batch["tokens"]
+    prompt_len = tokens.shape[1] + (cfg.vision_prefix_tokens or 0)
+    steps = {"prefill": lambda: engine.prefill(model, cfg, batch, cache),
              "decode_step": lambda: engine.decode_step(
-                 model, cfg, tokens[:, -1:], S + SERVE_GEN - 1, cache)}
+                 model, cfg, tokens[:, -1:], prompt_len + SERVE_GEN - 1,
+                 cache)}
     out = {}
     for name, fn in steps.items():
         torch.cuda.synchronize()
@@ -2650,19 +2756,34 @@ def serve_profile(model, cfg, tokens, cache, cross_check=False) -> dict:
     return out
 
 
-def serve_protocol(model, cfg, tokens, spec, want: dict,
-                   cross_check=False) -> dict:
-    """Phase 5's protocol on a built model: a cold, then a warm
+def cross_leaves(cache) -> list:
+    """The cross-attention cache's K/V buffers of an encoder-decoder's
+    cache (none for other models)."""
+    from repro_torch.serve import cache as C
+    return [t for g in cache for blk in g.values()
+            if isinstance(blk, dict) and "cross" in blk
+            for t in C.leaves(blk["cross"])]
+
+
+def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
+                   max_len: int = SERVE_SMAX) -> dict:
+    """Phase 5's protocol on a built model and its prompt ``batch``
+    (tokens, and frames or patches): a cold, then a warm
     ``greedy_generate`` call (the main path as a user runs it, synchronized
     only around the whole call), the warm call's flash launches by kernel
-    equal to ``want``; then a step-by-step pass, synchronized per step, its
-    logits finite and its ids those of the calls; then the serving profile
-    (``cross_check``: its two readers held together).  Returns the fields
-    to print ("launches", "tokens_per_s", ...)."""
+    equal to ``want``; then a step-by-step pass, synchronized per step,
+    decoding after the prompt and any patch prefix, its logits finite and
+    its ids those of the calls (an encoder-decoder's cross cache checked
+    byte-equal after the last decode step to its state after prefill);
+    then the serving profile (``cross_check``: its two readers held
+    together).  Returns the fields to print ("launches", "tokens_per_s",
+    ...)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import cache as C, engine
+    tokens = batch["tokens"]
     (B, S), GEN, dev = tokens.shape, SERVE_GEN, tokens.device
+    prompt_len = S + (cfg.vision_prefix_tokens or 0)
     # the first call is cold (cuBLAS picks its kernels, the allocator
     # grows); the second, on a fresh cache, is the one timed for tokens/s
     # and whose launches are counted
@@ -2672,8 +2793,7 @@ def serve_protocol(model, cfg, tokens, spec, want: dict,
         torch.cuda.synchronize()
         fa.reset_launches()
         t0 = time.perf_counter()
-        seq, cache = engine.greedy_generate(model, cfg, {"tokens": tokens},
-                                            cache, GEN)
+        seq, cache = engine.greedy_generate(model, cfg, batch, cache, GEN)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         if cold:
@@ -2692,28 +2812,40 @@ def serve_protocol(model, cfg, tokens, spec, want: dict,
 
     times = {"prefill": [], "decode_step": []}
     cache = C.zeros(spec, device=dev)
-    finite, ids = True, []
+    finite, ids, extra = True, [], {}
     for i in range(GEN):
         torch.cuda.synchronize()
         t = time.perf_counter()
         if i == 0:
-            logits, cache = engine.prefill(model, cfg, {"tokens": tokens},
-                                           cache)
+            logits, cache = engine.prefill(model, cfg, batch, cache)
         else:
             logits, cache = engine.decode_step(model, cfg, ids[-1][:, None],
-                                               S + i - 1, cache)
+                                               prompt_len + i - 1, cache)
         torch.cuda.synchronize()
         times["prefill" if i == 0 else "decode_step"].append(
             time.perf_counter() - t)
+        if i == 0:
+            cross = [buf.clone() for buf in cross_leaves(cache)]
         finite = finite and bool(torch.isfinite(logits).all())
         ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
     check(finite, f"serve {cfg.name}: a logit is not finite")
     check(bool(torch.equal(torch.stack(ids, 1), seq)),
           f"serve {cfg.name}: the step-by-step pass chose other ids than "
           "greedy_generate")
-    profile = serve_profile(model, cfg, tokens, cache, cross_check)
+    if cfg.is_encoder_decoder:
+        after = cross_leaves(cache)
+        # leaves [repeats, B, enc_len, KH, Dh]: K and V of every layer
+        check(sum(buf.shape[0] for buf in after) == 2 * cfg.n_layers
+              and all(bool(buf.abs().amax() > 0) for buf in cross)
+              and all(torch.equal(a, b) for a, b in zip(after, cross)),
+              f"serve {cfg.name}: the cross cache changed in decode")
+        extra = dict(cross_cache_bytes=sum(
+                         buf.numel() * buf.element_size() for buf in after),
+                     cross_cache_unchanged_by_decode=True)
+        del cross, after
+    profile = serve_profile(model, cfg, batch, cache, cross_check)
     return dict(
-        batch=B, prompt_len=S, gen=GEN, max_len=SERVE_SMAX,
+        batch=B, prompt_len=prompt_len, gen=GEN, max_len=max_len, **extra,
         cache_bytes=C.cache_bytes(spec), prefill_s=times["prefill"][0],
         decode_ms_per_step=1e3 * statistics.mean(times["decode_step"]),
         decode_ms_median=1e3 * statistics.median(times["decode_step"]),
@@ -2723,22 +2855,28 @@ def serve_protocol(model, cfg, tokens, spec, want: dict,
         profile=profile)
 
 
-def decode_vs_forward(model, cfg, tokens) -> float:
-    """Relative gap of the cached decode of the last prompt token to the
-    uncached forward pass's logits (largest absolute difference over the
-    largest logit); both finite."""
+def decode_vs_forward(model, cfg, batch, max_len: int = SERVE_SMAX
+                      ) -> float:
+    """Relative gap of the cached decode of the last prompt token (after
+    any patch prefix; an encoder-decoder's cross cache of its frames) to
+    the uncached forward pass's logits (largest absolute difference over
+    the largest logit); both finite."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serve import cache as C, engine
-    S = tokens.shape[1]
-    h = M.forward_hidden(model, cfg, {"tokens": tokens})
+    tokens = batch["tokens"]
+    pos = tokens.shape[1] - 1 + (cfg.vision_prefix_tokens or 0)
+    h = M.forward_hidden(model, cfg, batch)
     ref = M.logits_fn(model, cfg, h[:, -1:])[:, 0]
     del h
-    cache = C.zeros(C.cache_spec(cfg, tokens.shape[0], SERVE_SMAX,
+    enc_len = batch["frames"].shape[1] if "frames" in batch else 0
+    cache = C.zeros(C.cache_spec(cfg, tokens.shape[0], max_len,
+                                 enc_len=enc_len,
                                  dtype=getattr(torch, cfg.dtype)),
                     device=tokens.device)
-    _, cache = engine.prefill(model, cfg, {"tokens": tokens[:, :-1]}, cache)
-    got, _ = engine.decode_step(model, cfg, tokens[:, -1:], S - 1, cache)
+    _, cache = engine.prefill(model, cfg, {**batch, "tokens": tokens[:, :-1]},
+                              cache)
+    got, _ = engine.decode_step(model, cfg, tokens[:, -1:], pos, cache)
     check(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
           f"serve {cfg.name}: cached decode or forward not finite")
     return float((got - ref).abs().max() / ref.abs().max())
@@ -2771,9 +2909,13 @@ def place_served(cfg, tok_s: float) -> dict:
                 placement_launches=launches)
 
 
-def build_served(cfg):
-    """(model, init seconds, prompt tokens): random bf16 weights from a
-    seeded CUDA generator, 8 prompts of 1024 tokens (numpy seed 0)."""
+def build_served(cfg, prompt_len: int = SERVE_S, enc_len: int = 0):
+    """(model, init seconds, prompt batch): random bf16 weights from a
+    seeded CUDA generator, 8 prompts of ``prompt_len`` tokens (numpy seed
+    0), then from the same generator, as ``launch/serve.py`` draws them,
+    the stub front ends' float32 inputs, 0.1 x normal: an
+    encoder-decoder's frames [8, enc_len, d_model], a VLM's patches [8,
+    P, d_model]."""
     import torch
     from repro_torch.models import model as M
     dev = "cuda"
@@ -2783,9 +2925,17 @@ def build_served(cfg):
                          device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (SERVE_B, SERVE_S)), dtype=torch.int32, device=dev)
-    return model, init_s, tokens
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE_B, prompt_len)), dtype=torch.int32, device=dev)}
+    stub = lambda n: torch.as_tensor(
+        0.1 * rng.standard_normal((SERVE_B, n, cfg.d_model)),
+        dtype=torch.float32, device=dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = stub(enc_len)
+    if cfg.vision_prefix_tokens:
+        batch["patches"] = stub(cfg.vision_prefix_tokens)
+    return model, init_s, batch
 
 
 def phase_serve() -> dict:
@@ -2794,14 +2944,14 @@ def phase_serve() -> dict:
     from repro_torch.models import model as M
     from repro_torch.serve import cache as C
     cfg = configs.get("qwen3-4b")
-    model, init_s, tokens = build_served(cfg)
+    model, init_s, batch = build_served(cfg)
     spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
     # every layer's prefill through the wgmma kernel, every decode step's
     # through the split-KV kernel, none through the SIMT kernel
-    rec = serve_protocol(model, cfg, tokens, spec, {
+    rec = serve_protocol(model, cfg, batch, spec, {
         "wgmma": cfg.n_layers, "split_kv": cfg.n_layers * (SERVE_GEN - 1),
         "simt": 0}, cross_check=True)
-    rel = decode_vs_forward(model, cfg, tokens)
+    rel = decode_vs_forward(model, cfg, batch)
     check(rel < 3e-2,
           f"serve: cached decode vs forward rel {rel} (bf16 bound 3e-2)")
     del model
@@ -2940,7 +3090,8 @@ def phase_serve_moe() -> tuple:
             reduced = {"n_layers": f"{cfg.n_layers} -> {n_layers}: the "
                        "whole model (472 GB in bf16) does not fit one card"}
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        model, init_s, tokens = build_served(cfg)
+        model, init_s, batch = build_served(cfg)
+        tokens = batch["tokens"]
         spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
         n_attn = sum(len(g.kinds) * g.repeats for g in M.layer_plan(cfg))
         # MLA prefill (D 192, Dv 128) takes the wgmma kernel, MLA decode
@@ -2948,7 +3099,7 @@ def phase_serve_moe() -> tuple:
         want = ({"wgmma": n_attn, "split_kv": 0, "simt": 0} if cfg.use_mla
                 else {"wgmma": n_attn, "split_kv": n_attn * (SERVE_GEN - 1),
                       "simt": 0})
-        rec = serve_protocol(model, cfg, tokens, spec, want)
+        rec = serve_protocol(model, cfg, batch, spec, want)
         for kn, n in rec["flash_launches_by_kernel"].items():
             name = f"flash_attention_{kn}"
             total[name] = total.get(name, 0) + n
@@ -2963,8 +3114,8 @@ def phase_serve_moe() -> tuple:
         past = torch.cat([tokens, torch.as_tensor(
             np.random.default_rng(1).integers(0, cfg.vocab, (SERVE_B, 1)),
             dtype=tokens.dtype, device=tokens.device)], 1)
-        rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(model, cfg,
-                                                              past)
+        rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(
+            model, cfg, {"tokens": past})
         # the checked comparison: float32, lossless, 2 prompts
         torch.cuda.empty_cache()
         for p in model.parameters():
@@ -2976,7 +3127,7 @@ def phase_serve_moe() -> tuple:
         # float32 runs its attention on the SIMT kernel (and on split-KV
         # for olmoe's decode step): counted apart from the bf16 serving
         fa.reset_launches()
-        rel = decode_vs_forward(model, cfg32, small)
+        rel = decode_vs_forward(model, cfg32, {"tokens": small})
         for kn in fa.KERNELS:
             name = f"flash_attention_{kn}"
             total_f32[name] = (total_f32.get(name, 0)
@@ -3038,7 +3189,8 @@ def phase_serve_ssm() -> tuple:
     for arch in SSM_CELLS:
         t0 = time.perf_counter()
         cfg = configs.get(arch)
-        model, init_s, tokens = build_served(cfg)
+        model, init_s, batch = build_served(cfg)
+        tokens = batch["tokens"]
         spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
         # hymba's attention branch as qwen3-4b's attention (D 64, G 5):
         # prefill on the wgmma kernel, decode on split-KV; xlstm attends
@@ -3046,7 +3198,7 @@ def phase_serve_ssm() -> tuple:
         n_attn = sum(grp.repeats * sum(k in M.HYBRID_KINDS
                                        for k in grp.kinds)
                      for grp in M.layer_plan(cfg))
-        rec = serve_protocol(model, cfg, tokens, spec, {
+        rec = serve_protocol(model, cfg, batch, spec, {
             "wgmma": n_attn, "split_kv": n_attn * (SERVE_GEN - 1),
             "simt": 0})
         for kn, n in rec["flash_launches_by_kernel"].items():
@@ -3058,8 +3210,8 @@ def phase_serve_ssm() -> tuple:
         past = torch.cat([tokens, torch.as_tensor(
             np.random.default_rng(1).integers(0, cfg.vocab, (SERVE_B, 1)),
             dtype=tokens.dtype, device=tokens.device)], 1)
-        rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(model, cfg,
-                                                              past)
+        rec["decode_vs_forward_rel_bf16"] = decode_vs_forward(
+            model, cfg, {"tokens": past})
         # the checked comparison: float32 weights, 2 prompts (its attention
         # on the SIMT kernel and split-KV, counted apart)
         torch.cuda.empty_cache()
@@ -3067,7 +3219,8 @@ def phase_serve_ssm() -> tuple:
             p.data = p.data.float()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         fa.reset_launches()
-        rel = decode_vs_forward(model, cfg32, past[:SSM_CHECK_B])
+        rel = decode_vs_forward(model, cfg32,
+                                {"tokens": past[:SSM_CHECK_B]})
         for kn in fa.KERNELS:
             name = f"flash_attention_{kn}"
             total_f32[name] = total_f32.get(name, 0) + fa.LAUNCHES[name]
@@ -3092,6 +3245,98 @@ def phase_serve_ssm() -> tuple:
         check(cells[arch]["placement_launches"]["placement_power"] >= 1,
               f"serve {arch}: its placement launched no placement_power")
     emit("serve_ssm", cells=cells, launches=total,
+         launches_float32=total_f32,
+         seconds_total=time.perf_counter() - t_all)
+    return total, total_f32
+
+
+# phase 5d: whisper-base's encoder-decoder and internvl2-2b's patch prefix
+# at full width and depth, the phase 5 protocol (shapes by phase 4's
+# WHISPER_* / VLM_TEXT_LEN).  Cached decode vs forward is held in bf16 as
+# qwen3-4b's, and in float32 on 2 prompts as 5b's and 5c's too
+ENCDEC_CELLS = ("whisper-base", "internvl2-2b")
+ENCDEC_CHECK_B = 2
+
+
+def phase_serve_encdec() -> tuple:
+    """Phase 5d: serve whisper-base (6 encoder and 6 decoder layers over
+    1500 frames, a 187-token decoder prompt) and internvl2-2b (256 patches
+    before 768 text tokens) at full width and depth through phase 5's
+    protocol: whisper's encoder, self- and cross-attention prefill on the
+    wgmma kernel, its self- and cross-attention decode on split-KV (12
+    calls a step), none on SIMT, its cross cache written once at prefill;
+    internvl2's as qwen3-4b's.  Cached decode against the forward pass in
+    bf16 and in float32 on 2 prompts (3e-2 of the largest logit, both
+    checked); each model placed on the datacenter
+    CFN at its measured tokens/s, both placement kernels launched.
+    Returns the phase's launches by kernel-line name (the flash kernels'
+    in both warm calls, the placement kernels' in both placements) and
+    the flash kernels' in both float32 checks."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C
+    t_all = time.perf_counter()
+    cells, total, total_f32 = {}, {}, {}
+    for arch in ENCDEC_CELLS:
+        t0 = time.perf_counter()
+        cfg = configs.get(arch)
+        if cfg.is_encoder_decoder:
+            prompt, enc_len = WHISPER_DEC_LEN, WHISPER_ENC_LEN
+            # prefill: the encoder's layers, then each decoder layer's
+            # self- and cross-attention; decode: both of each layer
+            n_prefill, n_step = cfg.encoder_layers + 2 * cfg.n_layers, \
+                2 * cfg.n_layers
+        else:
+            prompt, enc_len = VLM_TEXT_LEN, 0
+            n_prefill = n_step = cfg.n_layers
+        prefix = cfg.vision_prefix_tokens or 0
+        max_len = prompt + prefix + SERVE_GEN + 8
+        model, init_s, batch = build_served(cfg, prompt, enc_len)
+        spec = C.cache_spec(cfg, SERVE_B, max_len, enc_len=enc_len)
+        rec = serve_protocol(model, cfg, batch, spec, {
+            "wgmma": n_prefill, "split_kv": n_step * (SERVE_GEN - 1),
+            "simt": 0}, max_len=max_len)
+        for kn, n in rec["flash_launches_by_kernel"].items():
+            name = f"flash_attention_{kn}"
+            total[name] = total.get(name, 0) + n
+        rel_bf16 = decode_vs_forward(model, cfg, batch, max_len)
+        check(rel_bf16 < 3e-2, f"serve {arch}: cached decode vs forward rel "
+                               f"{rel_bf16} (bf16 bound 3e-2)")
+        # float32 weights, 2 prompts (the attention on the SIMT kernel and
+        # split-KV, counted apart)
+        torch.cuda.empty_cache()
+        for p in model.parameters():
+            p.data = p.data.float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        fa.reset_launches()
+        rel = decode_vs_forward(
+            model, cfg32, {k: v[:ENCDEC_CHECK_B] for k, v in batch.items()},
+            max_len)
+        for kn in fa.KERNELS:
+            name = f"flash_attention_{kn}"
+            total_f32[name] = total_f32.get(name, 0) + fa.LAUNCHES[name]
+        check(rel < 3e-2, f"serve {arch}: cached decode vs forward rel "
+                          f"{rel} (float32; bound 3e-2)")
+        del model
+        torch.cuda.empty_cache()
+        cells[arch] = dict(
+            config=cfg.name, n_layers=cfg.n_layers,
+            encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+            enc_len=enc_len, vision_prefix_tokens=prefix, text_len=prompt,
+            params=M.param_count(M.init_model(cfg, device="meta")),
+            init_s=init_s, **rec, decode_vs_forward_rel_bf16=rel_bf16,
+            decode_vs_forward_rel=rel,
+            **place_served(cfg, rec["tokens_per_s"]),
+            seconds=time.perf_counter() - t0)
+        placed = cells[arch]["placement_launches"]
+        for name, n in placed.items():
+            total[name] = total.get(name, 0) + n
+        check(placed["placement_power"] >= 1 and placed["fused_anneal"] >= 1,
+              f"serve {arch}: its placement launched {placed}")
+    emit("serve_encdec", cells=cells, launches=total,
          launches_float32=total_f32,
          seconds_total=time.perf_counter() - t_all)
     return total, total_f32
@@ -3243,6 +3488,11 @@ def main() -> int:
         kernels[name]["launches_ssm"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_ssm_float32"] = n
+    launches, launches_f32 = phase_serve_encdec()
+    for name, n in launches.items():
+        kernels[name]["launches_encdec"] = n
+    for name, n in launches_f32.items():
+        kernels[name]["launches_encdec_float32"] = n
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

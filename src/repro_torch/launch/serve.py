@@ -8,10 +8,11 @@ Serves the architecture's smoke configuration with random weights from
 ``--seed`` on ``--device`` (default: the CUDA card), prints the first
 request's generated ids and the token rate, then places the full
 architecture at that rate on the datacenter CFN through the energy-aware
-scheduler, one JSON line per placement.  The dense, MoE-family, xLSTM
-and hymba architectures serve; whisper-base (encoder-decoder) and
-internvl2-2b (the patch stub) raise ``NotImplementedError`` naming their
-ROADMAP item.
+scheduler, one JSON line per placement.  Every architecture of the
+registry serves.  The stub front ends' inputs are drawn after the tokens
+from the same generator, as the reference draws them: whisper-base's
+frames [B, S, d_model] (the encoder's length is the prompt's),
+internvl2-2b's patches [B, P, d_model], both 0.1 x normal.
 """
 from __future__ import annotations
 
@@ -52,8 +53,17 @@ def main(argv=None) -> int:
     B, S = args.batch, args.prompt_len
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
                                        dtype=torch.int32, device=dev)}
-    cache = C.zeros(C.cache_spec(cfg, B, S + args.gen + 8,
-                                 dtype=getattr(torch, cfg.dtype)), device=dev)
+    stub = lambda n: torch.as_tensor(
+        0.1 * rng.standard_normal((B, n, cfg.d_model)), dtype=torch.float32,
+        device=dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = stub(S)
+    if cfg.vision_prefix_tokens:
+        batch["patches"] = stub(cfg.vision_prefix_tokens)
+    max_len = S + args.gen + (cfg.vision_prefix_tokens or 0) + 8
+    cache = C.zeros(C.cache_spec(
+        cfg, B, max_len, enc_len=S if cfg.is_encoder_decoder else 0,
+        dtype=getattr(torch, cfg.dtype)), device=dev)
     t0 = time.perf_counter()
     seq, _ = engine.greedy_generate(model, cfg, batch, cache, args.gen)
     if dev.type == "cuda":

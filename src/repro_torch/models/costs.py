@@ -40,9 +40,8 @@ def param_breakdown(cfg: ArchConfig) -> Dict[str, int]:
 
 def _block_sizes(cfg: ArchConfig, kind: str) -> Tuple[int, int]:
     """(parameters, of which expert weights) of one block of ``kind``, from
-    the shapes ``init_block`` makes, on the meta device.  Block kinds the
-    port does not run (whisper's ``dec_attn``) raise, naming their ROADMAP
-    item."""
+    the shapes ``init_block`` makes, on the meta device (whisper's
+    ``dec_attn`` with its cross-attention projections)."""
     ini = L.Init(None, torch.device("meta"), torch.float32)
     M.init_block(ini, cfg, kind)
     total = sum(t.numel() for t in ini.params.values())
@@ -55,7 +54,9 @@ def layer_costs(cfg: ArchConfig, context: int = 2048,
                 ) -> Tuple[List[float], List[float]]:
     """(gflop_per_token per layer, boundary activation bytes per token).
 
-    One transformer layer == one VM in the paper's abstraction.  Inference
+    One decoder layer == one VM in the paper's abstraction (an
+    encoder-decoder's encoder layers are not counted, as in the
+    reference).  Inference
     cost: 2 FLOPs per active parameter (a MoE block's experts count
     top_k / n_experts) plus, for every kind that attends (not mLSTM or
     sLSTM), the attention context term at the given context length.

@@ -9,13 +9,16 @@ leading ``repeats`` axis and scans over it; the port keeps one
 runs ``remat_policy="none"``).  The JAX package's ``shard(...)`` calls are
 no-ops on one device and are dropped.
 
-Runs the attention block kinds (``attn`` / ``attn_local`` /
-``attn_global``), the MoE family's (``attn_moe``, and MLA's
-``mla_dense`` / ``mla_moe``), the recurrent ones (xLSTM's ``mlstm`` /
-``slstm``, ``models/ssm.py``) and hymba's hybrid ``hymba_local`` /
-``hymba_global`` (attention and mamba side by side); the
-encoder-decoder and the VLM patch stub raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Runs every block kind of the reference: attention (``attn`` /
+``attn_local`` / ``attn_global``), the MoE family's (``attn_moe``, and
+MLA's ``mla_dense`` / ``mla_moe``), the recurrent ones (xLSTM's
+``mlstm`` / ``slstm``, ``models/ssm.py``), hymba's hybrid
+``hymba_local`` / ``hymba_global`` (attention and mamba side by side) and
+whisper's encoder-decoder pair (``enc_attn``, non-causal; ``dec_attn``,
+causal self-attention then cross-attention over the encoder's states).
+The stub front ends are the reference's: whisper's encoder takes frame
+embeddings ``batch["frames"]`` [B, S_enc, D], internvl2's decoder
+prepends patch embeddings ``batch["patches"]`` [B, P, D] to its tokens.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from torch import nn
 
 from ..core.power import Device, resolve_device
+from ..kernels import flash_attention as fa
 from . import ssm
 from .config import ArchConfig
 from .layers import (Init, attention, init_attention, init_mla, init_mlp,
@@ -39,8 +43,8 @@ ATTN_KINDS = ("attn", "attn_local", "attn_global")
 MOE_KINDS = ("attn_moe", "mla_dense", "mla_moe")
 SSM_KINDS = ("mlstm", "slstm")
 HYBRID_KINDS = ("hymba_local", "hymba_global")
-KINDS = ATTN_KINDS + MOE_KINDS + SSM_KINDS + HYBRID_KINDS
-_TODO = "comes with its slice (ROADMAP Queue 1, item 8)"
+ENC_DEC_KINDS = ("enc_attn", "dec_attn")
+KINDS = ATTN_KINDS + MOE_KINDS + SSM_KINDS + HYBRID_KINDS + ENC_DEC_KINDS
 
 # ---------------------------------------------------------------------------
 # layer plan (copied from the reference)
@@ -97,6 +101,12 @@ def layer_plan(cfg: ArchConfig) -> List[LayerGroup]:
     return [LayerGroup(kinds=("attn",), repeats=L)]
 
 
+def encoder_plan(cfg: ArchConfig) -> List[LayerGroup]:
+    if not cfg.is_encoder_decoder:
+        return []
+    return [LayerGroup(kinds=("enc_attn",), repeats=cfg.encoder_layers)]
+
+
 def block_window(cfg: ArchConfig, kind: str) -> Optional[int]:
     """Static sliding window for a block kind (None = full attention)."""
     if kind in ("attn_local", "hymba_local"):
@@ -125,22 +135,32 @@ class ParamBlock(nn.Module):
         return getattr(self, name)
 
 
+Units = List[List[Dict[str, Mapping[str, torch.Tensor]]]]
+
+
+def _stack_modules(groups: Units) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleList(nn.ModuleDict({name: ParamBlock(t)
+                                     for name, t in unit.items()})
+                      for unit in units)
+        for units in groups)
+
+
 class Model(nn.Module):
     """Parameters of one architecture: ``top`` holds embed / final_norm /
-    lm_head, ``groups[gi][r]["b{j}"]`` the block of kind ``kinds[j]`` in
-    repeat r of layer group gi (the reference's ``g{gi}`` leaves, one
-    module per repeat)."""
+    lm_head (and the encoder's ``enc_final_norm``), ``groups[gi][r]["b{j}"]``
+    the block of kind ``kinds[j]`` in repeat r of layer group gi (the
+    reference's ``g{gi}`` leaves, one module per repeat), ``enc_groups``
+    the encoder's the same way (its ``enc_g{gi}`` leaves; empty but for
+    an encoder-decoder)."""
 
     def __init__(self, cfg: ArchConfig, top: Mapping[str, torch.Tensor],
-                 groups: List[List[Dict[str, Mapping[str, torch.Tensor]]]]):
+                 groups: Units, enc_groups: Units = ()):
         super().__init__()
         self.cfg = cfg
         self.top = ParamBlock(top)
-        self.groups = nn.ModuleList(
-            nn.ModuleList(nn.ModuleDict({name: ParamBlock(t)
-                                         for name, t in unit.items()})
-                          for unit in units)
-            for units in groups)
+        self.groups = _stack_modules(groups)
+        self.enc_groups = _stack_modules(enc_groups)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
@@ -152,17 +172,7 @@ def _torch_dtype(name) -> torch.dtype:
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        raise NotImplementedError(f"block kind {kind!r} {_TODO}")
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"encoder-decoder (cross-attention) {_TODO}")
-    if cfg.vision_prefix_tokens:
-        raise NotImplementedError(f"the VLM patch stub {_TODO}")
-    for grp in layer_plan(cfg):
-        for kind in grp.kinds:
-            _check_kind(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _dense_ff(cfg: ArchConfig) -> int:
@@ -188,6 +198,9 @@ def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
         ssm.init_mamba(ini, cfg, prefix="mamba_")
     else:
         init_attention(ini, cfg)
+    if kind == "dec_attn":
+        ini.mk("ln_x", (D,), mode="zeros")
+        init_attention(ini, cfg, prefix="x_")   # cross-attention
     ini.mk("ln2", (D,), mode="zeros")
     if kind in ("attn_moe", "mla_moe"):
         init_moe(ini, cfg)
@@ -196,10 +209,13 @@ def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
 
 
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
-                positions: torch.Tensor, cache: Optional[Dict] = None
+                positions: torch.Tensor, cache: Optional[Dict] = None,
+                enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One block of ``kind``; its cache slice (``serve.cache``) is
-    written in place and returned."""
+    written in place and returned.  ``enc_out``: the encoder's states,
+    which ``dec_attn`` attends at prefill (None at decode, where it reads
+    their projections from its cross cache)."""
     _check_kind(kind)
     if kind == "mlstm":
         return x + ssm.mlstm_block(params, x, cfg, state=cache), cache
@@ -217,12 +233,23 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         x = x + 0.5 * (a + m)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp(params, h), cache
+    if kind == "dec_attn":
+        a, _ = attention(params, h, cfg, positions=positions,
+                         cache=None if cache is None else cache["self"])
+        x = x + a
+        h = rms_norm(x, params["ln_x"], cfg.norm_eps)
+        x = x + cross_attention(params, h, cfg, enc_out=enc_out,
+                                cache=None if cache is None
+                                else cache["cross"])
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp(params, h), cache
     if kind.startswith("mla"):
         a, new_cache = mla_attention(params, h, cfg, positions=positions,
                                      cache=cache)
     else:
         a, new_cache = attention(params, h, cfg, positions=positions,
-                                 cache=cache, window=block_window(cfg, kind))
+                                 cache=cache, window=block_window(cfg, kind),
+                                 causal=kind != "enc_attn")
     x = x + a
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     ff = moe(params, h, cfg) if kind in ("attn_moe", "mla_moe") \
@@ -230,17 +257,67 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     return x + ff, new_cache
 
 
+def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
+                    enc_out: Optional[torch.Tensor], cache: Optional[Dict],
+                    prefix: str = "x_") -> torch.Tensor:
+    """Encoder-decoder cross-attention (the reference's): x [B, S, D] over
+    the encoder's states, no rope, no qk-norm, non-causal (query positions
+    all 0, so only unwritten slots could mask).  With ``enc_out``
+    (prefill) K/V are projected from it and, given a cache ``{"k", "v"
+    [B, S_enc, KH, Dh]}``, written into it in place; without (decode) they
+    are read from the cache.  CUDA tensors launch the flash-attention
+    kernel; CPU tensors run the chunked plain version (its default chunk,
+    the reference's) at every Sq, as the reference calls it."""
+    B, S, _ = x.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = lambda name: params[prefix + name].to(x.dtype)
+    q = (x @ w("wq")).reshape(B, S, H, Dh)
+    if enc_out is None:
+        if cache is None:
+            raise ValueError("cross attention needs enc_out or a cache")
+        k, v = cache["k"], cache["v"]
+    else:
+        k = (enc_out @ w("wk")).reshape(B, -1, KH, Dh)
+        v = (enc_out @ w("wv")).reshape(B, -1, KH, Dh)
+        if cache is not None:
+            if cache["k"].shape != k.shape or cache["k"].dtype != k.dtype:
+                raise ValueError(
+                    f"cross cache {tuple(cache['k'].shape)} "
+                    f"{cache['k'].dtype} does not hold the encoder's K/V "
+                    f"{tuple(k.shape)} {k.dtype}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    kv_pos = _positions(k.shape[1], x.device)
+    q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
+    if q.is_cuda:
+        out = fa.flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=False)
+    else:
+        out = fa.flash_attention(q, k, v, q_positions=q_pos,
+                                 kv_positions=kv_pos, causal=False)
+    return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")
+
+
+def _build_units(plan: List[LayerGroup], make_block) -> Units:
+    """Per-layer parameter dicts of a layer plan: ``make_block(gi, r, j,
+    kind)`` gives block j of repeat r of group gi."""
+    return [[{f"b{j}": make_block(gi, r, j, kind)
+              for j, kind in enumerate(grp.kinds)}
+             for r in range(grp.repeats)]
+            for gi, grp in enumerate(plan)]
+
+
 def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                *, device: Device = None) -> Model:
     """Random weights with the reference's scales (normal 1/sqrt(fan_in),
     the ``wo`` / ``w_down`` depth scales, embed 0.02, zero norms), drawn
     layer by layer on ``device`` from ``generator`` (a generator on that
-    device; default: one seeded with 0).  Matrices are made in
-    ``cfg.dtype`` and drawn in float32 one tensor at a time, so the float32
-    transient is one weight, never the model.  ``device="meta"``
-    allocates nothing (shapes only).  The draws are not the JAX package's:
-    carry its weights across with ``params_from_numpy`` to compare."""
-    _check_supported(cfg)
+    device; default: one seeded with 0): the decoder's layers, then an
+    encoder-decoder's encoder layers, as the reference orders them.
+    Matrices are made in ``cfg.dtype`` and drawn in float32 one tensor at
+    a time, so the float32 transient is one weight, never the model.
+    ``device="meta"`` allocates nothing (shapes only).  The draws are not
+    the JAX package's: carry its weights across with ``params_from_numpy``
+    to compare."""
     dev = torch.device("meta") if device == "meta" else resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -251,18 +328,17 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         top.mk("lm_head", (cfg.d_model, cfg.vocab),
                scale=1.0 / math.sqrt(cfg.d_model))
-    groups = []
-    for grp in layer_plan(cfg):
-        units = []
-        for _ in range(grp.repeats):
-            unit = {}
-            for j, kind in enumerate(grp.kinds):
-                blk = Init(generator, dev, dt)
-                init_block(blk, cfg, kind)
-                unit[f"b{j}"] = blk.params
-            units.append(unit)
-        groups.append(units)
-    return Model(cfg, top.params, groups)
+
+    def make_block(gi, r, j, kind):
+        blk = Init(generator, dev, dt)
+        init_block(blk, cfg, kind)
+        return blk.params
+
+    groups = _build_units(layer_plan(cfg), make_block)
+    enc_groups = _build_units(encoder_plan(cfg), make_block)
+    if cfg.is_encoder_decoder:
+        top.mk("enc_final_norm", (cfg.d_model,), mode="zeros")
+    return Model(cfg, top.params, groups, enc_groups)
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
@@ -270,15 +346,14 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
     """The port's model from the JAX package's parameter tree (leaves as
     numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``).
 
-    Each ``g{gi}`` leaf carries a leading ``repeats`` axis (the
-    reference's group stacking); repeat r becomes the r-th per-layer
-    module (expert weights ``[repeats, E, D, F]`` become ``[E, D, F]``).
-    Matrices are cast once to ``cfg.dtype``, where the reference casts
-    each weight to the activation dtype at every use: the numbers are the
-    same.  Leaves stay float32 where ``layers.leaf_dtype`` says (1-D norm
-    scales and biases, ``A_log``, sLSTM's ``r*``), as ``init_model`` makes
-    them."""
-    _check_supported(cfg)
+    Each ``g{gi}`` (and an encoder's ``enc_g{gi}``) leaf carries a leading
+    ``repeats`` axis (the reference's group stacking); repeat r becomes
+    the r-th per-layer module (expert weights ``[repeats, E, D, F]``
+    become ``[E, D, F]``).  Matrices are cast once to ``cfg.dtype``, where
+    the reference casts each weight to the activation dtype at every use:
+    the numbers are the same.  Leaves stay float32 where
+    ``layers.leaf_dtype`` says (1-D norm scales and biases, ``A_log``,
+    sLSTM's ``r*``), as ``init_model`` makes them."""
     dev = resolve_device(device)
     dt = _torch_dtype(cfg.dtype)
 
@@ -286,18 +361,15 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=dev, dtype=leaf_dtype(name, t.dim(), dt))
 
-    top = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head")
-           if k in tree}
-    groups = []
-    for gi, grp in enumerate(layer_plan(cfg)):
-        gtree = tree[f"g{gi}"]
-        units = []
-        for r in range(grp.repeats):
-            units.append({f"b{j}": {name: conv(name, np.asarray(a)[r])
-                                    for name, a in gtree[f"b{j}"].items()}
-                          for j in range(len(grp.kinds))})
-        groups.append(units)
-    return Model(cfg, top, groups)
+    def carry(tag: str):
+        return lambda gi, r, j, kind: {
+            name: conv(name, np.asarray(a)[r])
+            for name, a in tree[f"{tag}{gi}"][f"b{j}"].items()}
+
+    top = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head",
+                                         "enc_final_norm") if k in tree}
+    return Model(cfg, top, _build_units(layer_plan(cfg), carry("g")),
+                 _build_units(encoder_plan(cfg), carry("enc_g")))
 
 
 def param_count(model: Model) -> int:
@@ -311,21 +383,27 @@ def param_count(model: Model) -> int:
 
 def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
                 plan: List[LayerGroup], *, positions: torch.Tensor,
-                caches: Optional[List] = None
-                ) -> Tuple[torch.Tensor, Optional[List]]:
-    """Run x through all layer groups, one layer at a time.  ``caches``
-    (``serve.cache.zeros``) is a per-group list whose leaves carry the
-    group's ``repeats`` axis first; each layer reads and writes its slice
-    (the whole tree of views: hymba's ``{attn, mamba}``, mLSTM's ``cell``
-    tuple) in place, and the same list comes back."""
+                caches: Optional[List] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                tag: str = "g") -> Tuple[torch.Tensor, Optional[List]]:
+    """Run x through all layer groups of ``plan``, one layer at a time:
+    the decoder's (``tag`` "g", ``model.groups``) or the encoder's
+    ("enc_g", ``model.enc_groups``), as the reference's tags name them.
+    ``enc_out`` goes to every block.  ``caches`` (``serve.cache.zeros``) is
+    a per-group list whose leaves carry the group's ``repeats`` axis
+    first; each layer reads and writes its slice (the whole tree of views:
+    hymba's ``{attn, mamba}``, whisper's ``{self, cross}``, mLSTM's
+    ``cell`` tuple) in place, and the same list comes back."""
+    stack = {"g": model.groups, "enc_g": model.enc_groups}[tag]
     for gi, grp in enumerate(plan):
         gcache = None if caches is None else caches[gi]
-        for r, unit in enumerate(model.groups[gi]):
+        for r, unit in enumerate(stack[gi]):
             for j, kind in enumerate(grp.kinds):
                 c = None if gcache is None else tmap(
                     lambda buf: buf[r], gcache[f"b{j}"])
                 x, _ = apply_block(unit[f"b{j}"], x, cfg, kind,
-                                   positions=positions, cache=c)
+                                   positions=positions, cache=c,
+                                   enc_out=enc_out)
     return x, caches
 
 
@@ -350,12 +428,38 @@ def _positions(n: int, device, start: int = 0) -> torch.Tensor:
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
+def encode(model: Model, cfg: ArchConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's final states [B, S_enc, D] of frame embeddings (the
+    stub front end's [B, S_enc, D], cast to the activation dtype)."""
+    x = frames.to(_torch_dtype(cfg.dtype))
+    x, _ = apply_stack(model, x, cfg, encoder_plan(cfg),
+                       positions=_positions(x.shape[1], x.device),
+                       tag="enc_g")
+    return rms_norm(x, model["enc_final_norm"], cfg.norm_eps)
+
+
+def decoder_inputs(model: Model, cfg: ArchConfig, batch: Dict
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """(x, positions, enc_out) of a batch (the reference's
+    ``_decoder_inputs``): an encoder-decoder encodes ``batch["frames"]``;
+    a VLM prepends ``batch["patches"]`` [B, P, D], cast to the activation
+    dtype, to the token embeddings, and its positions run over both."""
+    x = embed_tokens(model, cfg, batch["tokens"])
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(model, cfg, batch["frames"])
+    elif cfg.vision_prefix_tokens:
+        x = torch.cat([batch["patches"].to(x.dtype), x], 1)
+    return x, _positions(x.shape[1], x.device), enc_out
+
+
 @torch.no_grad()
 def forward_hidden(model: Model, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
-    """Final hidden states [B, S, D] of a tokens batch, no cache."""
-    _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(model, cfg, tokens)
-    x, _ = apply_stack(model, x, cfg, layer_plan(cfg),
-                       positions=_positions(tokens.shape[1], x.device))
+    """Final hidden states [B, P + S, D] of a batch (tokens [B, S], and
+    frames or P patches where the config takes them), no cache."""
+    x, positions, enc_out = decoder_inputs(model, cfg, batch)
+    x, _ = apply_stack(model, x, cfg, layer_plan(cfg), positions=positions,
+                       enc_out=enc_out)
     return x

@@ -12,9 +12,10 @@ sliding-window layer ``min(window, max_len)`` (a ring buffer).  An MLA
 layer holds the compressed KV (``kv_lora_rank + rope_head_dim`` values a
 token) in place of per-head K and V.  mLSTM, sLSTM and mamba states are
 O(1) in the sequence length and float32 (hymba's cache is its attention
-K/V beside its mamba state).  The KV cache dtype must be the model's
-activation dtype: the port writes the cache in place.  The
-cross-attention cache comes with its slice.
+K/V beside its mamba state).  Whisper's decoder layer holds its
+self-attention K/V beside a cross cache of the encoder's projected K/V,
+``enc_len`` slots, written once at prefill.  The KV cache dtype must be
+the model's activation dtype: the port writes the cache in place.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ import torch
 
 from ..core.power import Device, resolve_device
 from ..models.config import ArchConfig
-from ..models.model import (HYBRID_KINDS, KINDS, _TODO, block_window,
-                            layer_plan)
+from ..models.model import HYBRID_KINDS, block_window, layer_plan
 from ..models.tree import leaves, tmap
 
 
@@ -85,9 +85,7 @@ def _mamba_spec(cfg: ArchConfig, B: int) -> Dict:
 
 
 def block_cache_spec(cfg: ArchConfig, kind: str, B: int, max_len: int,
-                     dtype=torch.bfloat16) -> Dict:
-    if kind not in KINDS:
-        raise NotImplementedError(f"cache of block kind {kind!r} {_TODO}")
+                     enc_len: int = 0, dtype=torch.bfloat16) -> Dict:
     if kind == "mlstm":
         return _mlstm_spec(cfg, B)
     if kind == "slstm":
@@ -99,18 +97,24 @@ def block_cache_spec(cfg: ArchConfig, kind: str, B: int, max_len: int,
     if kind in HYBRID_KINDS:
         return dict(attn=_attn_spec(cfg, B, smax, dtype),
                     mamba=_mamba_spec(cfg, B))
-    return _attn_spec(cfg, B, smax, dtype)
+    if kind == "dec_attn":
+        cross = TSpec((B, enc_len, cfg.n_kv_heads, cfg.head_dim), dtype)
+        return dict(self=_attn_spec(cfg, B, smax, dtype),
+                    cross=dict(k=cross, v=cross))
+    if kind in ("attn", "attn_local", "attn_global", "attn_moe"):
+        return _attn_spec(cfg, B, smax, dtype)
+    raise ValueError(f"no cache spec for kind {kind!r}")
 
 
 def cache_spec(cfg: ArchConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16) -> List:
-    """Spec tree for the full decode state, one entry per layer group."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"the cross-attention cache {_TODO}")
+               enc_len: int = 0, dtype=torch.bfloat16) -> List:
+    """Spec tree for the full decode state, one entry per layer group;
+    ``enc_len``: the encoder's length, for an encoder-decoder's cross
+    cache."""
     out = []
     for grp in layer_plan(cfg):
         unit = {f"b{j}": block_cache_spec(cfg, kind, batch_size, max_len,
-                                          dtype)
+                                          enc_len, dtype)
                 for j, kind in enumerate(grp.kinds)}
         out.append(tmap(lambda s: TSpec((grp.repeats,) + s.shape, s.dtype),
                         unit))

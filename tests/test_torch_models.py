@@ -33,7 +33,10 @@ DENSE = ("qwen3-4b", "h2o-danube-3-4b", "gemma2-27b", "command-r-plus-104b")
 SERVED = DENSE + ("olmoe-1b-7b", "deepseek-v2-236b")
 # the recurrent architectures (tests/test_torch_ssm.py holds their blocks)
 RECURRENT = ("xlstm-1.3b", "hymba-1.5b")
-SERVED = SERVED + RECURRENT
+# whisper's encoder-decoder and internvl2's patch prefix
+# (tests/test_torch_encdec.py holds them end to end)
+ENCDEC = ("whisper-base", "internvl2-2b")
+SERVED = SERVED + RECURRENT + ENCDEC
 B, S, GEN = 2, 16, 8
 # the reference's entry points, compiled (cfg and n_steps static)
 j_forward = jax.jit(JM.forward_hidden, static_argnums=1)
@@ -49,7 +52,7 @@ def _with_norm_noise(tree, rng):
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = _with_norm_noise(v, rng)
-        elif "norm" in k or k in ("ln1", "ln2"):
+        elif "norm" in k or k in ("ln1", "ln2", "ln_x"):
             out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
         else:
             out[k] = np.asarray(v)
@@ -161,8 +164,10 @@ def test_prefill_decode_bf16_within_reference_bound():
 def test_cache_spec_matches_reference(arch, smoke):
     get_j = jconfigs.get_smoke if smoke else jconfigs.get
     get_t = tconfigs.get_smoke if smoke else tconfigs.get
-    jspec = JC.cache_spec(get_j(arch), 8, 1064)
-    tspec = TC.cache_spec(get_t(arch), 8, 1064)
+    # whisper's cross cache over its 1500 encoder frames
+    enc_len = 1500 if get_t(arch).is_encoder_decoder else 0
+    jspec = JC.cache_spec(get_j(arch), 8, 1064, enc_len=enc_len)
+    tspec = TC.cache_spec(get_t(arch), 8, 1064, enc_len=enc_len)
     jl = jax.tree_util.tree_leaves(jspec, is_leaf=lambda x: isinstance(
         x, JC.TSpec))
     tl = TC.leaves(tspec)
@@ -200,13 +205,15 @@ def test_from_architecture_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ("olmoe-1b-7b", "deepseek-v2-236b")
-                         + RECURRENT)
+                         + RECURRENT + ENCDEC)
 def test_moe_family_costs_match_reference(arch):
     """The full configs' parameter split (expert, active) and per-layer
     costs on meta, for the MoE family (a MoE layer's experts at top_k /
-    n_experts) and the recurrent models (no attention term for mLSTM and
+    n_experts), the recurrent models (no attention term for mLSTM and
     sLSTM layers; hymba's attention and mamba branches from their
-    shapes)."""
+    shapes) and whisper / internvl2 (whisper's encoder counted in the
+    split, its decoder layers alone, with their cross-attention
+    projections, in the costs)."""
     cfg_j, cfg_t = jconfigs.get(arch), tconfigs.get(arch)
     assert tcosts.param_breakdown(cfg_t) == jcosts.param_breakdown(cfg_j)
     for ctx in (2048, 1064):
@@ -305,10 +312,22 @@ def test_recurrent_cache_bytes_against_max_len(arch):
     assert (nbytes[0] == nbytes[1]) == (arch == "xlstm-1.3b")
 
 
-def test_unported_kinds_raise():
-    for arch in ("whisper-base", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_model(tconfigs.get_smoke(arch), device="meta")
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_encdec_and_vlm_build_on_meta(arch):
+    """whisper's encoder groups and final norm, its decoder blocks'
+    cross-attention leaves, and internvl2's plain decoder, built on meta
+    at full and smoke size."""
+    for cfg in (tconfigs.get(arch), tconfigs.get_smoke(arch)):
+        model = TM.init_model(cfg, device="meta")
+        blk = model.groups[0][0]["b0"]
+        if cfg.is_encoder_decoder:
+            assert len(model.enc_groups[0]) == cfg.encoder_layers
+            assert model["enc_final_norm"].shape == (cfg.d_model,)
+            assert blk["x_wk"].shape == (cfg.d_model,
+                                         cfg.n_kv_heads * cfg.head_dim)
+            assert blk["ln_x"].dtype == torch.float32
+        else:
+            assert len(model.enc_groups) == 0 and not hasattr(blk, "x_wq")
 
 
 def test_serve_cli_moe_smoke_on_cpu(capsys):
@@ -326,13 +345,13 @@ def test_serve_cli_moe_smoke_on_cpu(capsys):
     placed = [json.loads(ln) for ln in lines[2:]]
     assert len(placed) == 1 and placed[0]["service"] == "olmoe-1b-7b"
     assert len(placed[0]["nodes"]) == 5 and placed[0]["power_w"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "whisper-base", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("arch", RECURRENT + ENCDEC)
 def test_serve_cli_recurrent_smoke_on_cpu(arch, capsys):
-    """The serving CLI on xlstm's and hymba's smoke configs on the CPU."""
+    """The serving CLI on the recurrent and the encoder-decoder / VLM
+    smoke configs on the CPU (whisper's frames and internvl2's patches
+    drawn after the tokens)."""
     from repro_torch.launch import serve
     assert serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "8",
                        "--gen", "4", "--device", "cpu"]) == 0
