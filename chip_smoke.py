@@ -120,7 +120,22 @@ nvcc per source, in parallel), then
      split-KV calls, checked) at full width and depth through the same
      protocol; cached decode against the forward pass in bf16 and in
      float32 on 2 prompts (both checked); places each served model on
-     the datacenter CFN, both placement kernels launched.
+     the datacenter CFN, both placement kernels launched;
+  6. trains on the card: (6a) the differentiable attention (the kernel's
+     forward, the reference's chunked backward in plain torch) against
+     the same function with the plain forward and against float32
+     autograd through the plain version, on the wgmma kernel at D 128
+     (qwen3-4b's heads) and D 64 and on the SIMT kernel in float32, with
+     windows, softcaps and dead kv slots, and one attention block at
+     qwen3-4b's full width, its wq / wk / wv gradients non-zero; (6b)
+     qwen3-4b at full width and a cut depth (float32 masters, a bf16
+     compute copy, remat "full"), 8 steps of 4 x 4096 tokens as 2
+     microbatches on one batch, the loss falling, every gradient finite,
+     each step split into forward, backward (the attention's backward
+     apart) and optimizer with CUDA events; (6c) the train CLI
+     (``repro_torch.launch.train``) on the smoke configuration with
+     ``--report-energy``: the loss improving, the trained architecture
+     placed on the datacenter CFN.
 
 Each phase prints one JSON line (3a-3f also their seconds); then the
 kernels line (launches on the main paths: the placement kernels' in phase
@@ -132,7 +147,9 @@ kernels' in phase 5, and every kernel's in phases 5b, 5c and 5d as
 ``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` (the placement
 kernels' in the served models' placements) and, for the flash kernels,
 ``launches_moe_float32`` / ``launches_ssm_float32`` /
-``launches_encdec_float32`` (the float32 checks);
+``launches_encdec_float32`` (the float32 checks), and as
+``launches_train`` the flash kernels' in phases 6b and 6c and the
+placement kernels' in 6c;
 errors and times), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 process exits non-zero.  Needs one CUDA card and the CUDA toolkit:
@@ -3398,6 +3415,428 @@ def schedule_served(cfg, tok_s: float) -> dict:
     return out
 
 
+# phase 6: training on one device.  6a the differentiable attention on the
+# card: B, H, KH, S, D, dtype, window, cap, dead kv slots (-1 positions);
+# then one attention block at qwen3-4b's full width (B 2, S 1024)
+TRAIN_ATTN_CASES = (
+    (2, 32, 8, 1024, 128, "bfloat16", None, None, 0),   # wgmma, qwen3-4b
+    (2, 8, 2, 1024, 64, "bfloat16", 256, 30.0, 16),     # wgmma, D 64
+    (2, 8, 4, 512, 128, "float32", 128, 50.0, 16),      # SIMT, float32
+)
+TRAIN_BLOCK_S = 1024
+# 6b: qwen3-4b at full width (d 2560, 32 / 8 heads of 128, d_ff 9728,
+# vocab 151936), bf16 compute over float32 masters, remat "full", the
+# reference's train_4k length, 8 steps on one batch (as
+# tests/test_models.py:54 trains).  Depth cut from 36: masters, gradients,
+# both moments and the bf16 copy take 18 B a parameter, 79.4 GB at 36
+# layers, the whole card before any activation; TRAIN_LAYERS is the
+# deepest depth whose measured peak stays under TRAIN_PEAK_FRAC of the
+# card (NVIDIA H100 80GB HBM3, 85017493504 B: 24 layers peaked at
+# 66662262272 B, 29 at 76825079296 B, 0.904 of it; ~2.03 GB a layer).  The
+# batch is cut from train_4k's 256 to 4 sequences, 2 microbatches of 2,
+# by memory and the script's time
+TRAIN_LAYERS = 28
+TRAIN_S = 4096
+TRAIN_B = 4
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 8
+TRAIN_LR = 5e-3
+TRAIN_PEAK_FRAC = 0.9
+# 6c: the train CLI on the smoke configuration, as
+# tests/test_system.py::test_train_cli_improves_loss runs the reference's
+TRAIN_CLI_ARGS = ["--arch", "qwen3-4b", "--steps", "12", "--batch", "4",
+                  "--seq", "32", "--lr", "5e-3", "--report-energy"]
+
+
+def _attention_grads(q, k, v, do, qp, kp, kw, forward=None, exact=False):
+    """[dq, dk, dv] in float32 of ``kernels.flash_attention.attend`` (the
+    CUDA forward, or ``forward`` swapped in for it for this call), or with
+    ``exact`` of autograd through ``attention_plain`` on float32 copies."""
+    from repro_torch.kernels import flash_attention as fa
+    leaves = [(t.detach().float() if exact else t.detach().clone())
+              .requires_grad_() for t in (q, k, v)]
+    real = fa.flash_attention_cuda
+    if forward is not None:
+        fa.flash_attention_cuda = forward
+    try:
+        if exact:
+            out = fa.attention_plain(*leaves, q_positions=qp,
+                                     kv_positions=kp, **kw)
+        else:
+            out = fa.attend(*leaves, qp, kp, **kw)
+        out.backward(do.to(out.dtype))
+    finally:
+        fa.flash_attention_cuda = real
+    return [t.grad.float() for t in leaves]
+
+
+def _plain_forward(q, k, v, q_positions, kv_positions, **kw):
+    """The kernel's plain version in the kernel's output dtype: what 6a
+    swaps in for ``flash_attention_cuda``."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.attention_plain(q, k, v, q_positions=q_positions,
+                              kv_positions=kv_positions, **kw).to(q.dtype)
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_train_attention() -> dict:
+    """Phase 6a: the differentiable attention (``attend``: the kernel's
+    forward, the reference's chunked backward in plain torch) on the card.
+    Per case, dq / dk / dv with the CUDA forward against the same
+    ``Function`` with the plain forward and against autograd through
+    ``attention_plain`` in float32: within 2e-2 (bf16) / 2e-3 (float32)
+    of each gradient's largest magnitude, every gradient non-zero.  Then
+    one qwen3-4b attention block at full width (bf16 copy of float32
+    masters): its wq / wk / wv gradients non-zero and within 2e-2 of
+    those with the plain forward.  In the first case the public
+    ``kernels.ops.flash_attention`` too: its output has a ``grad_fn`` and
+    its gradients are attend's.  Returns the flash launches of the
+    block's CUDA pass."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.models import layers as L, model as M
+    t_all = time.perf_counter()
+    dev = "cuda"
+    cases = []
+    for B, H, KH, S, D, dt, window, cap, dead in TRAIN_ATTN_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(S + D)
+        q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                       for sh in ((B, S, H, D), (B, S, KH, D),
+                                  (B, S, KH, D), (B, S, H, D)))
+        qp = torch.arange(S, dtype=torch.int32, device=dev)
+        kp = qp.clone()
+        kp[:dead] = -1
+        kw = dict(causal=True, window=window, logit_cap=cap)
+        fa.reset_launches()
+        kernel = _attention_grads(q, k, v, do, qp, kp, kw)
+        launched = {kn: fa.LAUNCHES[f"flash_attention_{kn}"]
+                    for kn in fa.KERNELS}
+        plain = _attention_grads(q, k, v, do, qp, kp, kw,
+                                 forward=_plain_forward)
+        exact = _attention_grads(q, k, v, do, qp, kp, kw, exact=True)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        want = fa.choose_kernel(dtype, D, D, S * (H // KH))
+        check(launched[want] == 1 and sum(launched.values()) == 1,
+              f"train attention {dt} D {D}: launches {launched}, "
+              f"expected one {want}")
+        errs = {}
+        for name, a, b, c in zip(("dq", "dk", "dv"), kernel, plain, exact):
+            check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+                  f"train attention {dt} D {D}: {name} zero or not finite")
+            errs[name] = dict(vs_plain=_rel_err(a, b),
+                              vs_attention_plain=_rel_err(a, c))
+            check(max(errs[name].values()) <= tol,
+                  f"train attention {dt} D {D}: {name} {errs[name]} > {tol}")
+        cases.append(dict(B=B, H=H, KH=KH, S=S, D=D, dtype=dt,
+                          window=window, cap=cap, dead_slots=dead,
+                          kernel=want, tol=tol, rel_err=errs))
+        if not dead and window is None and cap is None:
+            # the public wrapper in the TPU kernel's layout differentiates
+            # as attend does
+            leaves = [t.detach().transpose(1, 2).clone().requires_grad_()
+                      for t in (q, k, v)]
+            out = ops.flash_attention(*leaves, causal=True)
+            check(out.grad_fn is not None,
+                  f"train attention {dt} D {D}: ops.flash_attention "
+                  "output has no grad_fn")
+            out.backward(do.transpose(1, 2))
+            for name, t, want_g in zip(("dq", "dk", "dv"), leaves, kernel):
+                err = _rel_err(t.grad.transpose(1, 2).float(), want_g)
+                check(err <= tol, f"train attention {dt} D {D}: "
+                      f"ops.flash_attention {name} {err} > {tol}")
+            cases[-1]["ops_flash_attention_has_grad_fn"] = True
+
+    # one attention block at qwen3-4b's full width
+    cfg = configs.get("qwen3-4b")
+    g = torch.Generator(device=dev).manual_seed(1)
+    ini = L.Init(g, torch.device(dev), torch.float32)
+    M.init_block(ini, cfg, "attn")
+    masters = {n: t.requires_grad_() for n, t in ini.params.items()}
+    x = torch.randn((2, TRAIN_BLOCK_S, cfg.d_model), generator=g,
+                    device=dev).bfloat16()
+    w = torch.randn((2, TRAIN_BLOCK_S, cfg.d_model), generator=g,
+                    device=dev)
+    pos = torch.arange(TRAIN_BLOCK_S, dtype=torch.int32, device=dev)
+
+    def block_grads(forward=None):
+        for t in masters.values():
+            t.grad = None
+        real = fa.flash_attention_cuda
+        if forward is not None:
+            fa.flash_attention_cuda = forward
+        try:
+            p16 = {n: t.to(torch.bfloat16) for n, t in masters.items()}
+            y, _ = M.apply_block(p16, x, cfg, "attn", positions=pos)
+            (y.float() * w).sum().backward()
+        finally:
+            fa.flash_attention_cuda = real
+        return {n: masters[n].grad.clone() for n in ("wq", "wk", "wv")}
+
+    fa.reset_launches()
+    kernel = block_grads()
+    block_launches = dict(fa.LAUNCHES)
+    plain = block_grads(_plain_forward)
+    block = {}
+    for n in kernel:
+        block[n] = dict(max_abs=float(kernel[n].abs().max()),
+                        rel_err=_rel_err(kernel[n], plain[n]))
+        check(block[n]["max_abs"] > 0 and block[n]["rel_err"] <= 2e-2,
+              f"train block: {n} grad {block[n]} (non-zero, 2e-2)")
+    want = "flash_attention_" + fa.choose_kernel(
+        torch.bfloat16, cfg.head_dim, cfg.head_dim,
+        TRAIN_BLOCK_S * cfg.n_heads // cfg.n_kv_heads)
+    check(block_launches[want] == 1 and block_launches["flash_attention"]
+          == 1, f"train block: launches {block_launches}, expected one "
+          f"{want}")
+    del masters, ini, kernel, plain
+    emit("train_attention", cases=cases,
+         block=dict(config=cfg.name, B=2, S=TRAIN_BLOCK_S, grads=block,
+                    launches=block_launches),
+         seconds=time.perf_counter() - t_all)
+    return block_launches
+
+
+def train_matmul_params(cfg) -> tuple:
+    """(N, formula): the parameters a token meets in a matrix product of a
+    dense attention model (the projections, the gated MLP, lm_head; not
+    the embedding gather)."""
+    D, H, KH, Dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.n_layers)
+    n = L * (D * H * Dh + 2 * D * KH * Dh + H * Dh * D + 3 * D * F) + D * V
+    return n, (f"N_mm = L (D H Dh + 2 D KH Dh + H Dh D + 3 D F) + D V = "
+               f"{L} ({D} {H} {Dh} + 2 {D} {KH} {Dh} + {H} {Dh} {D} + 3 {D} "
+               f"{F}) + {D} {V} = {n}; model FLOP a step = 6 N_mm tokens")
+
+
+def phase_train(n_layers: int = TRAIN_LAYERS,
+                steps: int = TRAIN_STEPS) -> dict:
+    """Phase 6b: qwen3-4b training at full width through the port's entry
+    points: ``train.step.init_state`` on the card from a seeded generator,
+    ``make_train_step`` (bf16 compute copy, ``accum`` 2, AdamW lr 5e-3),
+    ``data.pipeline.make_batch`` at 4 x 4096, ``steps`` steps on that
+    batch.  Each step is split with CUDA events recorded around
+    ``models.model.forward_train`` (a microbatch's forward; the span to the
+    next forward, or to the optimizer, is its backward),
+    ``kernels.flash_attention.flash_attention_backward`` (the attention's
+    backward, inside the backward) and ``optim.adamw.apply_updates``.
+    Checks: the last loss below the first, loss and grad_norm finite at
+    every step, every master's gradient finite and every attention
+    projection's non-zero at every step, the flash launches all on the
+    kernel ``choose_kernel`` names, the peak under ``TRAIN_PEAK_FRAC`` of
+    the card.  Returns the flash launches of the steps."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as T
+    t_all = time.perf_counter()
+    dev = "cuda"
+    cfg = dataclasses.replace(configs.get("qwen3-4b"), n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = T.init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    step = T.make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR),
+                             accum=TRAIN_ACCUM)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+        cfg, DataConfig(seed=0, batch=TRAIN_B, seq_len=TRAIN_S), 0).items()}
+    names = [n for n, _ in state.model.named_parameters()]
+    proj = [i for i, n in enumerate(names)
+            if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")]
+    check(len(proj) == 3 * n_layers, f"train: {len(proj)} projections")
+
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    real = (M.forward_train, adamw.apply_updates,
+            fa.flash_attention_backward)
+
+    def forward(*a, **kw):
+        mark("fwd0")
+        out = real[0](*a, **kw)
+        mark("fwd1")
+        return out
+
+    def attn_backward(*a, **kw):
+        mark("attn0")
+        out = real[2](*a, **kw)
+        mark("attn1")
+        return out
+
+    def update(params, grads, *a, **kw):
+        mark("bwd_end")
+        finite = torch.stack([torch.isfinite(gr).all() for gr in grads])
+        nonzero = torch.stack([grads[i].abs().max() > 0 for i in proj])
+        check(bool(finite.all()), "train: a master's gradient is not "
+              f"finite: {[names[i] for i in np.flatnonzero(finite.cpu())]}")
+        check(bool(nonzero.all()), "train: an attention projection got a "
+              "zero gradient")
+        mark("opt0")
+        out = real[1](params, grads, *a, **kw)
+        mark("opt1")
+        return out
+
+    def spans(a, b):
+        ta = [e for lab, e in marks if lab == a]
+        tb = [e for lab, e in marks if lab == b]
+        check(len(ta) == len(tb), f"train: marks {a} / {b}")
+        return [x.elapsed_time(y) for x, y in zip(ta, tb)]
+
+    flash_kernel = fa.choose_kernel(torch.bfloat16, cfg.head_dim,
+                                    cfg.head_dim,
+                                    TRAIN_S * cfg.n_heads // cfg.n_kv_heads)
+    per_step, losses, gnorms = [], [], []
+    M.forward_train, adamw.apply_updates, fa.flash_attention_backward = (
+        forward, update, attn_backward)
+    try:
+        fa.reset_launches()
+        for i in range(steps):
+            marks.clear()
+            launch0 = dict(fa.LAUNCHES)
+            mark("step0")
+            state, metrics = step(state, batch)
+            mark("step1")
+            torch.cuda.synchronize()
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            check(math.isfinite(losses[-1]) and math.isfinite(gnorms[-1]),
+                  f"train: step {i} loss {losses[-1]} gnorm {gnorms[-1]}")
+            fwd = spans("fwd0", "fwd1")
+            starts = [e for lab, e in marks if lab == "fwd1"]
+            ends = [e for lab, e in marks if lab == "fwd0"][1:] + \
+                [e for lab, e in marks if lab == "bwd_end"]
+            step0 = marks[0][1]
+            first_fwd = next(e for lab, e in marks if lab == "fwd0")
+            per_step.append(dict(
+                step_ms=spans("step0", "step1")[0],
+                cast_ms=step0.elapsed_time(first_fwd),
+                forward_ms=sum(fwd),
+                backward_ms=sum(a.elapsed_time(b)
+                                for a, b in zip(starts, ends)),
+                attention_backward_ms=sum(spans("attn0", "attn1")),
+                attention_backward_calls=len(spans("attn0", "attn1")),
+                optimizer_ms=spans("opt0", "opt1")[0],
+                loss=losses[-1], grad_norm=gnorms[-1],
+                lr=float(metrics["lr"]),
+                flash_launches={kn: fa.LAUNCHES[f"flash_attention_{kn}"]
+                                - launch0[f"flash_attention_{kn}"]
+                                for kn in fa.KERNELS}))
+        launches = {kn: fa.LAUNCHES[f"flash_attention_{kn}"]
+                    for kn in fa.KERNELS}
+    finally:
+        M.forward_train, adamw.apply_updates, fa.flash_attention_backward = \
+            real
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    check(losses[-1] < losses[0], f"train: loss {losses[0]} -> "
+          f"{losses[-1]} did not fall")
+    check(launches[flash_kernel] > 0
+          and sum(launches.values()) == launches[flash_kernel],
+          f"train: flash launches {launches}, expected all {flash_kernel}")
+    check(peak < TRAIN_PEAK_FRAC * card,
+          f"train: peak {peak} B above {TRAIN_PEAK_FRAC} of {card}")
+    steady = per_step[1:] or per_step
+    med = lambda key: statistics.median(r[key] for r in steady)
+    step_s = med("step_ms") / 1e3
+    tokens = TRAIN_B * TRAIN_S
+    n_mm, formula = train_matmul_params(cfg)
+    params = M.param_count(state.model)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_qwen3_4b", config=cfg.name, n_layers=n_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         params=params, compute_dtype="bfloat16", masters="float32",
+         remat=cfg.remat_policy, batch=TRAIN_B, seq_len=TRAIN_S,
+         accum=TRAIN_ACCUM, steps=steps, lr=TRAIN_LR,
+         cut=f"depth {n_layers} of 36: float32 masters, gradients, both "
+             f"moments and the bf16 copy take 18 B a parameter (79.4 GB at "
+             f"36 layers); {n_layers} is the deepest depth measured under "
+             f"{TRAIN_PEAK_FRAC} of the card (29 layers peaked at "
+             f"76825079296 B of 85017493504); batch {TRAIN_B} x {TRAIN_S} "
+             f"(2 microbatches of 2) of train_4k's 256 x 4096, by memory "
+             f"and the script's time",
+         init_s=init_s, resident_before_bytes=resident,
+         state_bytes=state_bytes - resident, peak_bytes=peak,
+         card_bytes=card, peak_frac=peak / card, losses=losses,
+         grad_norms=gnorms, per_step=per_step,
+         steady_step_s=step_s, steady_forward_s=med("forward_ms") / 1e3,
+         steady_backward_s=med("backward_ms") / 1e3,
+         steady_optimizer_s=med("optimizer_ms") / 1e3,
+         steady_cast_s=med("cast_ms") / 1e3,
+         attention_backward_s=med("attention_backward_ms") / 1e3,
+         attention_backward_share=med("attention_backward_ms")
+         / med("step_ms"),
+         tokens_per_s=tokens / step_s, matmul_params=n_mm,
+         model_tflop_per_s=6 * n_mm * tokens / step_s / 1e12,
+         model_flops_formula=formula, flash_kernel=flash_kernel,
+         launches=launches, seconds=time.perf_counter() - t_all)
+    return launches
+
+
+def phase_train_cli() -> dict:
+    """Phase 6c: ``repro_torch.launch.train.main`` on the smoke
+    configuration with ``--report-energy``: ``improved`` true, the
+    placement line printed with a saving, both placement kernels and the
+    flash kernel ``choose_kernel`` names launched.  Returns the launches,
+    placement and flash kernels by kernel-line name."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import placement_power as pp
+    from repro_torch.launch import train as train_cli
+    cfg = configs.get_smoke("qwen3-4b")
+    out = io.StringIO()
+    pp.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(TRAIN_CLI_ARGS)
+    seconds = time.perf_counter() - t0
+    launches = {**{name: pp.LAUNCHES[name] for name in MAIN_PATH_KERNELS},
+                **{f"flash_attention_{kn}": fa.LAUNCHES[f"flash_attention_{kn}"]
+                   for kn in fa.KERNELS}}
+    lines = out.getvalue().strip().splitlines()
+    summary, placed = json.loads(lines[-2]), json.loads(lines[-1])
+    flash = "flash_attention_" + fa.choose_kernel(
+        torch.bfloat16, cfg.head_dim, cfg.head_dim,
+        32 * cfg.n_heads // cfg.n_kv_heads)
+    check(rc == 0 and summary["improved"] is True,
+          f"train CLI: rc {rc}, {summary}")
+    check(placed["saving_frac"] > 0, f"train CLI: placement {placed}")
+    for name in MAIN_PATH_KERNELS + (flash,):
+        check(launches[name] > 0, f"train CLI: kernel {name} was not "
+              f"launched ({launches})")
+    check(sum(launches[f"flash_attention_{kn}"] for kn in fa.KERNELS)
+          == launches[flash], f"train CLI: flash launches {launches}")
+    emit("train_cli", argv=TRAIN_CLI_ARGS, config=cfg.name, lines=lines,
+         summary=summary, placement=placed, launches=launches,
+         seconds=seconds)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3493,6 +3932,14 @@ def main() -> int:
         kernels[name]["launches_encdec"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_encdec_float32"] = n
+    phase_train_attention()
+    launches = phase_train()
+    launches_cli = phase_train_cli()
+    for kn, n in launches.items():
+        kernels[f"flash_attention_{kn}"]["launches_train"] = (
+            n + launches_cli[f"flash_attention_{kn}"])
+    for name in MAIN_PATH_KERNELS:
+        kernels[name]["launches_train"] = launches_cli[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -105,7 +105,14 @@ class CFNTopology:
 
     # -- routing -----------------------------------------------------------
     def finalize(self) -> "CFNTopology":
-        """Compute the padded-CSR route table by BFS over the merged graph."""
+        """Compute the padded-CSR route table by BFS over the merged graph.
+
+        One level-synchronous BFS from every processing node at once, in
+        numpy.  A node's parent is the first frontier node, in discovery
+        order, that lists it, taking each node's neighbours in edge order:
+        the parent a queue-driven BFS from that source finds, so meshed
+        cores keep their direction-dependent tie-breaks.  A route lists the
+        network nodes walked from its end back to its start."""
         names = list(self.proc_names) + list(self.net_names)
         index: Dict[str, int] = {n: i for i, n in enumerate(names)}
         n_all = len(names)
@@ -114,46 +121,57 @@ class CFNTopology:
             ia, ib = index[a], index[b]
             nbrs[ia].append(ib)
             nbrs[ib].append(ia)
+        deg = np.array([len(x) for x in nbrs], dtype=np.int64)
+        first_nbr = np.cumsum(deg) - deg
+        nbr = np.array([v for x in nbrs for v in x], dtype=np.int64)
 
         P, N = self.P, self.N
-        routes: List[List[List[int]]] = [[[] for _ in range(P)]
-                                         for _ in range(P)]
-        route_len = np.zeros((P, P), dtype=np.int32)
-        for b in range(P):
-            # BFS from processing node b.
-            prev = np.full(n_all, -1, dtype=np.int64)
-            seen = np.zeros(n_all, dtype=bool)
-            seen[b] = True
-            frontier = [b]
-            while frontier:
-                nxt = []
-                for u in frontier:
-                    for v in nbrs[u]:
-                        if not seen[v]:
-                            seen[v] = True
-                            prev[v] = u
-                            nxt.append(v)
-                frontier = nxt
-            for e in range(P):
-                if e == b or not seen[e]:
-                    continue
-                # walk back, collecting intermediate *network* nodes.
-                u = int(prev[e])
-                nodes: List[int] = []
-                while u != b and u != -1:
-                    if u >= P:  # network node
-                        nodes.append(u - P)
-                    u = int(prev[u])
-                routes[b][e] = nodes
-                route_len[b, e] = len(nodes)
+        src = np.arange(P, dtype=np.int64)
+        prev = np.full((P, n_all), -1, dtype=np.int64)
+        seen = np.zeros((P, n_all), dtype=bool)
+        seen[src, src] = True
+        # the frontier as (source, node) pairs, sorted by source and then
+        # by discovery order; each level's (source, parent, node) triples
+        fb, fu = src, src
+        levels = []
+        while fb.size:
+            n_out = deg[fu]
+            rows = np.repeat(np.arange(fb.size), n_out)
+            k = np.arange(rows.size) - np.repeat(np.cumsum(n_out) - n_out,
+                                                 n_out)
+            eb, eu = fb[rows], fu[rows]
+            ev = nbr[first_nbr[eu] + k]
+            new = ~seen[eb, ev]
+            eb, eu, ev = eb[new], eu[new], ev[new]
+            # the first to reach a node wins; the order of first arrivals
+            # is the next frontier's discovery order
+            _, first = np.unique(eb * n_all + ev, return_index=True)
+            first.sort()
+            eb, eu, ev = eb[first], eu[first], ev[first]
+            seen[eb, ev] = True
+            prev[eb, ev] = eu
+            levels.append((eb, eu, ev))
+            fb, fu = eb, ev
+
+        # chain[b, v]: the network nodes from v (itself included) back to b
+        depth = max(len(levels), 1)
+        chain = np.full((P, n_all, depth), N, dtype=np.int32)
+        chain_len = np.zeros((P, n_all), dtype=np.int32)
+        for eb, eu, ev in levels:
+            net = ev >= P
+            c = chain[eb, eu]
+            c[net, 1:] = c[net, :-1]
+            c[net, 0] = ev[net] - P
+            chain[eb, ev] = c
+            chain_len[eb, ev] = chain_len[eb, eu] + net
+        # the (b, e) route is the chain of e's parent (b's own is empty;
+        # so are the routes from b to itself and to nodes it cannot reach)
+        b_i = np.broadcast_to(src[:, None], (P, P))
+        par = np.where(prev[:, :P] >= 0, prev[:, :P], b_i)
+        par[src, src] = src
+        route_len = chain_len[b_i, par]
         K = max(1, int(route_len.max()))
-        route_idx = np.full((P, P, K), N, dtype=np.int32)
-        for b in range(P):
-            for e in range(P):
-                nodes = routes[b][e]
-                if nodes:
-                    route_idx[b, e, :len(nodes)] = nodes
-        self.route_idx = route_idx
+        self.route_idx = np.ascontiguousarray(chain[b_i, par][:, :, :K])
         self.route_len = route_len
         self.path_hops = route_len
         self._dense_cache = None

@@ -26,6 +26,13 @@ their plain PyTorch versions.
     rounded to the input dtype before P . V; per-chunk partials and their
     log-sum-exp combine).
 
+``attend`` makes either differentiable: an autograd ``Function`` whose
+forward is the kernel on CUDA tensors (its plain version on CPU tensors)
+and whose backward is ``flash_attention_backward``, the reference's
+chunked flash backward (``src/repro/models/layers.py:231-318``) in plain
+PyTorch, the same on both devices.  The reference's backward is plain JAX,
+so no TPU kernel stands behind it.
+
 Layout ``[B, S, heads, D]``; query head h reads kv head ``h // G``.  The
 positions decide the mask: a kv slot with a negative position is masked
 (padding, or an unwritten ring-buffer cache slot), and with ``causal`` a
@@ -72,7 +79,7 @@ WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 # Q sequence lengths up to this use the direct (unchunked) plain path
 DECODE_DIRECT_MAX_Q = 8
 # kv chunk of the chunked plain path when ``attention_plain`` dispatches to
-# it (the reference's ``attend`` default)
+# it, and of the backward (the reference's ``attend`` default)
 PLAIN_KV_CHUNK = 512
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -377,3 +384,142 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
     _count_launch("flash_attention")
     _count_launch(f"flash_attention_{name}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable attention: the kernel's forward, the reference's backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_backward(q, k, v, q_positions, kv_positions, out, do, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_cap: Optional[float] = None,
+                             kv_chunk: int = PLAIN_KV_CHUNK):
+    """(dq, dk, dv) of attention, given its output ``out`` and the output's
+    gradient ``do``: the reference's ``_flash_bwd``, in float32, in the
+    inputs' dtypes at the end.  One pass over kv chunks of ``kv_chunk``
+    slots recomputes each row's log-sum-exp; a second recomputes P = exp(s
+    - lse) chunk by chunk and takes dv, dp, ds = P (dp - delta) (times the
+    softcap's derivative 1 - tanh^2(s / cap)), dk per chunk and dq summed
+    over chunks.  No probability tensor outlives its chunk.  GQA is folded
+    as rows [B, KH, Sq * G]; a row with no unmasked slot gets zero
+    gradients (P is 0 there, never exp of -inf minus -inf).
+
+    A chunk is computed only over the rows from the first to the last that
+    its mask leaves a slot (one host read of those bounds a call): the
+    rows outside take exactly 0 from it, so the result is the reference's,
+    and a causal call does about half the work (a window, less)."""
+    B, Sq, H, D = q.shape
+    Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KH
+    R = Sq * G
+    scale = 1.0 / math.sqrt(D)
+
+    def rows(t, d):                         # [B, Sq, H, d] -> [B, KH, R, d]
+        return t.float().reshape(B, Sq, KH, G, d).permute(0, 2, 1, 3, 4) \
+            .reshape(B, KH, R, d)
+
+    qg = rows(q, D) * scale
+    dog = rows(do, Dv)
+    delta = (rows(out, Dv) * dog).sum(-1)                    # [B, KH, R]
+    kh = k.float().permute(0, 2, 1, 3)                       # [B, KH, Skv, D]
+    vh = v.float().permute(0, 2, 1, 3)
+    q_rows = q_positions.repeat_interleave(G)   # a row's query position
+    chunks = [(c0, min(c0 + kv_chunk, Skv)) for c0 in range(0, Skv, kv_chunk)]
+    masks = [_mask(q_rows, kv_positions[c0:c1], causal, window)[0, :, 0, 0]
+             for c0, c1 in chunks]                      # [R, C] each
+    live = torch.stack([mk.any(1) for mk in masks]).int()   # [chunks, R]
+    bounds = torch.stack([live.amax(1), live.argmax(1),
+                          R - live.flip(1).argmax(1)], 1).tolist()
+    chunks = [(c0, c1, r0, r1, mk[r0:r1])
+              for (c0, c1), mk, (any_row, r0, r1) in zip(chunks, masks, bounds)
+              if any_row]
+
+    # pass 1: the exact log-sum-exp of every row
+    m = torch.full((B, KH, R), -math.inf, device=q.device)
+    l = torch.zeros((B, KH, R), device=q.device)
+    for c0, c1, r0, r1, mask in chunks:
+        s = softcap(qg[:, :, r0:r1] @ kh[:, :, c0:c1].mT, logit_cap)
+        s = s.masked_fill_(~mask, -math.inf)
+        m_old = m[:, :, r0:r1]
+        m_new = torch.maximum(m_old, s.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        corr = torch.exp(torch.where(torch.isneginf(m_old), 0.0, m_old)
+                         - m_safe)
+        corr = torch.where(torch.isneginf(m_old), 0.0, corr)
+        p = s.sub_(m_safe[..., None]).exp_().masked_fill_(~mask, 0.0)
+        l[:, :, r0:r1] = l[:, :, r0:r1] * corr + p.sum(-1)
+        m[:, :, r0:r1] = m_new
+    lse = torch.where(torch.isneginf(m), 0.0, m) \
+        + torch.log(torch.clamp_min(l, 1e-20))
+
+    # pass 2: dq accumulated over chunks, dk and dv a chunk at a time
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kh)
+    dv = torch.zeros_like(vh)
+    for c0, c1, r0, r1, mask in chunks:
+        qj, doj = qg[:, :, r0:r1], dog[:, :, r0:r1]
+        kj, vj = kh[:, :, c0:c1], vh[:, :, c0:c1]
+        s = qj @ kj.mT                                         # [B, KH, r, C]
+        th = None if logit_cap is None else torch.tanh(s / logit_cap)
+        sc = s if th is None else logit_cap * th
+        p = sc.sub_(lse[:, :, r0:r1, None]).exp_().masked_fill_(~mask, 0.0)
+        dv[:, :, c0:c1] = p.mT @ doj
+        ds = (doj @ vj.mT).sub_(delta[:, :, r0:r1, None]).mul_(p)
+        if th is not None:                       # d softcap = 1 - tanh^2
+            ds = ds.mul_(1.0 - th * th)
+        dq[:, :, r0:r1] += ds @ kj
+        dk[:, :, c0:c1] = ds.mT @ qj
+    dq = (dq * scale).reshape(B, KH, Sq, G, D).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def _attention_forward(q, k, v, q_positions, kv_positions, causal, window,
+                       logit_cap, plain):
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, q_positions, kv_positions,
+                                    causal=causal, window=window,
+                                    logit_cap=logit_cap)
+    return plain(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                 causal=causal, window=window, logit_cap=logit_cap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernel's forward and the reference's backward.
+    Saves q, k, v, both position vectors and the output; no probability
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window,
+                logit_cap, plain):
+        out = _attention_forward(q, k, v, q_positions, kv_positions, causal,
+                                 window, logit_cap, plain)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions, out)
+        ctx.opts = dict(causal=causal, window=window, logit_cap=logit_cap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_positions, kv_positions, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, q_positions,
+                                              kv_positions, out, do,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def attend(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+           window: Optional[int] = None, logit_cap: Optional[float] = None,
+           plain=attention_plain) -> torch.Tensor:
+    """Attention through the kernel on CUDA tensors (``flash_attention_cuda``,
+    output in q's dtype) and through ``plain`` on CPU tensors (float32
+    output).  Under grad with an input that requires it, the call goes
+    through ``FlashAttention``, so the output always has a ``grad_fn``;
+    otherwise (serving, under ``torch.no_grad``) it is the bare forward."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                    causal, window, logit_cap, plain)
+    return _attention_forward(q, k, v, q_positions, kv_positions, causal,
+                              window, logit_cap, plain)

@@ -25,7 +25,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Flash attention in the TPU kernel's layout: q [B, H, Sq, D], k/v
     [B, KH, Skv, D] -> [B, H, Sq, D] in q's dtype.  Query i sits at
     position ``q_offset + i``, kv slot j at position j.  CPU tensors run
-    the plain chunked version (``ref.flash_attention_ref``)."""
+    the plain chunked version (``ref.flash_attention_ref``).  On CUDA
+    tensors the call goes through ``flash_attention.attend``, so under grad
+    the output has a ``grad_fn`` (the reference's chunked backward)."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_cap=logit_cap, q_offset=q_offset)
@@ -33,9 +35,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     qpos = q_offset + torch.arange(Sq, dtype=torch.int32, device=q.device)
     kpos = torch.arange(Skv, dtype=torch.int32, device=q.device)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return fa.flash_attention_cuda(qt, kt, vt, qpos, kpos, causal=causal,
-                                   window=window,
-                                   logit_cap=logit_cap).transpose(1, 2)
+    return fa.attend(qt, kt, vt, qpos, kpos, causal=causal, window=window,
+                     logit_cap=logit_cap).transpose(1, 2)
 
 
 def placement_objective(problem: PlacementProblem, Xb) -> torch.Tensor:

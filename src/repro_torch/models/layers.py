@@ -13,8 +13,9 @@ in plain JAX outside any kernel.
 A block's parameters are read by name (``params["wq"]``), so a dict of
 tensors and a ``models.model.ParamBlock`` both serve.  Weights are cast to
 the activation dtype at each use, as in the reference; that cast is a no-op
-when the model was built or loaded in that dtype.  The custom-VJP backward
-comes with its own slice (ROADMAP Queue 1, item 9).
+when the model was built or loaded in that dtype.  Every operation is
+differentiable: ``attend``'s backward is the reference's chunked flash
+backward, the rest is autograd's.
 """
 from __future__ import annotations
 
@@ -124,14 +125,10 @@ def attend(q, k, v, *, q_positions, kv_positions, causal=True, window=None,
     """q [B, Sq, H, D], k/v [B, Skv, KH, D(v)] -> [B, Sq, H, Dv].  CUDA
     tensors: the flash-attention kernel for every Sq (output in q's dtype).
     CPU tensors: the plain versions, direct for Sq <= 8, chunked otherwise
-    (float32 output, as the reference's)."""
-    if q.is_cuda:
-        return fa.flash_attention_cuda(q, k, v, q_positions, kv_positions,
-                                       causal=causal, window=window,
-                                       logit_cap=logit_cap)
-    return fa.attention_plain(q, k, v, q_positions=q_positions,
-                              kv_positions=kv_positions, causal=causal,
-                              window=window, logit_cap=logit_cap)
+    (float32 output, as the reference's).  Differentiable on both devices
+    (``kernels.flash_attention.attend``: the reference's flash backward)."""
+    return fa.attend(q, k, v, q_positions, kv_positions, causal=causal,
+                     window=window, logit_cap=logit_cap)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,18 @@ decode forward passes.
 The layer plan is the reference's (a list of groups, each a repeating unit
 of block kinds).  The reference stacks a group's parameters along a
 leading ``repeats`` axis and scans over it; the port keeps one
-``ParamBlock`` per layer and runs a Python loop, without remat (serving
-runs ``remat_policy="none"``).  The JAX package's ``shard(...)`` calls are
-no-ops on one device and are dropped.
+``ParamBlock`` per layer and runs a Python loop.  Serving runs under
+``torch.no_grad`` and never rematerializes; under grad each block is
+checkpointed by the config's ``remat_policy`` (the reference's ``_remat``).
+The JAX package's ``shard(...)`` calls are no-ops on one device and are
+dropped.
+
+Training (``forward_train``, ``xent_loss``) holds float32 masters
+(``init_model`` / ``params_from_numpy`` with ``trainable=True``) and, as
+the reference's train step does, differentiates a copy of every float32
+leaf cast to the compute dtype once a step (``compute_view``): a
+``ParamView`` with the model's access pattern, so the model functions run
+on either.
 
 Runs every block kind of the reference: attention (``attn`` /
 ``attn_local`` / ``attn_global``), the MoE family's (``attn_moe``, and
@@ -22,6 +31,7 @@ prepends patch embeddings ``batch["patches"]`` [B, P, D] to its tokens.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -29,6 +39,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.power import Device, resolve_device
 from ..kernels import flash_attention as fa
@@ -125,11 +137,12 @@ class ParamBlock(nn.Module):
     """One block's (or the model's top-level) parameters under the
     reference's leaf names; ``block["wq"]`` reads one."""
 
-    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+    def __init__(self, tensors: Mapping[str, torch.Tensor],
+                 requires_grad: bool = False):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t,
-                                                       requires_grad=False))
+            self.register_parameter(name, nn.Parameter(
+                t, requires_grad=requires_grad))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
@@ -138,9 +151,9 @@ class ParamBlock(nn.Module):
 Units = List[List[Dict[str, Mapping[str, torch.Tensor]]]]
 
 
-def _stack_modules(groups: Units) -> nn.ModuleList:
+def _stack_modules(groups: Units, requires_grad: bool) -> nn.ModuleList:
     return nn.ModuleList(
-        nn.ModuleList(nn.ModuleDict({name: ParamBlock(t)
+        nn.ModuleList(nn.ModuleDict({name: ParamBlock(t, requires_grad)
                                      for name, t in unit.items()})
                       for unit in units)
         for units in groups)
@@ -152,18 +165,56 @@ class Model(nn.Module):
     the block of kind ``kinds[j]`` in repeat r of layer group gi (the
     reference's ``g{gi}`` leaves, one module per repeat), ``enc_groups``
     the encoder's the same way (its ``enc_g{gi}`` leaves; empty but for
-    an encoder-decoder)."""
+    an encoder-decoder).  ``requires_grad``: trainable leaves (training's
+    float32 masters); serving's stay frozen."""
 
     def __init__(self, cfg: ArchConfig, top: Mapping[str, torch.Tensor],
-                 groups: Units, enc_groups: Units = ()):
+                 groups: Units, enc_groups: Units = (),
+                 requires_grad: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.top = ParamBlock(top)
-        self.groups = _stack_modules(groups)
-        self.enc_groups = _stack_modules(enc_groups)
+        self.top = ParamBlock(top, requires_grad)
+        self.groups = _stack_modules(groups, requires_grad)
+        self.enc_groups = _stack_modules(enc_groups, requires_grad)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
+
+
+class ParamView:
+    """Read-only stand-in for a ``Model`` over other tensors: ``top`` leaves
+    by name (``view["embed"]``), ``groups`` / ``enc_groups`` as nested
+    lists of per-layer ``{"b{j}": {leaf: tensor}}``, the access the model
+    functions use."""
+
+    def __init__(self, cfg: ArchConfig, top: Dict[str, torch.Tensor],
+                 groups: List, enc_groups: List):
+        self.cfg, self.top = cfg, top
+        self.groups, self.enc_groups = groups, enc_groups
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.top[name]
+
+
+def compute_view(model: Model, dtype: Optional[torch.dtype]):
+    """The copy a train step differentiates (the reference's ``cast`` in
+    ``train/step.py``): every float32 leaf cast to ``dtype`` -- 1-D norms,
+    ``A_log`` and sLSTM's ``r*`` too -- once, in the autograd graph, so
+    gradients reach the float32 masters through the cast.  ``dtype=None``:
+    the model itself, uncast."""
+    if dtype is None:
+        return model
+
+    def cast(blk: ParamBlock) -> Dict[str, torch.Tensor]:
+        return {name: p.to(dtype) if p.dtype == torch.float32 else p
+                for name, p in blk.named_parameters()}
+
+    def stack(groups: nn.ModuleList) -> List:
+        return [[{b: cast(blk) for b, blk in unit.items()} for unit in units]
+                for units in groups]
+
+    return ParamView(model.cfg, cast(model.top), stack(model.groups),
+                     stack(model.enc_groups))
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -289,11 +340,8 @@ def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
             cache["v"].copy_(v)
     kv_pos = _positions(k.shape[1], x.device)
     q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
-    if q.is_cuda:
-        out = fa.flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=False)
-    else:
-        out = fa.flash_attention(q, k, v, q_positions=q_pos,
-                                 kv_positions=kv_pos, causal=False)
+    out = fa.attend(q, k, v, q_pos, kv_pos, causal=False,
+                    plain=fa.flash_attention)
     return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")
 
 
@@ -307,7 +355,7 @@ def _build_units(plan: List[LayerGroup], make_block) -> Units:
 
 
 def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-               *, device: Device = None) -> Model:
+               *, device: Device = None, trainable: bool = False) -> Model:
     """Random weights with the reference's scales (normal 1/sqrt(fan_in),
     the ``wo`` / ``w_down`` depth scales, embed 0.02, zero norms), drawn
     layer by layer on ``device`` from ``generator`` (a generator on that
@@ -317,11 +365,12 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     a time, so the float32 transient is one weight, never the model.
     ``device="meta"`` allocates nothing (shapes only).  The draws are not
     the JAX package's: carry its weights across with ``params_from_numpy``
-    to compare."""
+    to compare.  ``trainable``: every leaf a float32 master that requires
+    grad (the reference's ``init_model``; the same draws)."""
     dev = torch.device("meta") if device == "meta" else resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    dt = _torch_dtype(cfg.dtype)
+    dt = torch.float32 if trainable else _torch_dtype(cfg.dtype)
     top = Init(generator, dev, dt)
     top.mk("embed", (cfg.vocab, cfg.d_model), scale=0.02)
     top.mk("final_norm", (cfg.d_model,), mode="zeros")
@@ -338,11 +387,12 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     enc_groups = _build_units(encoder_plan(cfg), make_block)
     if cfg.is_encoder_decoder:
         top.mk("enc_final_norm", (cfg.d_model,), mode="zeros")
-    return Model(cfg, top.params, groups, enc_groups)
+    return Model(cfg, top.params, groups, enc_groups, trainable)
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
-                      device: Device = None) -> Model:
+                      device: Device = None,
+                      trainable: bool = False) -> Model:
     """The port's model from the JAX package's parameter tree (leaves as
     numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, params)``).
 
@@ -353,9 +403,11 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
     the reference casts each weight to the activation dtype at every use:
     the numbers are the same.  Leaves stay float32 where
     ``layers.leaf_dtype`` says (1-D norm scales and biases, ``A_log``,
-    sLSTM's ``r*``), as ``init_model`` makes them."""
+    sLSTM's ``r*``), as ``init_model`` makes them.  ``trainable``: every
+    leaf a float32 master that requires grad, as the reference keeps its
+    parameters."""
     dev = resolve_device(device)
-    dt = _torch_dtype(cfg.dtype)
+    dt = torch.float32 if trainable else _torch_dtype(cfg.dtype)
 
     def conv(name: str, a) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, dtype=np.float32))
@@ -369,7 +421,7 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
     top = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head",
                                          "enc_final_norm") if k in tree}
     return Model(cfg, top, _build_units(layer_plan(cfg), carry("g")),
-                 _build_units(encoder_plan(cfg), carry("enc_g")))
+                 _build_units(encoder_plan(cfg), carry("enc_g")), trainable)
 
 
 def param_count(model: Model) -> int:
@@ -379,6 +431,37 @@ def param_count(model: Model) -> int:
 # ---------------------------------------------------------------------------
 # stack application
 # ---------------------------------------------------------------------------
+
+# the matrix products "dots" remat saves (jax.checkpoint_policies.
+# checkpoint_dots): everything else in a block is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _remat(fn, policy: str):
+    """The reference's ``_remat``, per block: "full" recomputes the whole
+    block in the backward (only its inputs are kept), "dots" keeps the
+    matrix products' outputs and recomputes the rest, "none" keeps every
+    activation.  Without grad (serving) ``fn`` runs as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
@@ -393,7 +476,9 @@ def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
     a per-group list whose leaves carry the group's ``repeats`` axis
     first; each layer reads and writes its slice (the whole tree of views:
     hymba's ``{attn, mamba}``, whisper's ``{self, cross}``, mLSTM's
-    ``cell`` tuple) in place, and the same list comes back."""
+    ``cell`` tuple) in place, and the same list comes back.  ``model`` may
+    be a ``ParamView``.  Under grad each block is rematerialized by the
+    config's ``remat_policy`` (``_remat``)."""
     stack = {"g": model.groups, "enc_g": model.enc_groups}[tag]
     for gi, grp in enumerate(plan):
         gcache = None if caches is None else caches[gi]
@@ -401,9 +486,10 @@ def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
             for j, kind in enumerate(grp.kinds):
                 c = None if gcache is None else tmap(
                     lambda buf: buf[r], gcache[f"b{j}"])
-                x, _ = apply_block(unit[f"b{j}"], x, cfg, kind,
-                                   positions=positions, cache=c,
-                                   enc_out=enc_out)
+                block = functools.partial(apply_block, cfg=cfg, kind=kind,
+                                          positions=positions, cache=c)
+                x, _ = _remat(block, cfg.remat_policy)(unit[f"b{j}"], x,
+                                                       enc_out=enc_out)
     return x, caches
 
 
@@ -463,3 +549,48 @@ def forward_hidden(model: Model, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
     x, _ = apply_stack(model, x, cfg, layer_plan(cfg), positions=positions,
                        enc_out=enc_out)
     return x
+
+
+# ---------------------------------------------------------------------------
+# training: loss and forward
+# ---------------------------------------------------------------------------
+
+
+def xent_loss(model: Model, cfg: ArchConfig, h: torch.Tensor,
+              labels: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
+    """Mean next-token cross-entropy of final states h [B, S, D] against
+    labels [B, S] (the reference's chunked ``xent_loss``): ``n_chunks``
+    reduced until it divides S, each chunk's float32 [B, S / n_chunks, V]
+    logits made, reduced to a sum and dropped -- under grad each chunk is
+    checkpointed, so its backward recomputes the logits instead of
+    keeping them -- then the sum of the chunks over B * S."""
+    B, S, _ = h.shape
+    n_chunks = min(n_chunks, S)
+    while S % n_chunks:
+        n_chunks -= 1
+    width = S // n_chunks
+
+    def chunk_loss(hh: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+        logits = logits_fn(model, cfg, hh)                 # [B, s, V] f32
+        lse = torch.logsumexp(logits, -1)
+        picked = torch.gather(logits, -1, ll[..., None].long())[..., 0]
+        return (lse - picked).sum()
+
+    chunk = _remat(chunk_loss, "full")
+    total = torch.stack([chunk(h[:, c:c + width], labels[:, c:c + width])
+                         for c in range(0, S, width)]).sum()
+    return total / (B * S)
+
+
+def forward_train(model: Model, cfg: ArchConfig,
+                  batch: Dict) -> torch.Tensor:
+    """Mean next-token loss of one (micro)batch: ``tokens`` / ``labels``
+    [B, S] (with ``frames`` or ``patches`` where the config takes them);
+    a VLM's loss covers only the text after its patch prefix.  ``model``
+    is a ``Model`` or its ``compute_view``."""
+    x, positions, enc_out = decoder_inputs(model, cfg, batch)
+    x, _ = apply_stack(model, x, cfg, layer_plan(cfg), positions=positions,
+                       enc_out=enc_out)
+    if cfg.vision_prefix_tokens:
+        x = x[:, cfg.vision_prefix_tokens:]
+    return xent_loss(model, cfg, x, batch["labels"])

@@ -351,17 +351,27 @@ def mamba_chunk(T: int) -> int:
 def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of h_t = a_t h_{t-1} + b_t along dim 1 (h_{-1} = 0),
     by log-depth doubling (Hillis-Steele) with the reference's combine
-    ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``.  Overwrites a and b;
-    returns b, which then holds every h_t."""
+    ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)``.  Returns every h_t.
+    Serving overwrites a and b level by level (b then holds the result);
+    under grad, where autograd keeps the slices a level reads, each level
+    is a new tensor (the same combine, the same numbers)."""
     L = a.shape[1]
+    in_place = not (torch.is_grad_enabled()
+                    and (a.requires_grad or b.requires_grad))
     d = 1
     while d < L:        # (the dels: two level temporaries alive at most)
         tail_b = torch.addcmul(b[:, d:], a[:, d:], b[:, :L - d])
         if 2 * d < L:           # the last level needs no a
             tail_a = a[:, d:] * a[:, :L - d]
-            a[:, d:] = tail_a
+            if in_place:
+                a[:, d:] = tail_a
+            else:
+                a = torch.cat([a[:, :d], tail_a], 1)
             del tail_a
-        b[:, d:] = tail_b
+        if in_place:
+            b[:, d:] = tail_b
+        else:
+            b = torch.cat([b[:, :d], tail_b], 1)
         del tail_b
         d *= 2
     return b
