@@ -65,16 +65,22 @@ class Init:
     for norms, ones where asked (mamba's ``A_log`` and ``D_skip``).
     Leaves take ``leaf_dtype``: matrices are made in ``dtype`` (drawn in
     float32, cast once); 1-D leaves and ``FLOAT32_LEAVES`` stay float32.
-    On the ``meta`` device nothing is allocated or drawn.
+    On the ``meta`` device nothing is allocated or drawn.  ``axes`` keeps
+    each leaf's logical axes (one name or None a dimension, the
+    reference's: ``parallel.sharding`` resolves them on a mesh).
     """
 
     def __init__(self, generator: Optional[torch.Generator],
                  device: torch.device, dtype: torch.dtype):
         self.gen, self.device, self.dtype = generator, device, dtype
         self.params: Dict[str, torch.Tensor] = {}
+        self.axes: Dict[str, Tuple[Optional[str], ...]] = {}
 
-    def mk(self, name: str, shape, scale: Optional[float] = None,
+    def mk(self, name: str, shape, axes, scale: Optional[float] = None,
            mode: str = "normal") -> None:
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: axes {axes} for shape {shape}")
+        self.axes[name] = tuple(axes)
         dtype = leaf_dtype(name, len(shape), self.dtype)
         if self.device.type == "meta":
             val = torch.empty(shape, dtype=dtype, device=self.device)
@@ -138,14 +144,14 @@ def attend(q, k, v, *, q_positions, kv_positions, causal=True, window=None,
 
 def init_attention(ini: Init, cfg: ArchConfig, prefix: str = "") -> None:
     D, H, KH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ini.mk(prefix + "wq", (D, H * Dh))
-    ini.mk(prefix + "wk", (D, KH * Dh))
-    ini.mk(prefix + "wv", (D, KH * Dh))
-    ini.mk(prefix + "wo", (H * Dh, D),
+    ini.mk(prefix + "wq", (D, H * Dh), ("fsdp", "tp"))
+    ini.mk(prefix + "wk", (D, KH * Dh), ("fsdp", "tp"))
+    ini.mk(prefix + "wv", (D, KH * Dh), ("fsdp", "tp"))
+    ini.mk(prefix + "wo", (H * Dh, D), ("tp", "fsdp"),
            scale=1.0 / math.sqrt(H * Dh * 2 * cfg.n_layers))
     if cfg.qk_norm:
-        ini.mk(prefix + "q_norm", (Dh,), mode="zeros")
-        ini.mk(prefix + "k_norm", (Dh,), mode="zeros")
+        ini.mk(prefix + "q_norm", (Dh,), (None,), mode="zeros")
+        ini.mk(prefix + "k_norm", (Dh,), (None,), mode="zeros")
 
 
 def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -204,14 +210,15 @@ def _write_cache(cache: Dict, positions: torch.Tensor, dtype,
 def init_mla(ini: Init, cfg: ArchConfig) -> None:
     D, H = cfg.d_model, cfg.n_heads
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_dim
-    ini.mk("wq_a", (D, cfg.q_lora_rank))
-    ini.mk("q_a_norm", (cfg.q_lora_rank,), mode="zeros")
-    ini.mk("wq_b", (cfg.q_lora_rank, H * (dn + dr)))
-    ini.mk("wkv_a", (D, cfg.kv_lora_rank + dr))
-    ini.mk("kv_a_norm", (cfg.kv_lora_rank,), mode="zeros")
-    ini.mk("wk_b", (cfg.kv_lora_rank, H * dn))
-    ini.mk("wv_b", (cfg.kv_lora_rank, H * dv))
-    ini.mk("wo", (H * dv, D), scale=1.0 / math.sqrt(H * dv * 2 * cfg.n_layers))
+    ini.mk("wq_a", (D, cfg.q_lora_rank), ("fsdp", None))
+    ini.mk("q_a_norm", (cfg.q_lora_rank,), (None,), mode="zeros")
+    ini.mk("wq_b", (cfg.q_lora_rank, H * (dn + dr)), (None, "tp"))
+    ini.mk("wkv_a", (D, cfg.kv_lora_rank + dr), ("fsdp", None))
+    ini.mk("kv_a_norm", (cfg.kv_lora_rank,), (None,), mode="zeros")
+    ini.mk("wk_b", (cfg.kv_lora_rank, H * dn), (None, "tp"))
+    ini.mk("wv_b", (cfg.kv_lora_rank, H * dv), (None, "tp"))
+    ini.mk("wo", (H * dv, D), ("tp", "fsdp"),
+           scale=1.0 / math.sqrt(H * dv * 2 * cfg.n_layers))
 
 
 def mla_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -287,9 +294,9 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
 
 def init_mlp(ini: Init, d_model: int, d_ff: int, n_layers: int,
              prefix: str = "") -> None:
-    ini.mk(prefix + "w_gate", (d_model, d_ff))
-    ini.mk(prefix + "w_up", (d_model, d_ff))
-    ini.mk(prefix + "w_down", (d_ff, d_model),
+    ini.mk(prefix + "w_gate", (d_model, d_ff), ("fsdp", "tp"))
+    ini.mk(prefix + "w_up", (d_model, d_ff), ("fsdp", "tp"))
+    ini.mk(prefix + "w_down", (d_ff, d_model), ("tp", "fsdp"),
            scale=1.0 / math.sqrt(d_ff * 2 * n_layers))
 
 
@@ -311,10 +318,11 @@ MOE_EP_MIN_TOKENS = 4096
 
 def init_moe(ini: Init, cfg: ArchConfig) -> None:
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    ini.mk("router", (D, E), scale=0.02)
-    ini.mk("we_gate", (E, D, Fe))
-    ini.mk("we_up", (E, D, Fe))
-    ini.mk("we_down", (E, Fe, D), scale=1.0 / math.sqrt(Fe * 2 * cfg.n_layers))
+    ini.mk("router", (D, E), ("fsdp", None), scale=0.02)
+    ini.mk("we_gate", (E, D, Fe), ("expert", "fsdp", None))
+    ini.mk("we_up", (E, D, Fe), ("expert", "fsdp", None))
+    ini.mk("we_down", (E, Fe, D), ("expert", None, "fsdp"),
+           scale=1.0 / math.sqrt(Fe * 2 * cfg.n_layers))
     if cfg.n_shared_experts:
         init_mlp(ini, D, Fe * cfg.n_shared_experts, cfg.n_layers,
                  prefix="shared_")

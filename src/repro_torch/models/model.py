@@ -8,8 +8,11 @@ leading ``repeats`` axis and scans over it; the port keeps one
 ``ParamBlock`` per layer and runs a Python loop.  Serving runs under
 ``torch.no_grad`` and never rematerializes; under grad each block is
 checkpointed by the config's ``remat_policy`` (the reference's ``_remat``).
-The JAX package's ``shard(...)`` calls are no-ops on one device and are
-dropped.
+The JAX package's ``shard(...)`` activation constraints are dropped: the
+port's sharded train step (``train/step.py``) shards the parameters and
+optimizer state by each leaf's logical axes (``Model.axes``, the
+reference's tuples without its stacked ``repeats`` axis) and all-gathers
+a leaf's compute copy whole, so activations are never sharded.
 
 Training (``forward_train``, ``xent_loss``) holds float32 masters
 (``init_model`` / ``params_from_numpy`` with ``trainable=True``) and, as
@@ -34,7 +37,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,7 +169,9 @@ class Model(nn.Module):
     reference's ``g{gi}`` leaves, one module per repeat), ``enc_groups``
     the encoder's the same way (its ``enc_g{gi}`` leaves; empty but for
     an encoder-decoder).  ``requires_grad``: trainable leaves (training's
-    float32 masters); serving's stay frozen."""
+    float32 masters); serving's stay frozen.  ``axes``: each leaf's
+    logical axes by its ``named_parameters`` name (the reference's
+    ``init_model(...)[1]`` without the stacked ``repeats`` axis)."""
 
     def __init__(self, cfg: ArchConfig, top: Mapping[str, torch.Tensor],
                  groups: Units, enc_groups: Units = (),
@@ -176,6 +181,9 @@ class Model(nn.Module):
         self.top = ParamBlock(top, requires_grad)
         self.groups = _stack_modules(groups, requires_grad)
         self.enc_groups = _stack_modules(enc_groups, requires_grad)
+        self.axes = leaf_axes(cfg)
+        if list(self.axes) != [n for n, _ in self.named_parameters()]:
+            raise ValueError(f"{cfg.name}: the leaves are not init_model's")
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
@@ -196,18 +204,23 @@ class ParamView:
         return self.top[name]
 
 
-def compute_view(model: Model, dtype: Optional[torch.dtype]):
+def compute_view(model: Model, dtype: Optional[torch.dtype],
+                 leaf: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None):
     """The copy a train step differentiates (the reference's ``cast`` in
     ``train/step.py``): every float32 leaf cast to ``dtype`` -- 1-D norms,
     ``A_log`` and sLSTM's ``r*`` too -- once, in the autograd graph, so
     gradients reach the float32 masters through the cast.  ``dtype=None``:
-    the model itself, uncast."""
-    if dtype is None:
+    the model itself, uncast.  ``leaf(p)``, when given, makes each leaf's
+    compute copy instead: the sharded step's all-gather of a master's
+    shard (``train.step``), the one place a leaf is gathered whole."""
+    if dtype is None and leaf is None:
         return model
+    if leaf is None:
+        leaf = lambda p: p.to(dtype) if p.dtype == torch.float32 else p
 
     def cast(blk: ParamBlock) -> Dict[str, torch.Tensor]:
-        return {name: p.to(dtype) if p.dtype == torch.float32 else p
-                for name, p in blk.named_parameters()}
+        return {name: leaf(p) for name, p in blk.named_parameters()}
 
     def stack(groups: nn.ModuleList) -> List:
         return [[{b: cast(blk) for b, blk in unit.items()} for unit in units]
@@ -226,6 +239,46 @@ def _check_kind(kind: str) -> None:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
+def init_top(ini: Init, cfg: ArchConfig) -> None:
+    """The top-level leaves: embed, final_norm, lm_head unless tied, and
+    an encoder-decoder's enc_final_norm (zeros: nothing drawn)."""
+    ini.mk("embed", (cfg.vocab, cfg.d_model), ("tp", "fsdp"), scale=0.02)
+    ini.mk("final_norm", (cfg.d_model,), (None,), mode="zeros")
+    if not cfg.tie_embeddings:
+        ini.mk("lm_head", (cfg.d_model, cfg.vocab), ("fsdp", "tp"),
+               scale=1.0 / math.sqrt(cfg.d_model))
+    if cfg.is_encoder_decoder:
+        ini.mk("enc_final_norm", (cfg.d_model,), (None,), mode="zeros")
+
+
+def _axes_of(make) -> Dict[str, Tuple]:
+    """The leaves' logical axes, in order, of ``make(ini)`` run on an
+    ``Init`` on the meta device (nothing allocated)."""
+    ini = Init(None, torch.device("meta"), torch.float32)
+    make(ini)
+    return ini.axes
+
+
+def _block_axes(cfg: ArchConfig, kind: str) -> Dict[str, Tuple]:
+    return _axes_of(lambda ini: init_block(ini, cfg, kind))
+
+
+def leaf_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of every leaf by its ``Model.named_parameters`` name
+    (``top.embed``, ``groups.0.3.b0.wq``, ...), in that order."""
+    out = {f"top.{k}": a for k, a in _axes_of(
+        lambda ini: init_top(ini, cfg)).items()}
+    for tag, plan in (("groups", layer_plan(cfg)),
+                      ("enc_groups", encoder_plan(cfg))):
+        for gi, grp in enumerate(plan):
+            kinds = [_block_axes(cfg, kind) for kind in grp.kinds]
+            for r in range(grp.repeats):
+                for j, blk in enumerate(kinds):
+                    out.update({f"{tag}.{gi}.{r}.b{j}.{k}": a
+                                for k, a in blk.items()})
+    return out
+
+
 def _dense_ff(cfg: ArchConfig) -> int:
     # deepseek-v2's first (dense) layer uses a wider FFN than the per-expert
     # width; public config: 12288.  Everything else uses cfg.d_ff.
@@ -241,7 +294,7 @@ def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
     if kind == "slstm":
         return ssm.init_slstm_block(ini, cfg)
     D = cfg.d_model
-    ini.mk("ln1", (D,), mode="zeros")
+    ini.mk("ln1", (D,), (None,), mode="zeros")
     if kind.startswith("mla"):
         init_mla(ini, cfg)
     elif kind in HYBRID_KINDS:
@@ -250,9 +303,9 @@ def init_block(ini: Init, cfg: ArchConfig, kind: str) -> None:
     else:
         init_attention(ini, cfg)
     if kind == "dec_attn":
-        ini.mk("ln_x", (D,), mode="zeros")
+        ini.mk("ln_x", (D,), (None,), mode="zeros")
         init_attention(ini, cfg, prefix="x_")   # cross-attention
-    ini.mk("ln2", (D,), mode="zeros")
+    ini.mk("ln2", (D,), (None,), mode="zeros")
     if kind in ("attn_moe", "mla_moe"):
         init_moe(ini, cfg)
     else:
@@ -372,11 +425,7 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     dt = torch.float32 if trainable else _torch_dtype(cfg.dtype)
     top = Init(generator, dev, dt)
-    top.mk("embed", (cfg.vocab, cfg.d_model), scale=0.02)
-    top.mk("final_norm", (cfg.d_model,), mode="zeros")
-    if not cfg.tie_embeddings:
-        top.mk("lm_head", (cfg.d_model, cfg.vocab),
-               scale=1.0 / math.sqrt(cfg.d_model))
+    init_top(top, cfg)
 
     def make_block(gi, r, j, kind):
         blk = Init(generator, dev, dt)
@@ -385,8 +434,6 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
     groups = _build_units(layer_plan(cfg), make_block)
     enc_groups = _build_units(encoder_plan(cfg), make_block)
-    if cfg.is_encoder_decoder:
-        top.mk("enc_final_norm", (cfg.d_model,), mode="zeros")
     return Model(cfg, top.params, groups, enc_groups, trainable)
 
 
@@ -414,14 +461,30 @@ def params_from_numpy(cfg: ArchConfig, tree: Mapping, *,
         return t.to(device=dev, dtype=leaf_dtype(name, t.dim(), dt))
 
     def carry(tag: str):
-        return lambda gi, r, j, kind: {
-            name: conv(name, np.asarray(a)[r])
-            for name, a in tree[f"{tag}{gi}"][f"b{j}"].items()}
+        def block(gi, r, j, kind):
+            # init_model's leaf order: a config's models share one order
+            leaves = tree[f"{tag}{gi}"][f"b{j}"]
+            return {name: conv(name, np.asarray(leaves[name])[r])
+                    for name in _block_axes(cfg, kind)}
+        return block
 
     top = {k: conv(k, tree[k]) for k in ("embed", "final_norm", "lm_head",
                                          "enc_final_norm") if k in tree}
     return Model(cfg, top, _build_units(layer_plan(cfg), carry("g")),
                  _build_units(encoder_plan(cfg), carry("enc_g")), trainable)
+
+
+def replace_parameters(module: nn.Module, tensors) -> None:
+    """Put ``tensors`` (one a leaf, in ``named_parameters`` order) in place
+    of ``module``'s parameters, each keeping its ``requires_grad``."""
+    named = list(module.named_parameters())
+    tensors = list(tensors)
+    if len(tensors) != len(named):
+        raise ValueError(f"{len(tensors)} tensors for {len(named)} leaves")
+    for (name, p), t in zip(named, tensors):
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf,
+                nn.Parameter(t, requires_grad=p.requires_grad))
 
 
 def param_count(model: Model) -> int:

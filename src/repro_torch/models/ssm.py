@@ -162,17 +162,18 @@ def init_mlstm_block(ini: Init, cfg: ArchConfig) -> None:
     Din = cfg.ssm_expand * D
     H = cfg.n_heads
     dqk = Din // H // 2
-    ini.mk("norm", (D,), mode="zeros")
-    ini.mk("up_l", (D, Din))
-    ini.mk("up_r", (D, Din))
-    ini.mk("conv_w", (cfg.conv_kernel, Din), scale=0.3)
-    ini.mk("wq", (Din, H * dqk))
-    ini.mk("wk", (Din, H * dqk))
-    ini.mk("wv", (Din, Din))
-    ini.mk("w_gates", (Din, 2 * H), scale=0.02)
-    ini.mk("b_gates", (2 * H,), mode="zeros")
-    ini.mk("out_norm", (Din,), mode="zeros")
-    ini.mk("down", (Din, D), scale=1.0 / math.sqrt(Din * 2 * cfg.n_layers))
+    ini.mk("norm", (D,), (None,), mode="zeros")
+    ini.mk("up_l", (D, Din), ("fsdp", "tp"))
+    ini.mk("up_r", (D, Din), ("fsdp", "tp"))
+    ini.mk("conv_w", (cfg.conv_kernel, Din), (None, "tp"), scale=0.3)
+    ini.mk("wq", (Din, H * dqk), ("fsdp", "tp"))
+    ini.mk("wk", (Din, H * dqk), ("fsdp", "tp"))
+    ini.mk("wv", (Din, Din), ("fsdp", "tp"))
+    ini.mk("w_gates", (Din, 2 * H), ("fsdp", None), scale=0.02)
+    ini.mk("b_gates", (2 * H,), (None,), mode="zeros")
+    ini.mk("out_norm", (Din,), (None,), mode="zeros")
+    ini.mk("down", (Din, D), ("tp", "fsdp"),
+           scale=1.0 / math.sqrt(Din * 2 * cfg.n_layers))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -248,19 +249,22 @@ SLSTM_GATES = ("z", "i", "f", "o")
 def init_slstm_block(ini: Init, cfg: ArchConfig) -> None:
     D, H = cfg.d_model, cfg.n_heads
     dh = D // H
-    ini.mk("norm", (D,), mode="zeros")
+    ini.mk("norm", (D,), (None,), mode="zeros")
     for g in SLSTM_GATES:
-        ini.mk(f"w{g}", (D, D))
-        ini.mk(f"r{g}", (H, dh, dh), scale=1.0 / math.sqrt(dh))
-        ini.mk(f"b{g}", (D,), mode="zeros")
-    ini.mk("out_norm", (D,), mode="zeros")
-    ini.mk("down", (D, D), scale=1.0 / math.sqrt(D * 2 * cfg.n_layers))
+        ini.mk(f"w{g}", (D, D), ("fsdp", "tp"))
+        ini.mk(f"r{g}", (H, dh, dh), (None, None, None),
+               scale=1.0 / math.sqrt(dh))
+        ini.mk(f"b{g}", (D,), (None,), mode="zeros")
+    ini.mk("out_norm", (D,), (None,), mode="zeros")
+    ini.mk("down", (D, D), ("tp", "fsdp"),
+           scale=1.0 / math.sqrt(D * 2 * cfg.n_layers))
     # small FFN (factor 4/3, GeGLU) as in the xLSTM paper's sLSTM block
     dff = int(4 * D / 3 / 64) * 64 or 64
-    ini.mk("ffn_gate", (D, dff))
-    ini.mk("ffn_up", (D, dff))
-    ini.mk("ffn_down", (dff, D), scale=1.0 / math.sqrt(dff * 2 * cfg.n_layers))
-    ini.mk("ffn_norm", (D,), mode="zeros")
+    ini.mk("ffn_gate", (D, dff), ("fsdp", "tp"))
+    ini.mk("ffn_up", (D, dff), ("fsdp", "tp"))
+    ini.mk("ffn_down", (dff, D), ("tp", "fsdp"),
+           scale=1.0 / math.sqrt(dff * 2 * cfg.n_layers))
+    ini.mk("ffn_norm", (D,), (None,), mode="zeros")
 
 
 def slstm_block(params, x: torch.Tensor, cfg: ArchConfig,
@@ -328,14 +332,15 @@ def init_mamba(ini: Init, cfg: ArchConfig, prefix: str = "") -> None:
     Din = cfg.ssm_expand * D
     St = cfg.ssm_state
     dt_rank = max(1, math.ceil(D / 16))
-    ini.mk(prefix + "in_proj", (D, 2 * Din))
-    ini.mk(prefix + "conv_w", (cfg.conv_kernel, Din), scale=0.3)
-    ini.mk(prefix + "x_proj", (Din, dt_rank + 2 * St), scale=0.02)
-    ini.mk(prefix + "dt_proj", (dt_rank, Din), scale=0.1)
-    ini.mk(prefix + "dt_bias", (Din,), mode="zeros")
-    ini.mk(prefix + "A_log", (Din, St), mode="ones")
-    ini.mk(prefix + "D_skip", (Din,), mode="ones")
-    ini.mk(prefix + "out_proj", (Din, D),
+    ini.mk(prefix + "in_proj", (D, 2 * Din), ("fsdp", "tp"))
+    ini.mk(prefix + "conv_w", (cfg.conv_kernel, Din), (None, "tp"), scale=0.3)
+    ini.mk(prefix + "x_proj", (Din, dt_rank + 2 * St), ("tp", None),
+           scale=0.02)
+    ini.mk(prefix + "dt_proj", (dt_rank, Din), (None, "tp"), scale=0.1)
+    ini.mk(prefix + "dt_bias", (Din,), (None,), mode="zeros")
+    ini.mk(prefix + "A_log", (Din, St), ("tp", None), mode="ones")
+    ini.mk(prefix + "D_skip", (Din,), (None,), mode="ones")
+    ini.mk(prefix + "out_proj", (Din, D), ("tp", "fsdp"),
            scale=1.0 / math.sqrt(Din * 2 * cfg.n_layers))
 
 

@@ -13,6 +13,11 @@ every leaf of a layer group is decayed, norm scales included; only
 top-level 1-D leaves are exempt.  Callers whose leaves are unstacked (the
 port's per-layer modules) pass that mask as ``decay``
 (``train.step.decay_mask``).
+
+Sharded state (``train.step``'s sharded step) passes each rank's blocks:
+the update is elementwise, and ``global_norm`` sums the blocks' squares
+over the process group, each leaf's weighted by 1 / its replica count, so
+every element counts once.
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ class OptState(NamedTuple):
     count: torch.Tensor                       # int32 scalar
 
 
+def state_axes(param_axes):
+    """Logical axes for the optimizer state (mirrors params)."""
+    return OptState(m=param_axes, v=param_axes, count=())
+
+
 def init(params: Sequence[torch.Tensor]) -> OptState:
     """Zero moments in float32 beside each parameter, count 0 (on the
     parameters' device)."""
@@ -65,26 +75,41 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(torch.stack([x.float().square().sum()
-                                   for x in tensors]).sum())
+def global_norm(tensors: Sequence[torch.Tensor],
+                replicas: Optional[Sequence[int]] = None,
+                groups: Sequence = ()) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    Sharded leaves: ``tensors`` are this rank's blocks, ``replicas[i]`` the
+    number of ranks holding leaf i's block; the weighted sums are added
+    over each process group of ``groups`` in turn (a mesh's axes; none:
+    the default group), so each element counts once."""
+    sq = [x.float().square().sum() for x in tensors]
+    if replicas is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    import torch.distributed as dist
+    total = torch.stack([s / r for s, r in zip(sq, replicas)]).sum()
+    for group in groups or (None,):
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor],
                   grads: Sequence[torch.Tensor], state: OptState,
-                  cfg: AdamWConfig, decay: Optional[Sequence[bool]] = None
+                  cfg: AdamWConfig, decay: Optional[Sequence[bool]] = None,
+                  replicas: Optional[Sequence[int]] = None,
+                  groups: Sequence = ()
                   ) -> Tuple[OptState, Dict[str, torch.Tensor]]:
     """One AdamW step over parallel lists of parameters and gradients, in
     place (parameters, m, v).  ``decay[i]``: whether leaf i takes weight
     decay (default: ``p.ndim >= 2``, the reference's rule on the shapes
-    given).  Returns the state with ``count + 1`` and metrics
-    ``grad_norm`` and ``lr`` (0-d tensors)."""
+    given).  ``replicas`` / ``groups``: the lists are a rank's blocks of
+    sharded leaves (``global_norm``).  Returns the state with
+    ``count + 1`` and metrics ``grad_norm`` and ``lr`` (0-d tensors)."""
     params, grads = list(params), list(grads)
     if decay is None:
         decay = [p.ndim >= 2 for p in params]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, replicas, groups)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
     count = state.count + 1

@@ -1,0 +1,225 @@
+"""Logical-axis sharding: mesh-agnostic models, mesh-specific placement
+(the reference's ``parallel/sharding.py`` on a torch ``DeviceMesh``).
+
+Parameters carry *logical* axes ("fsdp", "tp", "heads", ...); this module
+resolves them to mesh axes under the active mesh.  Resolution silently
+drops a mesh axis whenever the dimension is not divisible by it (e.g.
+hymba's 25 heads on a 16-way 'model' axis, internvl2's 92553 vocab) and
+never uses one mesh axis twice in a spec, so every architecture shards as
+far as its shapes allow and replicates the rest.
+
+A spec is a tuple with one entry a tensor dimension: None (replicated), a
+mesh axis name, or a tuple of names (the dimension split over several
+axes, the first the major one), as the reference's ``PartitionSpec``.
+``placements`` translates it into DTensor placements (``Shard(d)`` /
+``Replicate()`` a mesh dimension); ``block`` gives a rank's contiguous
+block of a global tensor under it, ``distribute`` a DTensor of it.
+
+Default rules (overridable per context):
+  batch   -> ('pod', 'data')     a batch's leading dim (data parallelism)
+  fsdp    -> 'data'              parameter / optimizer-state sharding (ZeRO-3)
+  tp      -> 'model'             tensor-parallel dim (heads / ffn / vocab)
+  kv_seq  -> 'model'             decode KV-cache sequence when heads < TP
+  expert  -> 'model'             expert parallelism for MoE weight stacks
+
+The reference's ``shard_map_compat`` papers over JAX versions' manual
+sharding APIs; torch has no counterpart to paper over, and the port's
+sharded train step calls the collectives itself (``train/step.py``).
+"""
+from __future__ import annotations
+
+import math
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+Axis = Optional[str]
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("data",),
+    "tp": ("model",),
+    "heads": ("model",),
+    "q_seq": ("model",),     # sequence parallelism when heads % tp != 0
+    "kv_seq": ("model",),
+    "expert": ("model",),
+    "vocab": ("model",),
+    "seq": (),
+    "embed": (),
+    "none": (),
+}
+
+
+class MeshContext(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: Dict[str, Tuple[str, ...]] = dict(DEFAULT_RULES)
+
+
+_CTX = MeshContext()
+
+
+@contextmanager
+def mesh_context(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
+    """Make ``mesh`` (a ``DeviceMesh``) the active mesh of this thread,
+    with ``rules`` over the defaults."""
+    prev_mesh, prev_rules = _CTX.mesh, _CTX.rules
+    _CTX.mesh = mesh
+    _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
+    try:
+        yield mesh
+    finally:
+        _CTX.mesh, _CTX.rules = prev_mesh, prev_rules
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh``, or of a mapping of sizes."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_size(name: str) -> int:
+    """Size of a mesh axis under the active mesh (1 when absent)."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return 1
+    return mesh_shape(mesh).get(name, 1)
+
+
+def _resolve(logical: Sequence[Axis], shape: Sequence[int],
+             sizes: Mapping[str, int]) -> Spec:
+    """Map logical axis names to mesh axes, dropping non-divisible ones."""
+    out: List[Entry] = []
+    used: set = set()
+    for dim, name in zip(shape, logical):
+        if name is None:
+            out.append(None)
+            continue
+        mesh_axes = _CTX.rules.get(name, (name,) if name in sizes else ())
+        picked = []
+        size = 1
+        for ax in mesh_axes:
+            if ax in used or ax not in sizes:
+                continue
+            nsize = size * sizes[ax]
+            if dim % nsize == 0:
+                picked.append(ax)
+                used.add(ax)
+                size = nsize
+        out.append(tuple(picked) if len(picked) > 1 else
+                   (picked[0] if picked else None))
+    return tuple(out)
+
+
+def logical_spec(logical: Sequence[Axis], shape: Sequence[int],
+                 mesh=None) -> Spec:
+    """The spec of a tensor of ``shape`` with logical axes ``logical``
+    under ``mesh`` (a ``DeviceMesh`` or a mapping of axis sizes; default:
+    the active mesh).  ``()`` outside any mesh."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    return _resolve(logical, shape, mesh_shape(mesh))
+
+
+def entry_axes(entry: Entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Spec, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` for a
+    mesh dimension that splits tensor dimension d, ``Replicate()`` for
+    the others.  A dimension split over several axes must list them in
+    the mesh's order (DTensor nests shards that way); another order
+    raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if [names.index(a) for a in axes] != sorted(names.index(a)
+                                                    for a in axes):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
+                             f"in the mesh's order {names}")
+        for a in axes:
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def coordinate(mesh) -> Dict[str, int]:
+    """This rank's index along every axis of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def block(spec: Spec, shape: Sequence[int], sizes: Mapping[str, int],
+          coord: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The slices of a global tensor of ``shape`` that the rank at
+    ``coord`` holds under ``spec``: per dimension, block index
+    sum(coord[a] * size of the axes after a) of ``prod(sizes)`` equal
+    blocks."""
+    out = []
+    for d, n in enumerate(shape):
+        axes = entry_axes(spec[d]) if d < len(spec) else ()
+        idx, count = 0, 1
+        for a in axes:
+            idx, count = idx * sizes[a] + coord[a], count * sizes[a]
+        width = n // count
+        out.append(slice(idx * width, (idx + 1) * width))
+    return tuple(out)
+
+
+def distribute(x: torch.Tensor, spec: Spec, mesh):
+    """A DTensor on ``mesh`` holding this rank's block of ``x`` (every rank
+    passes the same global ``x``; no communication)."""
+    from torch.distributed.tensor import DTensor
+    local = x[block(spec, x.shape, mesh_shape(mesh),
+                    coordinate(mesh))].contiguous()
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=x.shape,
+                              stride=x.contiguous().stride())
+
+
+def shard(x: torch.Tensor, *logical: Axis):
+    """``x`` laid out on the active mesh by its logical axes: a DTensor of
+    the same global value (the reference's sharding constraint).  No-op
+    outside a mesh context, so single-device runs are untouched."""
+    mesh = _CTX.mesh
+    if mesh is None:
+        return x
+    if len(logical) != x.ndim:
+        raise ValueError(f"{len(logical)} axes for rank-{x.ndim} tensor")
+    return distribute(x, _resolve(logical, x.shape, mesh_shape(mesh)), mesh)
+
+
+def shard_params(params, axes: Mapping[str, Sequence[Axis]], mesh=None
+                 ) -> Dict[str, Optional[list]]:
+    """Placements by leaf name for ``params`` (a module's
+    ``named_parameters`` or a mapping of tensors) and their logical
+    ``axes`` (e.g. ``Model.axes``) under ``mesh`` (default: the active
+    mesh); None for every leaf outside a mesh."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    items = (params.named_parameters() if isinstance(params,
+                                                     torch.nn.Module)
+             else params.items())
+    return {name: None if mesh is None else placements(
+        _resolve(axes[name], tuple(t.shape), mesh_shape(mesh)), mesh)
+        for name, t in items}
+
+
+def replicas(spec: Spec, sizes: Mapping[str, int]) -> int:
+    """How many ranks hold each block under ``spec``: the product of the
+    sizes of the axes that do not split the tensor."""
+    split = {a for e in spec for a in entry_axes(e)}
+    return math.prod(n for a, n in sizes.items() if a not in split)

@@ -656,6 +656,9 @@ def test_straggler_reset_clears_history():
 
 def test_fault_package_exports():
     import repro_torch.fault as tf
+    from repro_torch.fault import runner
     assert sorted(tf.__all__) == ["HeartbeatMonitor", "PlacementMonitor",
-                                  "StragglerTracker"]
+                                  "ResilientTrainer", "RunReport",
+                                  "SimulatedFailure", "StragglerTracker"]
     assert tf.PlacementMonitor is tmon.PlacementMonitor
+    assert tf.ResilientTrainer is runner.ResilientTrainer
