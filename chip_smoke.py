@@ -35,7 +35,8 @@ nvcc per source, in parallel), then
      float64 oracle and to its warm start, its seconds split by stage; a
      second session from the same generator seed bootstraps the same
      placement and objective bit for bit (the ``determinism`` line);
-  3e. replays a flash crowd there in waves (four ticks of 8 departures
+  3e. replays a flash crowd there in waves on 3d's bootstrap placement,
+     adopted (four ticks of 8 departures
      and 8 arrivals, each one batched re-solve re-scored by
      placement_power, then an amortized defrag tick over 8 rows), each
      wave held to the oracle and its warm start, its seconds split by
@@ -52,7 +53,7 @@ nvcc per source, in parallel), then
      replayed in waves; each event held to the float64 oracle on the
      degraded problem, no VM on a dead node, no service lost;
   3g. runs the federation (``FederatedSession``) at four city-scale
-     regions (merged P = 1864): 1024 VSRs through the region-batched
+     regions (merged P = 1864): 512 VSRs through the region-batched
      solve (lockstep sweeps and anneal vmapped over the regions), its
      seconds split and one lockstep position profiled, the exact fleet
      accounting held to the float64 oracle of the merged placement; then,
@@ -71,18 +72,23 @@ nvcc per source, in parallel), then
      stream valid, the attribution agreeing with the live counters;
   4. holds each flash-attention kernel (wgmma prefill, split-KV decode,
      SIMT) against its plain version and the reference's arithmetic on the
-     reference's test shapes, their decode steps and more wgmma shapes,
+     reference's test shapes, their decode steps and more wgmma shapes
+     (head dims 120, 32, (48, 32) and (128, 64) in zero-padded boxes, a
+     partial kv tile, fully masked rows),
      and at the serving path's prefill and decode shapes, at hymba-1.5b's
      (G 5, D 64, a 1024-slot window ring: the prefill, and the decode
      step that wraps to slot 0), at phase 5d's (whisper-base's
      non-causal encoder and cross-attention prefill on the wgmma kernel,
      its non-causal cross-attention decode on split-KV, internvl2-2b's
      prefill), and deepseek-v2's
-     MLA prefill shape (D 192, Dv 128, 128 heads), where the dispatch
-     takes the wgmma kernel; times each new kernel there in turns with the
-     SIMT kernel, beside SDPA (timed only, as a yardstick), and counts the
-     wgmma kernel's tensor-core (HGMMA) and TMA (UTMALDG) instructions in
-     its SASS;
+     MLA prefill shape (D 192, Dv 128, 128 heads) and h2o-danube-3-4b's
+     (D 120, 32 / 8 heads), where the dispatch takes the wgmma kernel;
+     times each new kernel there in turns with the SIMT kernel, beside
+     SDPA (timed only, as a yardstick), the SIMT kernel at qwen3-4b's
+     prefill shape in float32 (its own role since the wgmma kernel took
+     every bf16 shape of the configurations) beside SDPA in float32, and
+     counts the wgmma kernel's tensor-core (HGMMA) and TMA (UTMALDG)
+     instructions in its SASS;
   5. serves qwen3-4b at full width and depth (random bf16 weights from a
      seed) for 8 requests of 1024 prompt tokens and 32 generated tokens,
      checks that its 36 prefill attention calls went through the wgmma
@@ -121,13 +127,20 @@ nvcc per source, in parallel), then
      protocol; cached decode against the forward pass in bf16 and in
      float32 on 2 prompts (both checked); places each served model on
      the datacenter CFN, both placement kernels launched;
+  5e. serves h2o-danube-3-4b (24 layers, 32 / 8 heads of 120, a 4096-slot
+     window) at full width and depth through the same protocol: 24 wgmma
+     prefill calls (head dim 120 in zero-padded boxes) and 744 split-KV
+     decode calls, 0 SIMT, checked; cached decode against the forward pass
+     in bf16 and in float32 on 2 prompts (both checked); places it on the
+     datacenter CFN, both placement kernels launched;
   6. trains on the card: (6a) the differentiable attention (the kernel's
      forward, the reference's chunked backward in plain torch) against
      the same function with the plain forward and against float32
      autograd through the plain version, on the wgmma kernel at D 128
-     (qwen3-4b's heads) and D 64 and on the SIMT kernel in float32, with
-     windows, softcaps and dead kv slots, and one attention block at
-     qwen3-4b's full width, its wq / wk / wv gradients non-zero; (6b)
+     (qwen3-4b's heads), 120 (h2o-danube-3-4b's), 64 and 32 and on the
+     SIMT kernel in float32, with windows, softcaps and dead kv slots, and
+     one attention block at qwen3-4b's and at h2o-danube-3-4b's full
+     width, its wq / wk / wv gradients non-zero; (6b)
      qwen3-4b at full width and a cut depth (float32 masters, a bf16
      compute copy, remat "full"), 8 steps of 4 x 4096 tokens as 2
      microbatches on one batch, the loss falling, every gradient finite,
@@ -154,11 +167,12 @@ kernels line (launches on the main paths: the placement kernels' in phase
 ``launches_federation`` / ``launches_telemetry``, in phases 3d / 3e / 3f /
 3g / 3h, the global anneal
 variant's in phase 3c, the flash
-kernels' in phase 5, and every kernel's in phases 5b, 5c and 5d as
-``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` (the placement
-kernels' in the served models' placements) and, for the flash kernels,
-``launches_moe_float32`` / ``launches_ssm_float32`` /
-``launches_encdec_float32`` (the float32 checks), and as
+kernels' in phase 5, and every kernel's in phases 5b, 5c, 5d and 5e as
+``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` /
+``launches_danube`` (the placement kernels' in the served models'
+placements) and, for the flash kernels, ``launches_moe_float32`` /
+``launches_ssm_float32`` / ``launches_encdec_float32`` /
+``launches_danube_float32`` (the float32 checks), and as
 ``launches_train`` the flash kernels' in phases 6b and 6c and the
 placement kernels' in 6c, and as ``launches_parallel`` the flash
 kernels' in phase 7;
@@ -262,15 +276,16 @@ def flash_attention_bound(q, k, v, q_pos, kv_pos, causal=True):
     attends read once (an unwritten cache slot, position -1, never
     affects the output, so a kernel need not read it), the output written
     once; against ``flash_attention_ops`` at the bf16 dense tensor-core
-    rate."""
+    rate (float32 inputs: the float32 rate outside the tensor cores)."""
     B, Sq, H, D = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
     slots = int(_attended(q_pos, kv_pos, causal).any(0).sum())
     n_bytes = (q.element_size() * (q.numel() + B * Sq * H * Dv
                                    + B * slots * KH * (D + Dv))
                + 4 * (q_pos.numel() + kv_pos.numel()))
+    rate = FP32_FLOP_PER_S if q.element_size() == 4 else BF16_FLOP_PER_S
     return bound_ms(n_bytes, flash_attention_ops(q, k, v, q_pos, kv_pos,
-                                                 causal), BF16_FLOP_PER_S)
+                                                 causal), rate)
 
 
 def fused_anneal_bound(args, rows_read, D):
@@ -1187,16 +1202,19 @@ def phase_churn() -> tuple:
          attribute_sum_w=sum(per.values()), power_w=session.power_w(),
          roundtrip_max_abs_err=rt_err,
          seconds_total=time.perf_counter() - t_all)
-    return launches, [e["seconds"] for e in per_event], det
+    return launches, [e["seconds"] for e in per_event], det, boot.X[:CHURN_R]
 
 
-def phase_waves(churn_event_s: list) -> dict:
+def phase_waves(churn_event_s: list, boot_X) -> dict:
     """Phase 3e: churn waves and the admission plane at city_p468, through
     ``CFNSession``, at phase 3d's size.
 
-    (i) Bootstrap 64 services of ``city_workload`` (one cfn-milp solve),
-    then replay ``flash_crowd_trace(64, 4, 16, rng=0)``'s four replace
-    waves (8 departures and 8 arrivals a tick, arrivals from
+    (i) Adopt phase 3d's bootstrap placement ``boot_X`` of the 64
+    ``city_workload`` services (``bootstrap(X0=...)``, no solve: the
+    ``determinism`` line shows that a second bootstrap solve repeats it
+    bit for bit; its objective held to the float64 oracle), then replay
+    ``flash_crowd_trace(64, 4, 16, rng=0)``'s four replace waves (8
+    departures and 8 arrivals a tick, arrivals from
     ``churn_vsr``) with ``waves=True`` under
     ``PlacementSpec(defrag_every=0, defrag_rows_per_tick=8)``: each wave
     is one fused detach, one ``resolve_wave`` (targeted sweeps over its
@@ -1226,14 +1244,19 @@ def phase_waves(churn_event_s: list) -> dict:
                                        rng=0)[CHURN_R:]
     timer = StageTimer()
 
-    # (i) the flash crowd
+    # (i) the flash crowd, on 3d's bootstrap placement
     spec = PlacementSpec(defrag_every=0, defrag_rows_per_tick=TICK_ROWS)
     pp.reset_launches()
     t0 = time.perf_counter()
     session = CFNSession(topo, spec, device="cuda")
-    boot = session.solve(batch)
+    boot = session.engine.bootstrap(
+        [vsr.VSRBatch(F=batch.F[i:i + 1], H=batch.H[i:i + 1],
+                      src=batch.src[i:i + 1],
+                      input_vm=batch.input_vm[i:i + 1])
+         for i in range(batch.R)], X0=boot_X)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    hold_to_oracle(session, "waves: adopted")
     boot_launches = dict(pp.LAUNCHES)
     eng = session.engine
     apply_wave, defrag_tick = eng.apply_wave, eng.defrag_tick
@@ -1373,14 +1396,16 @@ def phase_waves(churn_event_s: list) -> dict:
     check(launches["fused_anneal"] >= 1,
           f"waves: launches in the phase {launches}")
     rescore(session, session.result)      # after the count: a check only
-    boot_X = boot.X[:CHURN_R]
     events_3d = len(churn_event_s) / sum(churn_event_s)
     emit("waves_city_p468_R64",
          cut=f"R={CHURN_R} live services and {WAVES} waves of "
              f"{WAVE_SIZE} events (phase 3d's size): a wave's polish "
              "sweeps every free VM, padded to R x (V - 1) positions, "
-             f"twice; (ii) on the first {n_adm} of them (cut from "
-             f"{CHURN_R}: each admission re-solves the live set)",
+             "twice; (i) adopts 3d's bootstrap placement instead of "
+             "solving it again (7.6-12.6 s on the card; the determinism "
+             "line holds a second solve bit-equal to it); (ii) on the "
+             f"first {n_adm} of them (cut from {CHURN_R}: each admission "
+             "re-solves the live set)",
          P=session.problem.P, N=session.problem.N, K=session.problem.K,
          R=session.problem.R, V=session.problem.V,
          bootstrap_s=boot_s, bootstrap_objective=boot.objective,
@@ -1429,10 +1454,11 @@ def phase_faults(boot_X) -> dict:
     """Phase 3f: the fault plane at city_p468, through ``CFNSession`` with
     a ``PlacementMonitor``, at phase 3d's size.
 
-    (i) Adopt phase 3e's bootstrap placement of 64 ``city_workload``
-    services (``bootstrap(X0=...)``, no solve), then call the handlers on
-    the engine's clock (``tick`` t = 1, 2, ...): ``fail_node`` on the
-    non-source node hosting the most live VMs (a mass re-embed),
+    (i) Adopt phase 3d's bootstrap placement of 64 ``city_workload``
+    services (passed on by 3e; ``bootstrap(X0=...)``, no solve), then
+    call the handlers on the engine's clock (``tick`` t = 1, 2, ...):
+    ``fail_node`` on the non-source node hosting the most live VMs (a
+    mass re-embed),
     ``fail_link`` on the network element with the most traffic,
     ``fail_node`` on the source of fewest live services (they strand),
     ``fail_node`` on a node that then hosts nothing and sources nothing
@@ -1654,13 +1680,15 @@ def phase_faults(boot_X) -> dict:
 
 # phase 3g: four city-scale regions -- each the city_p468 fabric (P_r = 466)
 # -- over the 14-node NSFNET core (merged P = 1864, N = 486); 16 IoT
-# sources a region (64 in all, as city_p468's).  (i) the batch of phase 3's
-# size, (ii) the coordinator, churn and region faults at 4 live services a
-# region: cut from 256, because every churn or fault call re-solves once per
-# service it touches, 1.7-4 s a re-solve on the card
+# sources a region (64 in all, as city_p468's).  (i) a batch of 512 VSRs,
+# cut from phase 3's 1024 for the script's time: its lockstep sweeps are
+# host-bound (~24 ms a position; R pads to 256 a region instead of 512,
+# half the positions); (ii) the coordinator, churn and region faults at 4
+# live services a region: cut from 256, because every churn or fault call
+# re-solves once per service it touches, 1.7-4 s a re-solve on the card
 FED_TOPO = dict(n_regions=4, n_olt=16, onus_per_olt=4, iot_per_onu=7)
 FED_SOURCES = 16
-FED_R = 1024
+FED_R = 512
 FED_LIVE = 4
 FED_PROFILE_POSITIONS = 64
 # (ii)'s coordinator passes: on the H100 every migration off region 0 RAISED
@@ -1759,9 +1787,11 @@ def lockstep_profile(args, n_pos: int = FED_PROFILE_POSITIONS) -> dict:
             st = step(st, k % pos.shape[1])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    # the raw event list (``device_events``): the FunctionEvent tree costs
+    # ~65 us an event on the host, seconds at ~33 k kernels
+    kernels = [ms for v in device_events(prof, tree=False).values()
+               for ms in v]
+    busy_s = sum(kernels) * 1e-3
     return {"positions": n_pos, "regions": int(X0.shape[0]),
             "ms_per_position": wall_s / n_pos * 1e3,
             "kernels_per_position": len(kernels) / n_pos,
@@ -1775,7 +1805,7 @@ def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
     ``FederatedSession``.
 
     (i) Batch: ``federated_scale(4, 16, 4, 7)`` (4 regions of P_r = 466,
-    merged P = 1864), 1024 VSRs of 3 VMs (``random_vsrs``, numpy seed 0,
+    merged P = 1864), ``FED_R`` = 512 VSRs of 3 VMs (``random_vsrs``, numpy seed 0,
     sources 16 IoT nodes a region), cfn-milp "standard" (the batched
     effort: 2 lockstep coordinate sweeps + a 2000-step x 8-chain delta
     anneal a region), no budgets.  Seconds for the topology and partition
@@ -2072,9 +2102,13 @@ def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
           f"federation (ii): {len(tel.ledger.samples)} ledger samples, "
           f"spans {tel.counters}")
     emit("federation_4x_city_p468",
-         cut=f"(ii) {n_live} live services a region (phase (i) runs "
-             f"{n_batch} in all): a region failure re-solves once per "
-             "stranded or evacuated service",
+         cut=f"(i) {n_batch} VSRs (cut from phase 3's 1024 for the "
+             "script's time: the lockstep sweeps are host-bound, and R "
+             "pads to half the positions), its lockstep profile read from "
+             "the profiler's raw event list, not its FunctionEvent tree "
+             f"(~65 us an event on the host); (ii) {n_live} live services "
+             "a region: a region failure re-solves once per stranded or "
+             "evacuated service",
          batch=batch_out, launches_i=launches_i, coordinator=coord,
          calls=calls, evacuated=n_evac,
          fleet_monitor=ses.fleet_monitor().snapshot(),
@@ -2328,14 +2362,32 @@ def sass_counts(name: str) -> dict:
 
 
 # wgmma kernel shapes beside the reference's (which are float32, or bf16 at
-# D = 32): B, H, KH, Sq, Skv, D, causal, window, cap -- bf16
+# D = 32): B, H, KH, Sq, Skv, D, Dv, causal, window, cap -- bf16.  Head
+# dims that are not a multiple of 64 ride in zero-padded TMA boxes
 WGMMA_CASES = [
-    (1, 8, 8, 128, 256, 64, True, None, 50.0),    # G 1, softcap
-    (2, 8, 4, 200, 200, 64, True, 64, 30.0),      # window and softcap
-    (2, 10, 2, 33, 65, 64, True, 16, None),       # G 5 (hymba), ragged
-    (1, 8, 2, 100, 80, 128, False, None, None),   # non-causal
-    (1, 256, 1, 2, 70, 64, True, None, None),     # G > 128
+    (1, 8, 8, 128, 256, 64, 64, True, None, 50.0),    # G 1, softcap
+    (2, 8, 4, 200, 200, 64, 64, True, 64, 30.0),      # window and softcap
+    (2, 10, 2, 33, 65, 64, 64, True, 16, None),       # G 5 (hymba), ragged
+    (1, 8, 2, 100, 80, 128, 128, False, None, None),  # non-causal
+    (1, 256, 1, 2, 70, 64, 64, True, None, None),     # G > 128
+    (2, 32, 8, 130, 200, 120, 120, True, 64, 30.0),   # D 120, window, cap
+    (2, 4, 1, 96, 160, 32, 32, True, 32, None),       # D 32 (the smoke)
+    (2, 4, 4, 64, 100, 48, 32, True, None, None),     # (48, 32): MLA smoke
+    (1, 8, 2, 100, 150, 128, 64, True, None, 50.0),   # (128, 64)
+    (2, 8, 2, 70, 70, 120, 120, False, None, None),   # Skv 70: one partial
 ]
+# fully masked rows (q before every kv position) per kernel: name, dtype,
+# Sq, D, Dv
+MASKED_CASES = [
+    ("simt", "float32", 16, 16, 16),
+    ("wgmma", "bfloat16", 16, 64, 64),
+    ("wgmma", "bfloat16", 20, 120, 120),
+    ("wgmma", "bfloat16", 20, 48, 32),
+    ("split_kv", "float32", 2, 64, 64),
+]
+# h2o-danube-3-4b's prefill (phase 5e): 32 query heads on 8 kv heads of
+# 120, its 4096-slot window (no pair masked at these positions)
+DANUBE_HEADS, DANUBE_KV_HEADS, DANUBE_DIM = 32, 8, 120
 
 
 def hymba_attention(held, rnd) -> dict:
@@ -2469,6 +2521,54 @@ def encdec_attention(held, rnd) -> dict:
     return out
 
 
+def versus_simt(name, q, k, v, qp, kp, held, plains, faster=True,
+                **kw) -> dict:
+    """A bf16 prefill the dispatch sends to the wgmma kernel: held against
+    both plain versions (2e-2) on the wgmma kernel and on the SIMT kernel
+    forced, both timed in turns (SIMT, wgmma, wgmma, SIMT) as CUDA events
+    around one call (``ms``) and CUDA-graph replays (``graph_ms``), beside
+    SDPA under the causal mask (``kw``'s window must mask no pair here),
+    both plain versions' times and the bound; with ``faster``, checked:
+    wgmma faster than SIMT.  ``held`` and ``plains`` are phase 4's."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    check(fa.choose_kernel(q.dtype, D, Dv, S * H // KH) == "wgmma",
+          f"flash {name}: the dispatch does not choose wgmma")
+    rec = {"shape": [B, H, KH, S, k.shape[1], D, Dv], "kernel": "wgmma",
+           **kw, "wgmma": held(q, k, v, qp, kp, 2e-2, **kw),
+           "simt": held(q, k, v, qp, kp, 2e-2, kernel="simt", **kw)}
+    call = {kn: (lambda kn=kn: fa.flash_attention_cuda(
+                q, k, v, qp, kp, kernel=kn, **kw)) for kn in ("wgmma", "simt")}
+    times = {kn: {"ms": [], "graph_ms": []} for kn in call}
+    small = q.numel() < 1 << 20         # a launch-bound call: more reps
+    for kn in ("simt", "wgmma", "wgmma", "simt"):
+        reps = 200 if small else 3 if kn == "simt" else 20
+        times[kn]["ms"].append(cuda_ms(call[kn], reps))
+        times[kn]["graph_ms"].append(graph_ms(call[kn], reps))
+    for kn in call:
+        rec[kn].update(times[kn])
+    sdpa = sdpa_call(q, k, v, qp, kp)
+    rec["library_ms"] = cuda_ms(sdpa, 200 if small else 5)
+    rec["library_graph_ms"] = [graph_ms(sdpa, 200 if small else 5)
+                               for _ in range(2)]
+    rec["plain_ms"] = cuda_ms(lambda: plains["wgmma"](
+        q, k, v, q_positions=qp, kv_positions=kp, **kw), 2)
+    rec["simt_plain_ms"] = cuda_ms(lambda: plains["simt"](
+        q, k, v, q_positions=qp, kv_positions=kp, **kw), 2)
+    rec["bound_ms"], rec["bound_by"] = flash_attention_bound(q, k, v, qp, kp)
+    n_ops = flash_attention_ops(q, k, v, qp, kp)
+    for kn in call:
+        rec[kn]["tflop_per_s"] = n_ops / (
+            min(rec[kn]["graph_ms"]) * 1e-3) / 1e12
+        check(max(rec[kn]["graph_ms"]) > 0, f"flash {name}: no time")
+    check(not faster or max(rec["wgmma"]["graph_ms"])
+          < min(rec["simt"]["graph_ms"]),
+          f"flash {name}: wgmma not faster than the SIMT kernel")
+    return rec
+
+
 def phase_flash(kernels: dict) -> None:
     """Phase 4: each flash-attention kernel against its plain version and
     the reference's ``attend`` arithmetic; the serving shapes timed in
@@ -2520,33 +2620,34 @@ def phase_flash(kernels: dict) -> None:
         out["split_kv_cases"].append(
             {"shape": [B, H, KH, 1, Skv, D], "dtype": dtype,
              **held(q, k, v, qp, kp, tol, kernel="split_kv", **kw)})
-    for B, H, KH, Sq, Skv, D, causal, window, cap in WGMMA_CASES:
+    for B, H, KH, Sq, Skv, D, Dv, causal, window, cap in WGMMA_CASES:
         bf = torch.bfloat16
         q, k, v = (rnd(s, bf) for s in ((B, Sq, H, D), (B, Skv, KH, D),
-                                        (B, Skv, KH, D)))
+                                        (B, Skv, KH, Dv)))
         qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)
         kp = torch.arange(Skv, dtype=torch.int32, device=dev)
+        check(fa.choose_kernel(bf, D, Dv, Sq * H // KH) == "wgmma",
+              f"flash wgmma case D {D} Dv {Dv}: not the dispatch's choice")
         out["wgmma_cases"].append(
-            {"shape": [B, H, KH, Sq, Skv, D], "dtype": "bfloat16",
+            {"shape": [B, H, KH, Sq, Skv, D, Dv], "dtype": "bfloat16",
              **held(q, k, v, qp, kp, 2e-2, kernel="wgmma", causal=causal,
                     window=window, logit_cap=cap)})
     # q before every kv position: fully masked rows give 0, not NaN, in
     # every kernel
     out["fully_masked_max_abs"] = {}
-    for name, dt, Sq in (("simt", torch.float32, 16),
-                         ("wgmma", torch.bfloat16, 16),
-                         ("split_kv", torch.float32, 2)):
-        D = 16 if name == "simt" else 64
+    for name, dt, Sq, D, Dv in MASKED_CASES:
+        dt = getattr(torch, dt)
         q, k, v = (rnd(s, dt) for s in ((1, Sq, 2, D), (1, 200, 2, D),
-                                        (1, 200, 2, D)))
+                                        (1, 200, 2, Dv)))
         got = fa.flash_attention_cuda(
             q, k, v, torch.arange(-64, -64 + Sq, dtype=torch.int32,
                                   device=dev),
             torch.arange(200, dtype=torch.int32, device=dev), kernel=name)
         check(bool(torch.isfinite(got).all())
               and float(got.abs().max()) == 0.0,
-              f"flash {name}: fully masked rows are not 0")
-        out["fully_masked_max_abs"][name] = float(got.abs().max())
+              f"flash {name} D {D} Dv {Dv}: fully masked rows are not 0")
+        out["fully_masked_max_abs"][f"{name}_d{D}_dv{Dv}"] = float(
+            got.abs().max())
 
     # the serving path's shapes, positions as the ring-buffer cache holds
     # them: prefill writes slots 0-1023, decode then writes slot 1024.  Each
@@ -2622,74 +2723,87 @@ def phase_flash(kernels: dict) -> None:
     out.update(hymba_attention(held, rnd))
     out.update(encdec_attention(held, rnd))
     # deepseek-v2's MLA prefill (phase 5b): K of 128 + 64 rope dims, V of
-    # 128, 128 heads, no GQA.  The dispatch takes the wgmma kernel; it is
-    # held and timed in turns with the SIMT kernel forced (SIMT, wgmma,
-    # wgmma, SIMT: the SIMT kernel's time is the "before"), beside SDPA
-    H, D, Dv = MLA_HEADS, MLA_QK_DIM, MLA_V_DIM
-    q, k, v = (rnd(s, bf) for s in ((B, S, H, D), (B, Smax, H, D),
-                                    (B, Smax, H, Dv)))
+    # 128, 128 heads, no GQA; h2o-danube-3-4b's (phase 5e): 32 query heads
+    # on 8 kv heads of 120, its 4096-slot window.  The dispatch takes the
+    # wgmma kernel; each is held and timed in turns with the SIMT kernel
+    # forced (SIMT, wgmma, wgmma, SIMT: the SIMT kernel's time is the
+    # "before"), beside SDPA
     qp = torch.arange(S, dtype=torch.int32, device=dev)
     kp = torch.full((Smax,), -1, dtype=torch.int32, device=dev)
     kp[:S] = qp
-    check(fa.choose_kernel(bf, D, Dv, S) == "wgmma",
-          "flash mla_prefill: the dispatch does not choose wgmma")
-    rec = {"shape": [B, H, H, S, Smax, D, Dv], "kernel": "wgmma",
-           "wgmma": held(q, k, v, qp, kp, 2e-2),
-           "simt": held(q, k, v, qp, kp, 2e-2, kernel="simt")}
-    call = {kn: (lambda kn=kn: fa.flash_attention_cuda(
-                q, k, v, qp, kp, kernel=kn)) for kn in ("wgmma", "simt")}
-    times = {kn: {"ms": [], "graph_ms": []} for kn in call}
-    for kn in ("simt", "wgmma", "wgmma", "simt"):
-        reps = 3 if kn == "simt" else 20
-        times[kn]["ms"].append(cuda_ms(call[kn], reps))
-        times[kn]["graph_ms"].append(graph_ms(call[kn], reps))
-    for kn in call:
-        rec[kn].update(times[kn])
+    for name, H, KH, D, Dv, window in (
+            ("mla_prefill", MLA_HEADS, MLA_HEADS, MLA_QK_DIM, MLA_V_DIM,
+             None),
+            ("danube_prefill", DANUBE_HEADS, DANUBE_KV_HEADS, DANUBE_DIM,
+             DANUBE_DIM, 4096)):
+        q, k, v = (rnd(s, bf) for s in ((B, S, H, D), (B, Smax, KH, D),
+                                        (B, Smax, KH, Dv)))
+        out[name] = versus_simt(name, q, k, v, qp, kp, held, plains,
+                                window=window)
+        del q, k, v
+    # the smoke configuration's training calls (phases 6c and 7c: the
+    # train CLI's 4 x 32 tokens, 4 query heads on 1 kv head of 32), which
+    # took the SIMT kernel before the wgmma kernel took D 32: launch-bound,
+    # so timed and not held faster
+    B_s, S_s = 4, 32
+    q, k, v = (rnd(s, bf) for s in ((B_s, S_s, 4, 32), (B_s, S_s, 1, 32),
+                                    (B_s, S_s, 1, 32)))
+    pos = torch.arange(S_s, dtype=torch.int32, device=dev)
+    out["smoke_train"] = versus_simt("smoke_train", q, k, v, pos, pos, held,
+                                     plains, faster=False)
+    del q, k, v
+    # the SIMT kernel's own role: float32 prefill (the float32 checks of
+    # phases 5b-5e and 6a), timed at qwen3-4b's prefill shape beside SDPA
+    # in float32 and the float32 bound
+    H, KH, D = 32, 8, 128
+    f32 = torch.float32
+    q, k, v = (rnd(s, f32) for s in ((B, S, H, D), (B, Smax, KH, D),
+                                     (B, Smax, KH, D)))
+    check(fa.choose_kernel(f32, D, D, S * H // KH) == "simt",
+          "flash prefill_float32: the dispatch does not choose simt")
+    rec = {"shape": [B, H, KH, S, Smax, D], "kernel": "simt",
+           "simt": held(q, k, v, qp, kp, 2e-3)}
+    call = lambda: fa.flash_attention_cuda(q, k, v, qp, kp)
+    rec["simt"].update(ms=[cuda_ms(call, 3)], graph_ms=[graph_ms(call, 3)])
     sdpa = sdpa_call(q, k, v, qp, kp)
-    rec["library_ms"] = cuda_ms(sdpa, 5)
-    rec["library_graph_ms"] = [graph_ms(sdpa, 5) for _ in range(2)]
-    rec["plain_ms"] = cuda_ms(lambda: fa.tensor_core_attention_plain(
-        q, k, v, q_positions=qp, kv_positions=kp), 2)
-    rec["simt_plain_ms"] = cuda_ms(lambda: fa.attention_plain(
+    rec["library_ms"] = cuda_ms(sdpa, 3)
+    rec["library_graph_ms"] = graph_ms(sdpa, 3)
+    rec["plain_ms"] = cuda_ms(lambda: fa.attention_plain(
         q, k, v, q_positions=qp, kv_positions=kp), 2)
     rec["bound_ms"], rec["bound_by"] = flash_attention_bound(q, k, v, qp, kp)
-    n_ops = flash_attention_ops(q, k, v, qp, kp)
-    for kn in call:
-        rec[kn]["tflop_per_s"] = n_ops / (
-            min(rec[kn]["graph_ms"]) * 1e-3) / 1e12
-        check(max(rec[kn]["graph_ms"]) > 0, "flash mla_prefill: no time")
-    check(max(rec["wgmma"]["graph_ms"]) < min(rec["simt"]["graph_ms"]),
-          "flash mla_prefill: wgmma not faster than the SIMT kernel")
-    out["mla_prefill"] = rec
+    rec["simt"]["tflop_per_s"] = flash_attention_ops(q, k, v, qp, kp) / (
+        min(rec["simt"]["graph_ms"]) * 1e-3) / 1e12
+    out["prefill_float32"] = rec
     del q, k, v
     out["sass_flash_attention_wgmma"] = sass_counts("flash_attention_wgmma")
     check(all(out["sass_flash_attention_wgmma"].values()),
           f"flash wgmma: SASS {out['sass_flash_attention_wgmma']}")
     # each kernel's numbers at a shape its main-path launches take: the
-    # wgmma kernel's at qwen3-4b's prefill (its MLA-prefill numbers
-    # beside them), the SIMT kernel's at MLA prefill, forced, where it ran
-    # before the wgmma kernel took D 192 / Dv 128 (its qwen-shape time
-    # beside them)
+    # wgmma kernel's at qwen3-4b's prefill (its MLA and danube prefill
+    # numbers beside them), split-KV's at the decode, the SIMT kernel's at
+    # qwen3-4b's prefill in float32, the dtype of every launch it still
+    # makes on a main path (its bf16 times forced at the qwen, MLA and
+    # danube shapes beside them)
     for name, kn in (("prefill", "wgmma"), ("decode", "split_kv"),
-                     ("mla_prefill", "simt")):
+                     ("prefill_float32", "simt")):
         rec = out[name]
-        plain = rec["simt_plain_ms"] if kn == "simt" else rec["plain_ms"]
         kernels[f"flash_attention_{kn}"].update(
             max_abs_err=max(errs[kn]), ms=min(rec[kn]["graph_ms"]),
-            event_ms=min(rec[kn]["ms"]), plain_ms=plain,
+            event_ms=min(rec[kn]["ms"]), plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=min(np.atleast_1d(rec["library_graph_ms"])),
-            shape=f"{name} [B, H, KH, Sq, Skv, D(, Dv)] = {rec['shape']}, "
-                  "bf16" + (", forced" if kn == "simt" else ""))
-    mla = out["mla_prefill"]
-    kernels["flash_attention_wgmma"].update(
-        ms_mla_prefill=min(mla["wgmma"]["graph_ms"]),
-        event_ms_mla_prefill=min(mla["wgmma"]["ms"]),
-        plain_ms_mla_prefill=mla["plain_ms"],
-        bound_ms_mla_prefill=mla["bound_ms"],
-        bound_by_mla_prefill=mla["bound_by"],
-        library_ms_mla_prefill=min(mla["library_graph_ms"]),
-        tflop_per_s_mla_prefill=mla["wgmma"]["tflop_per_s"])
+            shape=f"{name} [B, H, KH, Sq, Skv, D] = {rec['shape']}, "
+                  + ("float32" if kn == "simt" else "bf16"))
+    for name in ("mla_prefill", "danube_prefill", "smoke_train"):
+        rec = out[name]
+        kernels["flash_attention_wgmma"].update({
+            f"ms_{name}": min(rec["wgmma"]["graph_ms"]),
+            f"event_ms_{name}": min(rec["wgmma"]["ms"]),
+            f"plain_ms_{name}": rec["plain_ms"],
+            f"bound_ms_{name}": rec["bound_ms"],
+            f"bound_by_{name}": rec["bound_by"],
+            f"library_ms_{name}": min(rec["library_graph_ms"]),
+            f"tflop_per_s_{name}": rec["wgmma"]["tflop_per_s"]})
     for name, kn in (("hymba_prefill", "wgmma"),
                      ("hymba_decode_wrapped", "split_kv")):
         kernels[f"flash_attention_{kn}"][f"ms_{name}"] = out[name][kn][
@@ -2703,8 +2817,11 @@ def phase_flash(kernels: dict) -> None:
             f"bound_ms_{name}": rec["bound_ms"],
             f"bound_by_{name}": rec["bound_by"]})
     kernels["flash_attention_simt"].update(
-        ms_mla_prefill_before=min(mla["simt"]["graph_ms"]),
-        ms_qwen_prefill=min(out["prefill"]["simt"]["graph_ms"]))
+        ms_mla_prefill_before=min(out["mla_prefill"]["simt"]["graph_ms"]),
+        ms_danube_prefill_before=min(
+            out["danube_prefill"]["simt"]["graph_ms"]),
+        ms_smoke_train_before=min(out["smoke_train"]["simt"]["graph_ms"]),
+        ms_qwen_prefill_bf16=min(out["prefill"]["simt"]["graph_ms"]))
     emit("flash_attention_vs_plain", **out)
 
 
@@ -3298,25 +3415,56 @@ def phase_serve_ssm() -> tuple:
 # phase 5d: whisper-base's encoder-decoder and internvl2-2b's patch prefix
 # at full width and depth, the phase 5 protocol (shapes by phase 4's
 # WHISPER_* / VLM_TEXT_LEN).  Cached decode vs forward is held in bf16 as
-# qwen3-4b's, and in float32 on 2 prompts as 5b's and 5c's too
+# qwen3-4b's, and in float32 on F32_CHECK_B prompts as 5b's and 5c's too
+# (5d's and 5e's)
 ENCDEC_CELLS = ("whisper-base", "internvl2-2b")
-ENCDEC_CHECK_B = 2
+F32_CHECK_B = 2
 
 
 def phase_serve_encdec() -> tuple:
     """Phase 5d: serve whisper-base (6 encoder and 6 decoder layers over
     1500 frames, a 187-token decoder prompt) and internvl2-2b (256 patches
-    before 768 text tokens) at full width and depth through phase 5's
-    protocol: whisper's encoder, self- and cross-attention prefill on the
-    wgmma kernel, its self- and cross-attention decode on split-KV (12
-    calls a step), none on SIMT, its cross cache written once at prefill;
-    internvl2's as qwen3-4b's.  Cached decode against the forward pass in
-    bf16 and in float32 on 2 prompts (3e-2 of the largest logit, both
-    checked); each model placed on the datacenter
-    CFN at its measured tokens/s, both placement kernels launched.
-    Returns the phase's launches by kernel-line name (the flash kernels'
-    in both warm calls, the placement kernels' in both placements) and
-    the flash kernels' in both float32 checks."""
+    before 768 text tokens) at full width and depth through
+    ``serve_cells``: whisper's encoder, self- and cross-attention prefill
+    on the wgmma kernel, its self- and cross-attention decode on split-KV
+    (12 calls a step), none on SIMT, its cross cache written once at
+    prefill; internvl2's as qwen3-4b's."""
+    return serve_cells("serve_encdec", ENCDEC_CELLS)
+
+
+# phase 5e: h2o-danube-3-4b whole (24 layers, d 3840, 32 / 8 heads of 120,
+# d_ff 10240, vocab 32000, a 4096-slot window: the cache holds 1064 slots,
+# so the window masks nothing), through ``serve_cells`` as 5d's models
+DANUBE_CELLS = ("h2o-danube-3-4b",)
+
+
+def phase_serve_danube() -> tuple:
+    """Phase 5e: serve h2o-danube-3-4b at full width and depth through
+    ``serve_cells``: its 24 prefill attention calls (head dim 120, in the
+    wgmma kernel's zero-padded boxes) on the wgmma kernel, its 24 x 31
+    decode calls on split-KV, none on SIMT."""
+    from repro_torch import configs
+    for arch in DANUBE_CELLS:
+        cfg = configs.get(arch)
+        check(cfg.head_dim == DANUBE_DIM and cfg.sliding_window
+              >= SERVE_SMAX, f"serve {arch}: head dim {cfg.head_dim}, "
+              f"window {cfg.sliding_window}")
+    return serve_cells("serve_danube", DANUBE_CELLS)
+
+
+def serve_cells(phase: str, archs) -> tuple:
+    """Phase 5's protocol on each of ``archs`` at full width and depth, 8
+    prompts (whisper's 187-token decoder prompt over 1500 frames; 768
+    tokens after a VLM's patch prefix; else ``SERVE_S`` tokens), their
+    prefill attention calls on the wgmma kernel and decode calls on
+    split-KV, none on SIMT (checked).  Cached decode against the forward
+    pass in bf16 and in float32 on 2 prompts (3e-2 of the largest logit,
+    both checked; the float32 check's attention on the SIMT kernel and
+    split-KV, counted apart); each model placed on the datacenter CFN at
+    its measured tokens/s, both placement kernels launched.  Emits
+    ``phase``; returns its launches by kernel-line name (the flash
+    kernels' in the warm calls, the placement kernels' in the
+    placements) and the flash kernels' in the float32 checks."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -3325,9 +3473,10 @@ def phase_serve_encdec() -> tuple:
     from repro_torch.serve import cache as C
     t_all = time.perf_counter()
     cells, total, total_f32 = {}, {}, {}
-    for arch in ENCDEC_CELLS:
+    for arch in archs:
         t0 = time.perf_counter()
         cfg = configs.get(arch)
+        enc_len = 0
         if cfg.is_encoder_decoder:
             prompt, enc_len = WHISPER_DEC_LEN, WHISPER_ENC_LEN
             # prefill: the encoder's layers, then each decoder layer's
@@ -3335,7 +3484,7 @@ def phase_serve_encdec() -> tuple:
             n_prefill, n_step = cfg.encoder_layers + 2 * cfg.n_layers, \
                 2 * cfg.n_layers
         else:
-            prompt, enc_len = VLM_TEXT_LEN, 0
+            prompt = VLM_TEXT_LEN if cfg.vision_prefix_tokens else SERVE_S
             n_prefill = n_step = cfg.n_layers
         prefix = cfg.vision_prefix_tokens or 0
         max_len = prompt + prefix + SERVE_GEN + 8
@@ -3358,7 +3507,7 @@ def phase_serve_encdec() -> tuple:
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         fa.reset_launches()
         rel = decode_vs_forward(
-            model, cfg32, {k: v[:ENCDEC_CHECK_B] for k, v in batch.items()},
+            model, cfg32, {k: v[:F32_CHECK_B] for k, v in batch.items()},
             max_len)
         for kn in fa.KERNELS:
             name = f"flash_attention_{kn}"
@@ -3370,6 +3519,8 @@ def phase_serve_encdec() -> tuple:
         cells[arch] = dict(
             config=cfg.name, n_layers=cfg.n_layers,
             encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, window=cfg.sliding_window,
             enc_len=enc_len, vision_prefix_tokens=prefix, text_len=prompt,
             params=M.param_count(M.init_model(cfg, device="meta")),
             init_s=init_s, **rec, decode_vs_forward_rel_bf16=rel_bf16,
@@ -3381,8 +3532,7 @@ def phase_serve_encdec() -> tuple:
             total[name] = total.get(name, 0) + n
         check(placed["placement_power"] >= 1 and placed["fused_anneal"] >= 1,
               f"serve {arch}: its placement launched {placed}")
-    emit("serve_encdec", cells=cells, launches=total,
-         launches_float32=total_f32,
+    emit(phase, cells=cells, launches=total, launches_float32=total_f32,
          seconds_total=time.perf_counter() - t_all)
     return total, total_f32
 
@@ -3445,12 +3595,16 @@ def schedule_served(cfg, tok_s: float) -> dict:
 
 # phase 6: training on one device.  6a the differentiable attention on the
 # card: B, H, KH, S, D, dtype, window, cap, dead kv slots (-1 positions);
-# then one attention block at qwen3-4b's full width (B 2, S 1024)
+# then one attention block at full width (B 2, S 1024) of qwen3-4b (D 128)
+# and of h2o-danube-3-4b (D 120, its 4096-slot window)
 TRAIN_ATTN_CASES = (
     (2, 32, 8, 1024, 128, "bfloat16", None, None, 0),   # wgmma, qwen3-4b
+    (2, 32, 8, 1024, 120, "bfloat16", 4096, None, 0),   # wgmma, danube
     (2, 8, 2, 1024, 64, "bfloat16", 256, 30.0, 16),     # wgmma, D 64
+    (4, 4, 1, 512, 32, "bfloat16", 64, 30.0, 5),        # wgmma, D 32 smoke
     (2, 8, 4, 512, 128, "float32", 128, 50.0, 16),      # SIMT, float32
 )
+TRAIN_BLOCK_CONFIGS = ("qwen3-4b", "h2o-danube-3-4b")
 TRAIN_BLOCK_S = 1024
 # 6b: qwen3-4b at full width (d 2560, 32 / 8 heads of 128, d_ff 9728,
 # vocab 151936), bf16 compute over float32 masters, remat "full", the
@@ -3513,20 +3667,20 @@ def _rel_err(got, want) -> float:
 def phase_train_attention() -> dict:
     """Phase 6a: the differentiable attention (``attend``: the kernel's
     forward, the reference's chunked backward in plain torch) on the card.
-    Per case, dq / dk / dv with the CUDA forward against the same
-    ``Function`` with the plain forward and against autograd through
+    Per case, the forward against the plain forward (2e-2 bf16 / 2e-3
+    float32, absolute), and dq / dk / dv with the CUDA forward against the
+    same ``Function`` with the plain forward and against autograd through
     ``attention_plain`` in float32: within 2e-2 (bf16) / 2e-3 (float32)
     of each gradient's largest magnitude, every gradient non-zero.  Then
-    one qwen3-4b attention block at full width (bf16 copy of float32
-    masters): its wq / wk / wv gradients non-zero and within 2e-2 of
-    those with the plain forward.  In the first case the public
-    ``kernels.ops.flash_attention`` too: its output has a ``grad_fn`` and
-    its gradients are attend's.  Returns the flash launches of the
-    block's CUDA pass."""
+    one attention block at full width of qwen3-4b and of h2o-danube-3-4b
+    (bf16 copy of float32 masters): its wq / wk / wv gradients non-zero
+    and within 2e-2 of those with the plain forward.  In the first case
+    the public ``kernels.ops.flash_attention`` too: its output has a
+    ``grad_fn`` and its gradients are attend's.  Returns the flash
+    launches of the blocks' CUDA passes."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa, ops
-    from repro_torch.models import layers as L, model as M
     t_all = time.perf_counter()
     dev = "cuda"
     cases = []
@@ -3540,6 +3694,12 @@ def phase_train_attention() -> dict:
         kp = qp.clone()
         kp[:dead] = -1
         kw = dict(causal=True, window=window, logit_cap=cap)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        fwd_err = float((fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
+                         .float() - _plain_forward(q, k, v, qp, kp, **kw)
+                         .float()).abs().max())
+        check(fwd_err <= tol, f"train attention {dt} D {D}: forward vs "
+                              f"the plain forward {fwd_err} > {tol}")
         fa.reset_launches()
         kernel = _attention_grads(q, k, v, do, qp, kp, kw)
         launched = {kn: fa.LAUNCHES[f"flash_attention_{kn}"]
@@ -3547,7 +3707,6 @@ def phase_train_attention() -> dict:
         plain = _attention_grads(q, k, v, do, qp, kp, kw,
                                  forward=_plain_forward)
         exact = _attention_grads(q, k, v, do, qp, kp, kw, exact=True)
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
         want = fa.choose_kernel(dtype, D, D, S * (H // KH))
         check(launched[want] == 1 and sum(launched.values()) == 1,
               f"train attention {dt} D {D}: launches {launched}, "
@@ -3562,7 +3721,8 @@ def phase_train_attention() -> dict:
                   f"train attention {dt} D {D}: {name} {errs[name]} > {tol}")
         cases.append(dict(B=B, H=H, KH=KH, S=S, D=D, dtype=dt,
                           window=window, cap=cap, dead_slots=dead,
-                          kernel=want, tol=tol, rel_err=errs))
+                          kernel=want, tol=tol, forward_max_abs_err=fwd_err,
+                          rel_err=errs))
         if not dead and window is None and cap is None:
             # the public wrapper in the TPU kernel's layout differentiates
             # as attend does
@@ -3579,8 +3739,28 @@ def phase_train_attention() -> dict:
                       f"ops.flash_attention {name} {err} > {tol}")
             cases[-1]["ops_flash_attention_has_grad_fn"] = True
 
-    # one attention block at qwen3-4b's full width
-    cfg = configs.get("qwen3-4b")
+    # one attention block at full width of each of TRAIN_BLOCK_CONFIGS
+    blocks, launches = {}, {}
+    for arch in TRAIN_BLOCK_CONFIGS:
+        cfg = configs.get(arch)
+        blocks[arch] = train_block(cfg)
+        for name, n in blocks[arch]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    emit("train_attention", cases=cases, block=blocks["qwen3-4b"],
+         blocks=blocks, seconds=time.perf_counter() - t_all)
+    return launches
+
+
+def train_block(cfg) -> dict:
+    """6a's block check: one attention block of ``cfg`` at full width (B
+    2, S ``TRAIN_BLOCK_S``, bf16 copy of float32 masters from seed 1), its
+    wq / wk / wv gradients with the CUDA forward non-zero and within 2e-2
+    of those with the plain forward, its one flash launch on
+    ``choose_kernel``'s kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L, model as M
+    dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1)
     ini = L.Init(g, torch.device(dev), torch.float32)
     M.init_block(ini, cfg, "attn")
@@ -3614,19 +3794,16 @@ def phase_train_attention() -> dict:
         block[n] = dict(max_abs=float(kernel[n].abs().max()),
                         rel_err=_rel_err(kernel[n], plain[n]))
         check(block[n]["max_abs"] > 0 and block[n]["rel_err"] <= 2e-2,
-              f"train block: {n} grad {block[n]} (non-zero, 2e-2)")
+              f"train block {cfg.name}: {n} grad {block[n]} (non-zero, "
+              "2e-2)")
     want = "flash_attention_" + fa.choose_kernel(
         torch.bfloat16, cfg.head_dim, cfg.head_dim,
         TRAIN_BLOCK_S * cfg.n_heads // cfg.n_kv_heads)
     check(block_launches[want] == 1 and block_launches["flash_attention"]
-          == 1, f"train block: launches {block_launches}, expected one "
-          f"{want}")
-    del masters, ini, kernel, plain
-    emit("train_attention", cases=cases,
-         block=dict(config=cfg.name, B=2, S=TRAIN_BLOCK_S, grads=block,
-                    launches=block_launches),
-         seconds=time.perf_counter() - t_all)
-    return block_launches
+          == 1, f"train block {cfg.name}: launches {block_launches}, "
+          f"expected one {want}")
+    return dict(config=cfg.name, B=2, S=TRAIN_BLOCK_S, head_dim=cfg.head_dim,
+                grads=block, launches=block_launches)
 
 
 def train_matmul_params(cfg) -> tuple:
@@ -4154,7 +4331,10 @@ def phase_resilience() -> dict:
           f"{cli['whole']['last_loss']} (rel {resume_rel} > 1e-5)")
     shutil.rmtree(root)
     launches = {kn: fa.LAUNCHES[f"flash_attention_{kn}"] for kn in fa.KERNELS}
-    check(sum(launches.values()) > 0, "resilience: no flash launch")
+    flash = fa.choose_kernel(torch.bfloat16, cfg.head_dim, cfg.head_dim,
+                             dcfg.seq_len * cfg.n_heads // cfg.n_kv_heads)
+    check(launches[flash] > 0 and sum(launches.values()) == launches[flash],
+          f"resilience: flash launches {launches}, all on {flash} wanted")
     emit("resilience", config=cfg.name, n_layers=2, batch=dcfg.batch,
          seq_len=dcfg.seq_len, steps=RES_STEPS, fail_at=RES_FAIL_AT,
          ckpt_every=RES_CKPT_EVERY, runs=runs, replay_rel_err=replay_rel,
@@ -4242,11 +4422,11 @@ def main() -> int:
     launches = phase_anneal_past_cap()
     kernels["fused_anneal_global"]["launches"] = launches[
         "fused_anneal_global"]
-    launches, churn_event_s, det_boot = phase_churn()
+    launches, churn_event_s, det_boot, boot_X = phase_churn()
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_churn"] = launches[name]
     emit("determinism", loads=det_loads, bootstrap=det_boot)
-    launches, boot_X = phase_waves(churn_event_s)
+    launches, boot_X = phase_waves(churn_event_s, boot_X)
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_waves"] = launches[name]
     launches = phase_faults(boot_X)
@@ -4279,6 +4459,11 @@ def main() -> int:
         kernels[name]["launches_encdec"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_encdec_float32"] = n
+    launches, launches_f32 = phase_serve_danube()
+    for name, n in launches.items():
+        kernels[name]["launches_danube"] = n
+    for name, n in launches_f32.items():
+        kernels[name]["launches_danube_float32"] = n
     phase_train_attention()
     launches = phase_train()
     launches_cli = phase_train_cli()

@@ -18,6 +18,14 @@
 //   (q * D^-0.5) . k, then cap * tanh(s / cap) when cap > 0.  A row with
 //   no unmasked slot gives 0.  Accumulation is float32 throughout.
 //
+// What it takes on the model path (kernels/flash_attention.py::
+// choose_kernel): float32 prefill -- no serving or training path runs
+// float32 attention; the float32 decode-vs-forward and gradient checks
+// do -- and bfloat16 pairs the tensor-core kernel (flash_attention_wgmma.cu)
+// does not take: D or Dv not a multiple of 8, D > 192 or Dv > 128.  Every
+// bfloat16 call of the repo's configurations goes to that kernel or to
+// split-KV; this one also runs any call forced onto it.
+//
 // Per kv tile of 64 slots: the slots' positions decide first whether any
 // pair of the tile can be unmasked (a tile wholly outside the causal /
 // window range, or of unwritten cache slots, is skipped before its K/V

@@ -1,12 +1,14 @@
 // Flash attention (forward) on Hopper's tensor cores, for prefill.
 //
 // Replaces flash_attention_tpu (src/repro/kernels/flash_attention.py:81)
-// for bfloat16 inputs with (D, Dv) in {(64, 64), (128, 128), (192, 128)}.
-// The Pallas kernel takes D == Dv only; at (192, 128) this kernel computes
-// the JAX package's attend (src/repro/models/layers.py:321) as its MLA
+// for bfloat16 inputs at every (D, Dv) with both multiples of 8, D <= 192
+// and Dv <= 128: the configurations' 32 (smoke), (48, 32) (the MLA
+// smoke), 64, 120 (h2o-danube-3-4b), 128 and MLA's (192, 128).  The
+// Pallas kernel takes D == Dv only; at (192, 128) this kernel computes the
+// JAX package's attend (src/repro/models/layers.py:321) as its MLA
 // prefill calls it (:494): K of 128 + 64 rope dims, V of 128.  The
 // function is the one csrc/flash_attention.cu computes (that kernel stays
-// for the shapes this one does not take):
+// for float32 and for the pairs this one does not take):
 //
 //   q [B, Sq, H, D], k [B, Skv, KH, D], v [B, Skv, KH, Dv] bfloat16,
 //   q_pos [Sq], kv_pos [Skv] int32  ->  out [B, Sq, H, Dv] bfloat16.
@@ -42,11 +44,18 @@
 //                  loop.
 // The softmax of tile it + 1 runs while P V of tile it is in flight on
 // the tensor cores.  Tiles are swizzled 128-byte rows (SWIZZLE_128B): a
-// Q or K row of D columns is D / 64 boxes of 64 columns (3 at D = 192), a
-// V row and O's row Dv / 64 (2 at Dv = 128); the wgmma descriptors step
-// from box to box by the box's pitch (kQChunk for Q, kKVChunk for K and
-// V).  Registers per consumer thread depend on Dv alone, since Q stays in
-// shared memory: 32 floats of S, Dv / 2 of O, 16 words of P.
+// Q or K row of D columns is NCH = ceil(D / 64) boxes of 64 columns (3 at
+// D = 192, 2 at 120, 1 at 32), a V row and O's row NCV = ceil(Dv / 64)
+// (2 at Dv = 128); the wgmma descriptors step from box to box by the box's
+// pitch (kQChunk for Q, kKVChunk for K and V).  Head dims that are not a
+// multiple of 64 ride in zero-padded boxes: TMA fills the columns past D
+// (or Dv) with zeros, which add nothing to a score, and O's columns past
+// Dv are computed from zero V columns and never written.  A row is D x 2
+// bytes, a multiple of TMA's 16-byte stride rule when D is a multiple of
+// 8.  The template is on (NCH, NCV, CAP); the scale and the output's row
+// pitch take the real D and Dv from Params.  Registers per consumer
+// thread depend on NCV alone, since Q stays in shared memory: 32 floats of
+// S, 32 NCV of O, 16 words of P.
 //
 // Tile skipping: before any K/V is requested, every warp scans the kv
 // positions and marks each 64-slot tile live (it holds a slot some row of
@@ -64,11 +73,12 @@
 // half the width wgmma allows); the softmax's exp2 and max per element on
 // two warpgroups, with no third to ping-pong; one block per SM, so each
 // block's start (position scan, query load) is not hidden by another
-// block.  Shared memory a block: 1 KB of alignment, Q (D / 64 boxes of
-// 16 KB) and kStages stages of K (D / 64) and V (Dv / 64) boxes of 8 KB,
-// then the barriers and the tile list: 132 KB at (128, 128); 169 KB at
-// (192, 128), 48 KB of Q and 3 x 40 KB of ring, under the 227 KB a block
-// may use.
+// block; a padded box does the products of its zero columns too (D 120
+// runs D 128's S products, D 32 D 64's).  Shared memory a block: 1 KB of
+// alignment, Q (NCH boxes of 16 KB) and kStages stages of K (NCH) and V
+// (NCV) boxes of 8 KB, then the barriers and the tile list: 132 KB at
+// NCH = NCV = 2 (D 65-128); 169 KB at (3, 2), 48 KB of Q and 3 x 40 KB of
+// ring, under the 227 KB a block may use.
 //
 // The TMA descriptors come from libcuda's cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library links no
@@ -97,6 +107,7 @@ struct Params {
   const int* kv_pos;
   __nv_bfloat16* out;
   int Sq, Skv, H, KH, G;
+  int Dv;           // output columns (the row pitch of out)
   int GB;           // query heads per box (min(G, 128))
   int P;            // query positions per box (128 / GB)
   int head_tiles;   // tiles along the heads of one kv head
@@ -258,8 +269,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], const uint8_t* Qw,
 // registers, V's 16-slot slices (two 8-row groups of 1024 bytes) from
 // shared memory, its 64-column boxes kKVChunk apart (the leading byte
 // offset)
-template <int DV>
-__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
+template <int NCV>
+__device__ __forceinline__ void issue_pv(float (&o)[32 * NCV],
                                          const uint32_t (&pf)[16],
                                          const uint8_t* Vs) {
 #pragma unroll
@@ -267,7 +278,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
     const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
                            pf[4 * kk + 3]};
     const uint64_t dv = make_desc(Vs + kk * 2048, kKVChunk);
-    if constexpr (DV == 128) {
+    if constexpr (NCV == 2) {
       wgmma_rs_n128(o, a, dv);
     } else {
       wgmma_rs_n64(o, a, dv);
@@ -360,11 +371,11 @@ __device__ __forceinline__ void pack_p(const float (&sc)[32],
     }
 }
 
-template <int DV>
-__device__ __forceinline__ void rescale(float (&o)[DV / 2],
+template <int NCV>
+__device__ __forceinline__ void rescale(float (&o)[32 * NCV],
                                         const float (&corr)[2]) {
 #pragma unroll
-  for (int j = 0; j < DV / 8; ++j)
+  for (int j = 0; j < 8 * NCV; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       o[4 * j + 2 * h] *= corr[h];
@@ -372,14 +383,13 @@ __device__ __forceinline__ void rescale(float (&o)[DV / 2],
     }
 }
 
-template <int D, int DV, bool CAP>
+// NCH: 64-column boxes of a Q or K row; NCV: of a V or O row
+template <int NCH, int NCV, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const Params prm) {
-  constexpr int NCH = D / kCols;                    // Q and K boxes
-  constexpr int NCV = DV / kCols;                   // V and O boxes
   constexpr int kStageBytes = (NCH + NCV) * kKVChunk;   // K and V of a tile
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles need 1024-byte alignment
@@ -531,9 +541,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     qp[h] = row_ok[h] ? prm.q_pos[i] : 0;
   }
 
-  float o[DV / 2];
+  float o[32 * NCV];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < 32 * NCV; ++i) o[i] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
   float sc[32], corr[2];
   uint32_t pf[16];
@@ -570,10 +580,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_wait();
       fence_regs(sc);
     }
-    rescale<DV>(o, corr);
+    rescale<NCV>(o, corr);
     fence_regs(o);
     wg_fence();
-    issue_pv<DV>(o, pf, Vs);
+    issue_pv<NCV>(o, pf, Vs);
     wg_commit();
     if (next) softmax_tile<CAP>(sc, corr, m_run, l_run, kp, e & 1, qp, prm);
     wg_wait();
@@ -583,7 +593,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (next) pack_p(sc, pf);
   }
 
-  // ---- epilogue: out = O / l ----------------------------------------------
+  // ---- epilogue: out = O / l, columns below Dv (Dv is a multiple of 8,
+  // so a lane's column pair lies wholly on one side) ----------------------
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -594,11 +605,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r = rA + 8 * h;
     const int i = p0 + r / prm.GB, g = g0 + r % prm.GB;
     __nv_bfloat16* dst =
-        prm.out + (((size_t)b * prm.Sq + i) * prm.H + kh * prm.G + g) * DV;
+        prm.out +
+        (((size_t)b * prm.Sq + i) * prm.H + kh * prm.G + g) * prm.Dv;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) = pack_bf16(
-          o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    for (int j = 0; j < 8 * NCV; ++j) {
+      if (8 * j < prm.Dv) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * quad) = pack_bf16(
+            o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      }
     }
   }
 }
@@ -631,7 +645,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D bf16 map over [d3, d2, d1, d0] (d0 innermost), box
-// {64, box1, box2, 1}, 128-byte swizzle, zero fill out of bounds.
+// {64, box1, box2, 1}, 128-byte swizzle, zero fill out of bounds (the
+// columns of a box past d0 too).
 CUresult make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2,
                   int d3, int box1, int box2) {
   const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
@@ -651,19 +666,18 @@ CUresult make_map(CUtensorMap* map, const void* base, int d0, int d1, int d2,
 
 // alignment, Q, the K/V ring (K and V boxes counted apart), the
 // barriers, the live-tile count and the tile flags and list
-size_t smem_bytes(int D, int DV, int n_tiles) {
-  const int NCH = D / kCols, NCV = DV / kCols;
+size_t smem_bytes(int NCH, int NCV, int n_tiles) {
   return 1024 + (size_t)NCH * kQChunk +
          (size_t)kStages * (NCH + NCV) * kKVChunk + 8 * (1 + 2 * kStages) +
          4 * (4 + 2 * (size_t)n_tiles);
 }
 
-template <int D, int DV, bool CAP>
+template <int NCH, int NCV, bool CAP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, const Params& prm, int B,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, DV, prm.n_tiles);
-  auto kern = flash_attention_wgmma_kernel<D, DV, CAP>;
+  const size_t smem = smem_bytes(NCH, NCV, prm.n_tiles);
+  auto kern = flash_attention_wgmma_kernel<NCH, NCV, CAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -673,19 +687,28 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return (int)cudaGetLastError();
 }
 
+template <int NCH, int NCV>
+int launch_cap(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, const Params& prm, int B, bool cap,
+               cudaStream_t stream) {
+  return cap ? launch<NCH, NCV, true>(tq, tk, tv, prm, B, stream)
+             : launch<NCH, NCV, false>(tq, tk, tv, prm, B, stream);
+}
+
 }  // namespace
 
-// bfloat16 only; (D, Dv) must be (64, 64), (128, 128) or (192, 128).
-// The scores' scale is D^-0.5 (the query/key dim).  window <= 0 means
-// none; logit_cap <= 0 means none.  Returns cudaGetLastError() after the
+// bfloat16 only; D and Dv multiples of 8 with 8 <= D <= 192 and
+// 8 <= Dv <= 128 (any other pair returns cudaErrorInvalidValue).  The
+// scores' scale is D^-0.5 (the query/key dim).  window <= 0 means none;
+// logit_cap <= 0 means none.  Returns cudaGetLastError() after the
 // launch, or 10000 + the CUresult of a failed tensor-map encode, or -1
 // when libcuda's cuTensorMapEncodeTiled cannot be reached.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int KH,
     int D, int Dv, int causal, int window, float logit_cap, void* stream) {
-  const bool dims_ok = (D == 64 && Dv == 64) || (D == 128 && Dv == 128) ||
-                       (D == 192 && Dv == 128);
+  const bool dims_ok = D % 8 == 0 && Dv % 8 == 0 && D >= 8 && D <= 192 &&
+                       Dv >= 8 && Dv <= 128;
   if (B <= 0 || Sq <= 0 || Skv < 0 || H <= 0 || KH <= 0 || H % KH != 0 ||
       !dims_ok) {
     return (int)cudaErrorInvalidValue;
@@ -704,6 +727,7 @@ extern "C" int flash_attention_wgmma_launch(
   prm.Skv = Skv;
   prm.H = H;
   prm.KH = KH;
+  prm.Dv = Dv;
   prm.G = H / KH;
   prm.GB = prm.G < kRows ? prm.G : kRows;
   prm.P = kRows / prm.GB;
@@ -721,14 +745,13 @@ extern "C" int flash_attention_wgmma_launch(
   if (r == CUDA_SUCCESS) r = make_map(&tv, v, Dv, KH, Skv, B, 1, kSlots);
   if (r != CUDA_SUCCESS) return 10000 + (int)r;
   const bool cap = logit_cap > 0.0f;
-  if (D == 192) {
-    return cap ? launch<192, 128, true>(tq, tk, tv, prm, B, s)
-               : launch<192, 128, false>(tq, tk, tv, prm, B, s);
+  const int nch = (D + kCols - 1) / kCols, ncv = (Dv + kCols - 1) / kCols;
+  if (ncv == 1) {
+    if (nch == 1) return launch_cap<1, 1>(tq, tk, tv, prm, B, cap, s);
+    if (nch == 2) return launch_cap<2, 1>(tq, tk, tv, prm, B, cap, s);
+    return launch_cap<3, 1>(tq, tk, tv, prm, B, cap, s);
   }
-  if (D == 128) {
-    return cap ? launch<128, 128, true>(tq, tk, tv, prm, B, s)
-               : launch<128, 128, false>(tq, tk, tv, prm, B, s);
-  }
-  return cap ? launch<64, 64, true>(tq, tk, tv, prm, B, s)
-             : launch<64, 64, false>(tq, tk, tv, prm, B, s);
+  if (nch == 1) return launch_cap<1, 2>(tq, tk, tv, prm, B, cap, s);
+  if (nch == 2) return launch_cap<2, 2>(tq, tk, tv, prm, B, cap, s);
+  return launch_cap<3, 2>(tq, tk, tv, prm, B, cap, s);
 }

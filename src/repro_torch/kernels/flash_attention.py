@@ -11,12 +11,17 @@ their plain PyTorch versions.
         ``SPLIT_KV_MAX_ROWS`` rows per (batch, kv head) -- decode against
         the cache; the kv axis split into 64-slot chunks across blocks,
         then a combine pass;
-      - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with
-        (D, Dv) in ``WGMMA_HEAD_DIMS`` -- (64, 64), (128, 128) and MLA's
-        (192, 128) -- prefill on the tensor cores, K/V through a TMA ring;
-      - ``simt`` (``csrc/flash_attention.cu``): everything else (float32
-        prefill, head dims such as 16, 24, 48 or 256, and D != Dv other
-        than (192, 128)), on the CUDA cores.
+      - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with D
+        and Dv multiples of ``WGMMA_DIM_STEP`` (8), D <= ``WGMMA_MAX_D``
+        (192) and Dv <= ``WGMMA_MAX_DV`` (128) -- every bfloat16 prefill
+        of the repo's configurations: 32, (48, 32), 64, 120, 128 and
+        MLA's (192, 128) -- on the tensor cores, K/V through a TMA ring,
+        a head dim that is not a multiple of 64 in zero-padded boxes;
+      - ``simt`` (``csrc/flash_attention.cu``): what is left, on the CUDA
+        cores: float32 prefill (the float32 checks; no serving or
+        training path runs float32 attention) and bfloat16 pairs outside
+        the wgmma rule (D or Dv not a multiple of 8, D > 192, Dv >
+        128), and any call forced onto it.
   * ``flash_attention`` (chunked online softmax) and ``direct_attention``
     (one pass over all slots, for short q) -- the plain versions, line for
     line the reference's ``models/layers.py`` functions; ``attention_plain``
@@ -72,10 +77,14 @@ SPLIT_KV_CHUNK = 64
 SPLIT_KV_TARGET_BLOCKS = 512
 SPLIT_KV_MAX_CHUNKS = 16
 # kv slots per tile of the wgmma kernel (csrc/flash_attention_wgmma.cu:
-# kSlots) and the (D, Dv) pairs it takes; (192, 128) is MLA's prefill (K of
-# 128 + 64 rope dims, V of 128)
+# kSlots) and the head dims it takes: D and Dv multiples of 8 (a row of a
+# whole number of 16-byte TMA strides), D <= 192 (three 64-column boxes:
+# MLA's prefill, K of 128 + 64 rope dims) and Dv <= 128 (two boxes: the
+# output accumulator's registers)
 WGMMA_KV_TILE = 64
-WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+WGMMA_DIM_STEP = 8
+WGMMA_MAX_D = 192
+WGMMA_MAX_DV = 128
 # Q sequence lengths up to this use the direct (unchunked) plain path
 DECODE_DIRECT_MAX_Q = 8
 # kv chunk of the chunked plain path when ``attention_plain`` dispatches to
@@ -275,7 +284,9 @@ def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
         return (rows <= SPLIT_KV_MAX_ROWS and (D * dtype.itemsize) % 16 == 0
                 and (Dv * dtype.itemsize) % 16 == 0)
     if kernel == "wgmma":
-        return dtype == torch.bfloat16 and (D, Dv) in WGMMA_HEAD_DIMS
+        return (dtype == torch.bfloat16 and 0 < D <= WGMMA_MAX_D
+                and 0 < Dv <= WGMMA_MAX_DV and D % WGMMA_DIM_STEP == 0
+                and Dv % WGMMA_DIM_STEP == 0)
     if kernel == "simt":
         return True
     raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
@@ -284,8 +295,8 @@ def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
 def choose_kernel(dtype, D: int, Dv: int, rows: int) -> str:
     """The kernel ``flash_attention_cuda`` launches: ``split_kv`` for at
     most ``SPLIT_KV_MAX_ROWS`` rows per (batch, kv head) with 16-byte K/V
-    rows, else ``wgmma`` for bfloat16 at (D, Dv) in ``WGMMA_HEAD_DIMS``,
-    else ``simt``."""
+    rows, else ``wgmma`` for bfloat16 with D and Dv multiples of 8, D <=
+    192 and Dv <= 128, else ``simt``."""
     if _takes("split_kv", dtype, D, Dv, rows):
         return "split_kv"
     if _takes("wgmma", dtype, D, Dv, rows):

@@ -305,23 +305,35 @@ def test_split_kv_plain_dead_splits_and_masked_rows():
     # hymba's 64-wide heads, G 5
     (torch.bfloat16, 64, 64, 5 * 512, "wgmma"),
     (torch.bfloat16, 64, 64, 5, "split_kv"),
-    # float32 prefill and odd head dims go to the SIMT kernel
+    # float32 prefill goes to the SIMT kernel; bf16 head dims that are
+    # multiples of 8 up to D 192 / Dv 128 to the wgmma kernel, in
+    # zero-padded 64-column boxes
     (torch.float32, 128, 128, 4096, "simt"),
     (torch.float32, 64, 64, 128, "simt"),
-    (torch.bfloat16, 16, 16, 128, "simt"),
-    (torch.bfloat16, 24, 24, 64, "simt"),
-    (torch.bfloat16, 48, 48, 400, "simt"),
-    (torch.bfloat16, 256, 256, 100, "simt"),
-    (torch.bfloat16, 128, 64, 4096, "simt"),      # Dv != D
+    (torch.bfloat16, 16, 16, 128, "wgmma"),
+    (torch.bfloat16, 24, 24, 64, "wgmma"),
+    (torch.bfloat16, 48, 48, 400, "wgmma"),
+    (torch.bfloat16, 256, 256, 100, "simt"),      # D > 192
+    (torch.bfloat16, 128, 64, 4096, "wgmma"),     # Dv != D
+    # h2o-danube-3-4b's head dim 120 (G 4), the smoke configs' 32 and the
+    # MLA smoke's (48, 32): wgmma in bf16, SIMT in float32
+    (torch.bfloat16, 120, 120, 4096, "wgmma"),
+    (torch.float32, 120, 120, 4096, "simt"),
+    (torch.bfloat16, 120, 120, 4, "split_kv"),
+    (torch.bfloat16, 32, 32, 128, "wgmma"),
+    (torch.bfloat16, 48, 32, 64, "wgmma"),
+    (torch.float32, 48, 32, 64, "simt"),
     # deepseek-v2's MLA prefill (K of 128 + 64 rope dims, V of 128, G 1):
     # the wgmma kernel in bf16, the SIMT kernel in float32, split-KV at
-    # 16 rows; other pairs with D != Dv stay on the SIMT kernel
+    # 16 rows; past D 192 or Dv 128 the SIMT kernel
     (torch.bfloat16, 192, 128, 4096, "wgmma"),
     (torch.float32, 192, 128, 4096, "simt"),
     (torch.bfloat16, 192, 128, 16, "split_kv"),
     (torch.bfloat16, 192, 192, 4096, "simt"),
     (torch.bfloat16, 128, 192, 4096, "simt"),
-    (torch.bfloat16, 192, 64, 4096, "simt"),
+    (torch.bfloat16, 192, 64, 4096, "wgmma"),
+    (torch.bfloat16, 200, 128, 4096, "simt"),     # D > 192
+    (torch.bfloat16, 120, 20, 4096, "simt"),      # Dv not a multiple of 8
     # few rows: split-KV in either dtype, up to 16 rows and 256 wide
     (torch.float32, 128, 128, 4, "split_kv"),
     (torch.bfloat16, 256, 256, 16, "split_kv"),
@@ -330,6 +342,7 @@ def test_split_kv_plain_dead_splits_and_masked_rows():
     (torch.float32, 128, 128, 17, "simt"),
     # rows of K/V not a whole number of 16 bytes: SIMT
     (torch.bfloat16, 20, 20, 4, "simt"),
+    (torch.bfloat16, 20, 20, 4096, "simt"),
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_dispatch_rule(dtype, D, Dv, rows, want):
     assert tfa.choose_kernel(dtype, D, Dv, rows) == want
@@ -364,6 +377,45 @@ def test_plains_at_mla_dims_vs_reference_attend(plain, dtype):
                                atol=_atol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plain", ["tensor_core", "attention_plain"])
+@pytest.mark.parametrize("H,KH,D,Dv,window,cap", [
+    (8, 2, 120, 120, 24, 30.0),    # h2o-danube-3-4b's head dim, G 4
+    (2, 2, 48, 32, None, None),    # the MLA smoke's (D, Dv)
+], ids=["d120", "d48_dv32"])
+def test_plains_at_padded_head_dims_vs_reference_attend(H, KH, D, Dv,
+                                                        window, cap, plain,
+                                                        dtype):
+    """At head dims the wgmma kernel takes in zero-padded boxes -- D 120
+    at G 4 with a window and a softcap, and (48, 32) -- the wgmma kernel's
+    plain version and ``attention_plain`` against the JAX package's
+    ``attend``: B 2, Sq 70 (past one 64-slot tile), Skv 100 (not a whole
+    number of tiles) with 5 unwritten (-1) slots, causal.  atol 1e-4 in
+    float32 (one arithmetic, summed in another order), 2e-2 in bfloat16
+    (the tensor-core plain rounds P before P . V)."""
+    B, Sq, Skv = 2, 70, 100
+    r = np.random.default_rng(D + Dv)
+    q = r.standard_normal((B, Sq, H, D), dtype=np.float32)
+    k = r.standard_normal((B, Skv, KH, D), dtype=np.float32)
+    v = r.standard_normal((B, Skv, KH, Dv), dtype=np.float32)
+    kpos = np.arange(Skv, dtype=np.int32)
+    kpos[r.choice(Skv, 5, replace=False)] = -1
+    qpos = np.arange(Skv - Sq, Skv, dtype=np.int32)
+    kw = dict(causal=True, window=window, logit_cap=cap)
+    want = _jattend(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                    q_positions=jnp.asarray(qpos),
+                    kv_positions=jnp.asarray(kpos), **kw)
+    fn = NEW_PLAINS.get(plain, tfa.attention_plain)
+    tq, tk, tv = (torch.as_tensor(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = fn(tq, tk, tv, q_positions=torch.as_tensor(qpos),
+             kv_positions=torch.as_tensor(kpos), **kw)
+    assert got.dtype == torch.float32 and got.shape == (B, Sq, H, Dv)
+    assert tfa.choose_kernel(torch.bfloat16, D, Dv, Sq * H // KH) == "wgmma"
+    np.testing.assert_allclose(_f32(got.to(tq.dtype)), _f32(want),
+                               atol=1e-4 if dtype == "float32" else 2e-2)
+
+
 def test_launch_counts_have_one_key_per_kernel():
     assert set(tfa.LAUNCHES) == {"flash_attention"} | {
         f"flash_attention_{n}" for n in tfa.KERNELS}
@@ -385,6 +437,14 @@ def test_launch_counts_have_one_key_per_kernel():
     (2, 8, 8, 300, 700, 192, 128, 100, None, True),     # skipped, masked
     (1, 4, 4, 128, 256, 192, 128, None, 50.0, True),    # softcap
     (1, 4, 4, 20, 0, 192, 128, None, None, True),       # Skv == 0
+    # head dims in zero-padded boxes: danube's 120 (G 4), the smoke's 32,
+    # the MLA smoke's (48, 32), (128, 64); Skv not a whole number of tiles
+    (2, 32, 8, 130, 200, 120, 120, 64, 30.0, True),     # window, softcap
+    (1, 8, 2, 70, 70, 120, 120, None, None, False),     # one partial tile
+    (2, 4, 1, 96, 160, 32, 32, 32, None, True),
+    (2, 4, 4, 64, 100, 48, 32, None, None, True),
+    (1, 8, 2, 100, 150, 128, 64, None, 50.0, True),
+    (1, 4, 4, 20, 0, 120, 120, None, None, True),       # Skv == 0
 ])
 def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, Dv, window,
                                cap, causal):
@@ -416,10 +476,11 @@ def test_wgmma_kernel_vs_plain(hopper, B, H, KH, Sq, Skv, D, Dv, window,
 
 @pytest.mark.gpu
 def test_wgmma_refuses_other_head_dim_pairs(hopper):
-    """Forced onto (192, 64) or (128, 192), the wrapper raises from
-    ``_takes`` and launches nothing."""
+    """Forced onto (256, 128), (128, 192) or (120, 20) -- past D 192, past
+    Dv 128, Dv not a multiple of 8 -- the wrapper raises from ``_takes``
+    and launches nothing."""
     pos = torch.arange(64, dtype=torch.int32, device=hopper)
-    for D, Dv in ((192, 64), (128, 192)):
+    for D, Dv in ((256, 128), (128, 192), (120, 20)):
         q, k = (torch.zeros((1, 64, 2, D), device=hopper).bfloat16()
                 for _ in range(2))
         v = torch.zeros((1, 64, 2, Dv), device=hopper).bfloat16()
@@ -462,13 +523,15 @@ def test_split_kv_kernel_vs_plain_on_ring_buffer(hopper, dtype, B, H, KH,
 
 @pytest.mark.gpu
 def test_new_kernels_fully_masked_rows_are_zero(hopper):
-    for Sq, dt, kernel in ((16, torch.bfloat16, "wgmma"),
-                           (1, torch.float32, "split_kv"),
-                           (2, torch.bfloat16, "split_kv")):
+    for Sq, dt, kernel, D, Dv in ((16, torch.bfloat16, "wgmma", 64, 64),
+                                  (20, torch.bfloat16, "wgmma", 120, 120),
+                                  (20, torch.bfloat16, "wgmma", 48, 32),
+                                  (1, torch.float32, "split_kv", 64, 64),
+                                  (2, torch.bfloat16, "split_kv", 64, 64)):
         g = torch.Generator(device=hopper).manual_seed(Sq)
         q, k, v = (torch.randn(s, generator=g, device=hopper).to(dt)
-                   for s in ((1, Sq, 4, 64), (1, 200, 2, 64),
-                             (1, 200, 2, 64)))
+                   for s in ((1, Sq, 4, D), (1, 200, 2, D),
+                             (1, 200, 2, Dv)))
         got = tfa.flash_attention_cuda(
             q, k, v, torch.arange(-64, -64 + Sq, dtype=torch.int32,
                                   device=hopper),

@@ -1,9 +1,10 @@
 """Model-serving slice of the PyTorch port against the JAX package: the
 qwen3-4b smoke configuration with the JAX weights carried across
-(``params_from_numpy``), the recurrent ones (xlstm-1.3b, hymba-1.5b) end
-to end, the KV-cache and recurrent-state specs, parameter counts and costs
-(the MoE family's and the recurrent ones' too), the architecture-to-VSR
-bridge, and the serving CLI.
+(``params_from_numpy``), h2o-danube-3-4b at narrow width with its head
+dim of 120 and a window that bites, the recurrent ones (xlstm-1.3b,
+hymba-1.5b) end to end, the KV-cache and recurrent-state specs,
+parameter counts and costs (the MoE family's and the recurrent ones'
+too), the architecture-to-VSR bridge, and the serving CLI.
 
 Tolerances: float32 logits and hidden states rtol 1e-4 / atol 1e-4 (the
 same arithmetic, summed in another order); greedy ids equal; bfloat16
@@ -59,9 +60,11 @@ def _with_norm_noise(tree, rng):
     return out
 
 
-def _pair(arch: str, dtype: str):
-    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), dtype=dtype)
-    tcfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype=dtype)
+def _pair(arch: str, dtype: str, **overrides):
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch, **overrides),
+                               dtype=dtype)
+    tcfg = dataclasses.replace(tconfigs.get_smoke(arch, **overrides),
+                               dtype=dtype)
     params, _ = JM.init_model(jcfg, jax.random.PRNGKey(1))
     tree = _with_norm_noise(params, np.random.default_rng(2))
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -156,6 +159,83 @@ def test_prefill_decode_bf16_within_reference_bound():
     dj, _ = j_decode(jparams, jcfg, jtok[:, -1:],
                      jnp.asarray(S - 1, jnp.int32), jcache)
     dt, _ = tengine.decode_step(model, tcfg, ttok[:, -1:], S - 1, tcache)
+    assert _rel(dt, dj) < 3e-2
+
+
+# h2o-danube-3-4b at narrow width with its real head dim (120: the wgmma
+# kernel's zero-padded boxes on the card): 2 layers, 4 query heads on 1 kv
+# head, a 16-slot window, so that a 24-token forward pass and decode steps
+# past position 15 (the ring of 16 cache slots wrapped) are windowed
+DANUBE_NARROW = dict(n_layers=2, n_heads=4, n_kv_heads=1, d_head=120,
+                     sliding_window=16)
+DANUBE_PROMPT, DANUBE_STEPS = 16, 8
+
+
+def test_danube_head_dim_120_matches_reference_f32():
+    """The narrow danube against the reference: the forward pass over 24
+    tokens (window 16 bites), a 16-token prefill into its ring of 16
+    slots, then 8 teacher-forced decode steps that wrap the ring (logits
+    at each step, float32 rtol 1e-4 / atol 2e-4); the last step's
+    logits against the port's own forward (3e-2 of the largest logit);
+    greedy ids equal to the reference's."""
+    jcfg, jparams, tcfg, model = _pair("h2o-danube-3-4b", "float32",
+                                       **DANUBE_NARROW)
+    assert tcfg.head_dim == 120 and tcfg.sliding_window == 16
+    P, n = DANUBE_PROMPT, DANUBE_STEPS
+    toks = np.random.default_rng(13).integers(0, jcfg.vocab, (B, P + n)) \
+        .astype(np.int32)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    h_j = j_forward(jparams, jcfg, {"tokens": jtok})
+    h_t = TM.forward_hidden(model, tcfg, {"tokens": ttok})
+    np.testing.assert_allclose(_np(h_t), _np(h_j), rtol=1e-4, atol=2e-4)
+
+    max_len = P + n + 8
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, max_len, dtype=jnp.float32))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                      device="cpu")
+    assert tcache[0]["b0"]["k"].shape[2] == 16     # [repeats, B, slots, ..]
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :P]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :P]},
+                                 tcache)
+    np.testing.assert_allclose(_np(lt), _np(lj), rtol=1e-4, atol=2e-4)
+    for i in range(n):
+        dj, jcache = j_decode(jparams, jcfg, jtok[:, P + i:P + i + 1],
+                              jnp.asarray(P + i, jnp.int32), jcache)
+        dt, tcache = tengine.decode_step(model, tcfg,
+                                         ttok[:, P + i:P + i + 1], P + i,
+                                         tcache)
+        np.testing.assert_allclose(_np(dt), _np(dj), rtol=1e-4, atol=2e-4)
+    assert _rel(dt, TM.logits_fn(model, tcfg, h_t[:, -1:])[:, 0]) < 3e-2
+
+    jseq, _ = j_generate(
+        jparams, jcfg, {"tokens": jtok[:, :P]},
+        JC.zeros(JC.cache_spec(jcfg, B, max_len)), GEN)
+    tseq, _ = tengine.greedy_generate(
+        model, tcfg, {"tokens": ttok[:, :P]},
+        TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=torch.float32),
+                 device="cpu"), GEN)
+    np.testing.assert_array_equal(tseq.numpy(), np.asarray(jseq))
+
+
+def test_danube_head_dim_120_bf16_within_reference_bound():
+    """The narrow danube in bf16: prefill and a decode step past the
+    window (the ring wrapped) within 3e-2 of the reference's largest
+    logit."""
+    jcfg, jparams, tcfg, model = _pair("h2o-danube-3-4b", "bfloat16",
+                                       **DANUBE_NARROW)
+    P = DANUBE_PROMPT
+    toks = np.random.default_rng(17).integers(0, jcfg.vocab, (B, P + 1)) \
+        .astype(np.int32)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, P + 8))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, P + 8), device="cpu")
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :P]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :P]},
+                                 tcache)
+    assert _rel(lt, lj) < 3e-2
+    dj, _ = j_decode(jparams, jcfg, jtok[:, P:], jnp.asarray(P, jnp.int32),
+                     jcache)
+    dt, _ = tengine.decode_step(model, tcfg, ttok[:, P:], P, tcache)
     assert _rel(dt, dj) < 3e-2
 
 

@@ -1,8 +1,11 @@
 """Training gradients of every block family of the PyTorch port against
 ``jax.grad`` of the reference's ``forward_train``, leaf by leaf, in float32
-(the JAX weights carried across as float32 masters); the loss falling over
-8 steps on one batch for all ten configurations in the port alone (as
-tests/test_models.py:54 holds the reference); and, on a Hopper card only,
+(the JAX weights carried across as float32 masters), h2o-danube-3-4b's
+too at narrow width with its head dim of 120, and its bf16 attention
+gradients against ``jax.vjp`` (2e-2 of each tensor's largest magnitude);
+the loss falling over 8 steps on one batch for all ten configurations in
+the port alone (as tests/test_models.py:54 holds the reference); and, on
+a Hopper card only,
 the differentiable attention with the CUDA kernels' forward against the
 same ``Function`` with the plain forward and against autograd through
 ``attention_plain``.
@@ -27,7 +30,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.models import model as JM
+from repro.models import layers as jlayers, model as JM
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import model as TM
@@ -53,11 +56,20 @@ FAMILIES = ("gemma2-27b", "olmoe-1b-7b", "deepseek-v2-236b", "xlstm-1.3b",
             "hymba-1.5b", "whisper-base", "internvl2-2b")
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+# h2o-danube-3-4b at narrow width with its real head dim of 120 (the wgmma
+# kernel's zero-padded boxes on the card) and a 16-slot window, which a
+# 32-token batch crosses
+DANUBE_NARROW = dict(n_layers=2, n_heads=4, n_kv_heads=1, d_head=120,
+                     sliding_window=16)
+
+
+@pytest.mark.parametrize("arch", FAMILIES + ("h2o-danube-3-4b",))
 def test_gradients_match_jax_grad(arch):
-    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), dtype="float32",
-                               remat_policy="none")
-    tcfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype="float32")
+    overrides = DANUBE_NARROW if arch == "h2o-danube-3-4b" else {}
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch, **overrides),
+                               dtype="float32", remat_policy="none")
+    tcfg = dataclasses.replace(tconfigs.get_smoke(arch, **overrides),
+                               dtype="float32")
     params, _ = JM.init_model(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, params)
     batch = _random_batch(jcfg, B=2, S=32)
@@ -82,6 +94,43 @@ def test_gradients_match_jax_grad(arch):
         err = float(np.abs(g - want).max())
         assert err <= 1e-3 * max(scale, floor), (
             jax.tree_util.keystr(path), err, scale)
+
+
+def test_danube_bf16_attend_gradients_match_jax_vjp():
+    """The narrow danube's attention in bf16 (B 2, S 32, 4 query heads on
+    1 kv head of 120, window 16, 3 unwritten kv slots): ``attend``'s
+    output and dq / dk / dv against ``jax.vjp`` of the reference's
+    ``attend`` on the same bf16 inputs, within 2e-2 of each tensor's
+    largest magnitude (both round in bf16, at other places)."""
+    B, S, H, KH, D, W = 2, 32, 4, 1, 120, DANUBE_NARROW["sliding_window"]
+    r = np.random.default_rng(29)
+    q, do = (r.standard_normal((B, S, H, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (r.standard_normal((B, S, KH, D)).astype(np.float32)
+            for _ in range(2))
+    qp = np.arange(S, dtype=np.int32)
+    kp = qp.copy()
+    kp[:3] = -1
+
+    def ref(q, k, v):
+        return jlayers.attend(q, k, v, q_positions=jnp.asarray(qp),
+                              kv_positions=jnp.asarray(kp), causal=True,
+                              window=W)
+
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    out_j, vjp = jax.vjp(ref, bf(q), bf(k), bf(v))
+    grads_j = vjp(jnp.asarray(do, out_j.dtype))
+    leaves = [torch.tensor(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    out_t = tfa.attend(*leaves, torch.tensor(qp), torch.tensor(kp),
+                       causal=True, window=W)
+    out_t.backward(torch.tensor(do).to(out_t.dtype))
+    for got, want in zip([out_t] + [t.grad for t in leaves],
+                         [out_j] + list(grads_j)):
+        want = np.asarray(jnp.asarray(want, jnp.float32))
+        got = got.detach().float().numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-2 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
@@ -113,6 +162,8 @@ GPU_CASES = [
     (2, 32, 8, 256, 128, torch.bfloat16, None, None, 0),   # wgmma, qwen
     (1, 8, 2, 200, 64, torch.bfloat16, 64, 30.0, 0),       # wgmma, D 64
     (2, 4, 2, 96, 32, torch.float32, 32, 30.0, 5),         # SIMT
+    (2, 32, 8, 256, 120, torch.bfloat16, 64, 30.0, 5),     # wgmma, D 120
+    (2, 4, 1, 96, 32, torch.bfloat16, 32, None, 0),        # wgmma, D 32
 ]
 
 
