@@ -23,20 +23,20 @@ nvcc per source, in parallel), then
   3a. runs the paper's drivers (``repro_torch.paper_figures``: fig3 at
      1..20 VSRs, fig4, solver_gap) on the card: cfn-milp's gap 0 on the
      five solver_gap seeds, fig3's savings in the paper's 19%-91% band;
-  3b. runs ``relax`` at city_p468 (256 VSRs), its loss falling, beside
+  3b. runs ``relax`` at city_p468 (128 VSRs), its loss falling, beside
      coordinate from CDC;
   3c. runs the default anneal on 9000 VSRs (J = 27000 VMs, past the
      shared-memory cap) through the fused kernel's global-state variant,
      and on star VSRs with D = 33 links, where it takes the delta backend;
   3d. replays churn through the online engine (``CFNSession``) at
-     city_p468: 64 services bootstrapped, then eight departures and
+     city_p468: 64 services bootstrapped, then two departures and
      arrivals, each an incremental re-solve re-scored by placement_power,
-     the eighth with the periodic full solve; each event held to the
+     the fourth with the periodic full solve; each event held to the
      float64 oracle and to its warm start, its seconds split by stage; a
      second session from the same generator seed bootstraps the same
      placement and objective bit for bit (the ``determinism`` line);
   3e. replays a flash crowd there in waves on 3d's bootstrap placement,
-     adopted (four ticks of 8 departures
+     adopted (two ticks of 8 departures
      and 8 arrivals, each one batched re-solve re-scored by
      placement_power, then an amortized defrag tick over 8 rows), each
      wave held to the oracle and its warm start, its seconds split by
@@ -133,6 +133,15 @@ nvcc per source, in parallel), then
      decode calls, 0 SIMT, checked; cached decode against the forward pass
      in bf16 and in float32 on 2 prompts (both checked); places it on the
      datacenter CFN, both placement kernels launched;
+  5f. serves gemma2-27b (46 layers alternating local and global
+     attention, 28.41 B parameters, 56.8 GB in bf16) at full width and
+     depth through the same protocol, every earlier model freed: 46 wgmma
+     prefill and 1426 split-KV decode calls, 0 SIMT, checked; cached
+     decode against the forward pass in bf16 (checked); in float32 at 2
+     layers (one local, one global) on a prompt of 4160 tokens, the
+     4096-slot local ring filled by the prefill and wrapped by 64 decode
+     steps (checked); the peak under 90% of the card; places it on the
+     datacenter CFN, both placement kernels launched;
   6. trains on the card: (6a) the differentiable attention (the kernel's
      forward, the reference's chunked backward in plain torch) against
      the same function with the plain forward and against float32
@@ -159,20 +168,31 @@ nvcc per source, in parallel), then
      restored state's next step equal to the continuing one's; (7c)
      ResilientTrainer on the smoke configuration, a clean run and one
      failing at step 6 (one restart, the replayed losses equal), and the
-     train CLI with ``--ckpt-dir`` resuming a run.
+     train CLI with ``--ckpt-dir`` resuming a run;
+  8. runs the dry run (``repro_torch.launch.dryrun.run_cell``, on the
+     meta device: no card work) on a (1, 1) mesh of sizes for
+     gemma2-27b's prefill and decode at 5f's shapes and qwen3-4b's train
+     step at 6b's, and holds it against 5f's and 6b's measurements: the
+     predicted peak within 15% of the measured one for the prefill and the
+     train step, and their temporaries (the peak above what was live
+     before the step) within 5%, every cell fitting the card (checked);
+     the roofline's bound against the measured seconds, and the model
+     FLOPs' share of the card's bf16 peak (MFU), printed.
 
-Each phase prints one JSON line (3a-3f also their seconds); then the
+Each phase prints one JSON line (3a-3f also their seconds; every line
+its seconds since the start, ``at_s``); then the
 kernels line (launches on the main paths: the placement kernels' in phase
 3 and, as ``launches_churn`` / ``launches_waves`` / ``launches_faults`` /
 ``launches_federation`` / ``launches_telemetry``, in phases 3d / 3e / 3f /
 3g / 3h, the global anneal
 variant's in phase 3c, the flash
-kernels' in phase 5, and every kernel's in phases 5b, 5c, 5d and 5e as
-``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` /
-``launches_danube`` (the placement kernels' in the served models'
-placements) and, for the flash kernels, ``launches_moe_float32`` /
-``launches_ssm_float32`` / ``launches_encdec_float32`` /
-``launches_danube_float32`` (the float32 checks), and as
+kernels' in phase 5, and every kernel's in phases 5b, 5c, 5d, 5e and 5f
+as ``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` /
+``launches_danube`` / ``launches_gemma2`` (the placement kernels' in the
+served models' placements) and, for the flash kernels,
+``launches_moe_float32`` / ``launches_ssm_float32`` /
+``launches_encdec_float32`` / ``launches_danube_float32`` /
+``launches_gemma2_float32`` (the float32 checks), and as
 ``launches_train`` the flash kernels' in phases 6b and 6c and the
 placement kernels' in 6c, and as ``launches_parallel`` the flash
 kernels' in phase 7;
@@ -193,6 +213,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# the script's start: each phase line carries its seconds since (``at_s``),
+# so the phases without a seconds field of their own are timed too
+T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
 # float32 rate outside the tensor cores, the dense bf16 tensor-core rate
@@ -202,7 +225,8 @@ BF16_FLOP_PER_S = 989e12
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -847,10 +871,14 @@ def phase_paper_figures() -> dict:
     return launches
 
 
+# phase 3b's VSRs
+RELAX_R = 128
+
+
 def phase_relax_city() -> None:
-    """relax at city_p468, full topology width (P=468, N=126, K=14), on 256
-    VSRs of 3 VMs: cut from phase 3's 1024 because its repair is up to 4
-    host-bound coordinate sweeps at ~11 ms a position.  Every value must
+    """relax at city_p468, full topology width (P=468, N=126, K=14), on
+    ``RELAX_R`` VSRs of 3 VMs: cut from phase 3's 1024 because its repair
+    is up to 4 host-bound coordinate sweeps at ~11 ms a position.  Every value must
     be finite, and the loss must fall below its start.  It need not end
     there: each recorded loss is taken at a lower temperature, and on
     this instance it rises again by two orders of magnitude once the
@@ -859,7 +887,7 @@ def phase_relax_city() -> None:
     printed beside coordinate from CDC on the same instance."""
     import torch
     from repro_torch.core import power, solvers
-    topo, vsrs = city_workload(256)
+    topo, vsrs = city_workload(RELAX_R)
     prob = power.build_problem(topo, vsrs, device="cuda")
     repair_s = []
     coordinate = solvers.coordinate
@@ -892,8 +920,9 @@ def phase_relax_city() -> None:
     coord = solvers.coordinate(prob, np.full((prob.R, prob.V), cdc,
                                              dtype=np.int32))
     coord_s = time.perf_counter() - t0
-    emit("relax_city", cut="R=256 VSRs (phase 3 runs 1024): the 4-sweep "
-         "repair is host-bound at ~11 ms a position", P=prob.P, N=prob.N,
+    emit("relax_city", cut=f"R={RELAX_R} VSRs (phase 3 runs 1024): the "
+         "4-sweep repair is host-bound at ~11 ms a position (256 before "
+         "phases 5f and 8, which this cut pays for)", P=prob.P, N=prob.N,
          K=prob.K, R=prob.R, V=prob.V, steps=steps, loss_first=loss[0],
          loss_last=loss[-1], loss_min=min(loss), n_loss=n_loss, loss=loss,
          seconds_descent=total_s - repair_s[0], seconds_repair=repair_s[0],
@@ -973,12 +1002,15 @@ def phase_anneal_past_cap() -> dict:
 
 # phase 3d: live services and churn events.  Cut from phase 3's 1024
 # services: an event's polish sweeps every free VM (padded to R x (V - 1)
-# positions) twice, at ~10 ms a position
+# positions) twice, at ~10 ms a position.  Events cut from 8 to 4 to pay
+# for phases 5f and 8 (6-7 s an incremental re-solve on the card, the
+# checks of each event and of the periodic full solve kept)
 CHURN_R = 64
-CHURN_EVENTS = 8
+CHURN_EVENTS = 4
 # phase 3e: a flash crowd of replace waves (8 departures and 8 arrivals a
-# tick) at phase 3d's size, a defrag tick of 8 rows after each wave
-WAVES = 4
+# tick) at phase 3d's size, a defrag tick of 8 rows after each wave; cut
+# from 4 waves to 2 with 3d's events
+WAVES = 2
 WAVE_SIZE = 16
 TICK_ROWS = 8
 # phase 3e (ii): the admission plane on the first 16 of those services,
@@ -1085,12 +1117,12 @@ def hold_to_oracle(session, what: str) -> float:
 def phase_churn() -> tuple:
     """Phase 3d: the online churn engine at city_p468, through
     ``CFNSession``.  Bootstrap 64 services of ``city_workload`` (one
-    cfn-milp solve), then replay ``churn_trace(64, 8, rng=0)``'s eight
+    cfn-milp solve), then replay ``churn_trace(64, 4, rng=0)``'s four
     events (departures and arrivals in turn; an arrival's VSR from
-    ``churn_vsr``) under ``PlacementSpec(defrag_every=8)``: each event
+    ``churn_vsr``) under ``PlacementSpec(defrag_every=4)``: each event
     detaches or attaches one service's loads, re-solves incrementally
     (targeted sweeps, a 600-step x 8-chain delta anneal, the
-    placement_power re-score, two polish sweeps), and the eighth also runs
+    placement_power re-score, two polish sweeps), and the last also runs
     the periodic full solve against its incremental incumbent.  After
     every event the committed objective must be the float64 oracle's
     (5e-2 + 1e-5 |obj|) and no more than 1e-3 above the exact objective of
@@ -1156,7 +1188,7 @@ def phase_churn() -> tuple:
     last = per_event[-1]
     check(last["method"].startswith(("cfn-milp", "defrag-kept"))
           and session.stats[-1].objective <= last["incremental_objective"]
-          + 1e-6, f"churn: the eighth event's full solve: {last}")
+          + 1e-6, f"churn: the last event's full solve: {last}")
     check(launches["placement_power"] >= CHURN_EVENTS + 1
           and launches["fused_anneal"] >= 2,
           f"churn: launches {launches}")
@@ -1190,7 +1222,9 @@ def phase_churn() -> tuple:
     emit("churn_city_p468_R64",
          cut=f"R={CHURN_R} live services (phase 3 runs 1024): an event's "
              "polish sweeps every free VM, padded to R x (V - 1) "
-             "positions, twice, at ~10 ms a position",
+             "positions, twice, at ~10 ms a position; "
+             f"{CHURN_EVENTS} events (8 before phases 5f and 8, which "
+             "this cut pays for, with 3e's waves and 3b's VSRs)",
          P=prob.P, N=prob.N, K=prob.K, R=prob.R, V=prob.V,
          bootstrap_s=boot_s, bootstrap_objective=boot.objective,
          bootstrap_method=boot.method, bootstrap_launches=boot_launches,
@@ -1213,7 +1247,7 @@ def phase_waves(churn_event_s: list, boot_X) -> dict:
     ``city_workload`` services (``bootstrap(X0=...)``, no solve: the
     ``determinism`` line shows that a second bootstrap solve repeats it
     bit for bit; its objective held to the float64 oracle), then replay
-    ``flash_crowd_trace(64, 4, 16, rng=0)``'s four replace waves (8
+    ``flash_crowd_trace(64, 2, 16, rng=0)``'s two replace waves (8
     departures and 8 arrivals a tick, arrivals from
     ``churn_vsr``) with ``waves=True`` under
     ``PlacementSpec(defrag_every=0, defrag_rows_per_tick=8)``: each wave
@@ -1401,7 +1435,9 @@ def phase_waves(churn_event_s: list, boot_X) -> dict:
          cut=f"R={CHURN_R} live services and {WAVES} waves of "
              f"{WAVE_SIZE} events (phase 3d's size): a wave's polish "
              "sweeps every free VM, padded to R x (V - 1) positions, "
-             "twice; (i) adopts 3d's bootstrap placement instead of "
+             f"twice ({WAVES} waves: 4 before phases 5f and 8, which "
+             "this cut pays for); (i) adopts 3d's bootstrap placement "
+             "instead of "
              "solving it again (7.6-12.6 s on the card; the determinism "
              "line holds a second solve bit-equal to it); (ii) on the "
              f"first {n_adm} of them (cut from {CHURN_R}: each admission "
@@ -1415,7 +1451,7 @@ def phase_waves(churn_event_s: list, boot_X) -> dict:
          wave_events_per_s_with_ticks=WAVES * WAVE_SIZE / (
              wave_s + sum(t["seconds"] for t in ticks)),
          churn_3d_events_per_s=events_3d,
-         churn_3d_events_per_s_events_1_7=(len(churn_event_s) - 1) / sum(
+         churn_3d_events_per_s_incremental=(len(churn_event_s) - 1) / sum(
              churn_event_s[:-1]),
          wave_speedup_vs_3d=WAVES * WAVE_SIZE / wave_s / events_3d,
          live_sids=sorted(session.sids), launches_waves=wave_launches,
@@ -2961,6 +2997,10 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
     finite, ids, extra = True, [], {}
     for i in range(GEN):
         torch.cuda.synchronize()
+        if i == 0:
+            # the prefill's own peak, beside what is live before it
+            torch.cuda.reset_peak_memory_stats()
+            prefill_resident = torch.cuda.memory_allocated()
         t = time.perf_counter()
         if i == 0:
             logits, cache = engine.prefill(model, cfg, batch, cache)
@@ -2971,6 +3011,7 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
         times["prefill" if i == 0 else "decode_step"].append(
             time.perf_counter() - t)
         if i == 0:
+            prefill_peak = torch.cuda.max_memory_allocated()
             cross = [buf.clone() for buf in cross_leaves(cache)]
         finite = finite and bool(torch.isfinite(logits).all())
         ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
@@ -2996,22 +3037,28 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
         decode_ms_per_step=1e3 * statistics.mean(times["decode_step"]),
         decode_ms_median=1e3 * statistics.median(times["decode_step"]),
         cold_total_s=cold_s, total_s=total_s, tokens_per_s=B * GEN / total_s,
-        max_memory_allocated=peak, first_row_ids=seq[0].tolist(),
+        max_memory_allocated=peak, prefill_peak_bytes=prefill_peak,
+        prefill_resident_bytes=prefill_resident,
+        first_row_ids=seq[0].tolist(),
         flash_launches=calls, flash_launches_by_kernel=launches,
         profile=profile)
 
 
-def decode_vs_forward(model, cfg, batch, max_len: int = SERVE_SMAX
-                      ) -> float:
+def decode_vs_forward(model, cfg, batch, max_len: int = SERVE_SMAX,
+                      prefill_len: int = None) -> float:
     """Relative gap of the cached decode of the last prompt token (after
     any patch prefix; an encoder-decoder's cross cache of its frames) to
     the uncached forward pass's logits (largest absolute difference over
-    the largest logit); both finite."""
+    the largest logit); both finite.  ``prefill_len``: prefill that many
+    tokens and decode the rest one at a time, teacher-forced (default:
+    all but the last)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serve import cache as C, engine
     tokens = batch["tokens"]
-    pos = tokens.shape[1] - 1 + (cfg.vision_prefix_tokens or 0)
+    S = tokens.shape[1]
+    prefill_len = S - 1 if prefill_len is None else prefill_len
+    prefix = cfg.vision_prefix_tokens or 0
     h = M.forward_hidden(model, cfg, batch)
     ref = M.logits_fn(model, cfg, h[:, -1:])[:, 0]
     del h
@@ -3020,9 +3067,11 @@ def decode_vs_forward(model, cfg, batch, max_len: int = SERVE_SMAX
                                  enc_len=enc_len,
                                  dtype=getattr(torch, cfg.dtype)),
                     device=tokens.device)
-    _, cache = engine.prefill(model, cfg, {**batch, "tokens": tokens[:, :-1]},
-                              cache)
-    got, _ = engine.decode_step(model, cfg, tokens[:, -1:], pos, cache)
+    _, cache = engine.prefill(
+        model, cfg, {**batch, "tokens": tokens[:, :prefill_len]}, cache)
+    for i in range(prefill_len, S):
+        got, cache = engine.decode_step(model, cfg, tokens[:, i:i + 1],
+                                        i + prefix, cache)
     check(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
           f"serve {cfg.name}: cached decode or forward not finite")
     return float((got - ref).abs().max() / ref.abs().max())
@@ -3452,6 +3501,123 @@ def phase_serve_danube() -> tuple:
     return serve_cells("serve_danube", DANUBE_CELLS)
 
 
+# phase 5f: gemma2-27b whole (46 layers alternating local and global
+# attention, d 4608, 32 / 16 heads of 128, d_ff 36864, vocab 256000, a
+# 4096-slot window, attention softcap 50, final softcap 30): 28.41 B
+# parameters, 56.8 GB in bf16, the largest configuration that fits one
+# card whole.  Its float32 decode-vs-forward check does not fit at full
+# depth (113.6 GB of float32 weights): held at a cut depth of 2 layers (one
+# local, one global) on 1 prompt of GEMMA_F32_TOKENS tokens in a cache of
+# GEMMA_F32_SMAX slots -- GEMMA_F32_PREFILL prefilled (the local layer's
+# 4096-slot ring exactly full: a longer prefill would overwrite its own
+# slots, the reference's semantics too), the rest decoded one at a time,
+# so that the ring wraps and the forward pass's window masks
+GEMMA_ARCH = "gemma2-27b"
+GEMMA_F32_LAYERS = 2
+GEMMA_F32_PREFILL = 4096
+GEMMA_F32_TOKENS = 4160
+GEMMA_F32_SMAX = 4168
+GEMMA_PEAK_FRAC = 0.9
+
+
+def phase_serve_gemma() -> tuple:
+    """Phase 5f: serve gemma2-27b at full width and depth through phase
+    5's protocol: its 46 prefill attention calls on the wgmma kernel, its
+    46 x 31 decode calls on split-KV, none on SIMT (checked); cached
+    decode against the forward pass in bf16 (3e-2 of the largest logit,
+    checked), and in float32 at the cut depth past the window (module
+    comment; its launches counted apart); the peak under
+    ``GEMMA_PEAK_FRAC`` of the card; the model placed on the datacenter
+    CFN at its measured tokens/s, both placement kernels launched.
+    Returns (launches by kernel-line name, the float32 check's, the
+    record), every earlier model freed before it."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C
+    t0 = time.perf_counter()
+    cfg = configs.get(GEMMA_ARCH)
+    check(cfg.n_layers == 46 and cfg.local_global_period == 2
+          and cfg.sliding_window == 4096 and cfg.head_dim == 128,
+          f"serve {cfg.name}: {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    model, init_s, batch = build_served(cfg)
+    spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
+    rec = serve_protocol(model, cfg, batch, spec, {
+        "wgmma": cfg.n_layers, "split_kv": cfg.n_layers * (SERVE_GEN - 1),
+        "simt": 0}, max_len=SERVE_SMAX)
+    rel_bf16 = decode_vs_forward(model, cfg, batch, SERVE_SMAX)
+    check(rel_bf16 < 3e-2, f"serve {cfg.name}: cached decode vs forward "
+                           f"rel {rel_bf16} (bf16 bound 3e-2)")
+    card = torch.cuda.get_device_properties(0).total_memory
+    peak = max(rec["max_memory_allocated"], torch.cuda.max_memory_allocated())
+    check(peak < GEMMA_PEAK_FRAC * card,
+          f"serve {cfg.name}: peak {peak} B above {GEMMA_PEAK_FRAC} of {card}")
+    params = M.param_count(model)
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 at the cut depth, past the window
+    cfg32 = dataclasses.replace(cfg, n_layers=GEMMA_F32_LAYERS,
+                                dtype="float32")
+    ring = C.cache_spec(cfg32, 1, GEMMA_F32_SMAX)[0]["b0"]["pos_ids"]
+    check(M.layer_plan(cfg32)[0].kinds == ("attn_local", "attn_global")
+          and ring.shape[-1] == GEMMA_F32_PREFILL < GEMMA_F32_TOKENS,
+          f"serve {cfg.name}: the float32 check's local ring {ring}")
+    model32 = M.init_model(cfg32, torch.Generator(device="cuda")
+                           .manual_seed(0), device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, GEMMA_F32_TOKENS)), dtype=torch.int32,
+        device="cuda")
+    fa.reset_launches()
+    rel = decode_vs_forward(model32, cfg32, {"tokens": tokens},
+                            GEMMA_F32_SMAX, prefill_len=GEMMA_F32_PREFILL)
+    launches_f32 = {f"flash_attention_{kn}": fa.LAUNCHES[
+        f"flash_attention_{kn}"] for kn in fa.KERNELS}
+    check(rel < 3e-2, f"serve {cfg.name}: cached decode vs forward rel "
+                      f"{rel} (float32 at {GEMMA_F32_LAYERS} layers; bound "
+                      "3e-2)")
+    del model32, tokens
+    torch.cuda.empty_cache()
+
+    launches = {f"flash_attention_{kn}": n
+                for kn, n in rec["flash_launches_by_kernel"].items()}
+    placed = place_served(cfg, rec["tokens_per_s"])
+    check(placed["placement_launches"]["placement_power"] >= 1
+          and placed["placement_launches"]["fused_anneal"] >= 1,
+          f"serve {cfg.name}: its placement launched "
+          f"{placed['placement_launches']}")
+    launches.update(placed["placement_launches"])
+    out = dict(
+        config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        window=cfg.sliding_window, params=params,
+        params_bytes=params_bytes, init_s=init_s,
+        resident_before_bytes=resident, **rec, peak_bytes=peak,
+        card_bytes=card, peak_frac=peak / card,
+        decode_vs_forward_rel_bf16=rel_bf16,
+        decode_vs_forward_rel=rel,
+        reduced=f"the float32 decode-vs-forward check at {GEMMA_F32_LAYERS} "
+                f"layers (one local, one global) of {cfg.n_layers}, 1 "
+                f"prompt of {GEMMA_F32_TOKENS} tokens ({GEMMA_F32_PREFILL} "
+                f"prefilled, the rest decoded) in {GEMMA_F32_SMAX} slots: "
+                f"float32 weights at full depth take "
+                f"{4 * params / 1e9:.1f} GB",
+        launches_float32=launches_f32, **placed,
+        seconds=time.perf_counter() - t0)
+    emit("serve_gemma2_27b", **out)
+    return launches, launches_f32, out
+
+
 def serve_cells(phase: str, archs) -> tuple:
     """Phase 5's protocol on each of ``archs`` at full width and depth, 8
     prompts (whisper's 187-token decoder prompt over 1500 frames; 768
@@ -3833,7 +3999,8 @@ def phase_train(n_layers: int = TRAIN_LAYERS,
     every step, every master's gradient finite and every attention
     projection's non-zero at every step, the flash launches all on the
     kernel ``choose_kernel`` names, the peak under ``TRAIN_PEAK_FRAC`` of
-    the card.  Returns the flash launches of the steps."""
+    the card.  Returns the flash launches of the steps and the phase's
+    record."""
     import dataclasses
     import gc
     import torch
@@ -3968,35 +4135,37 @@ def phase_train(n_layers: int = TRAIN_LAYERS,
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
-    emit("train_qwen3_4b", config=cfg.name, n_layers=n_layers,
-         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
-         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
-         params=params, compute_dtype="bfloat16", masters="float32",
-         remat=cfg.remat_policy, batch=TRAIN_B, seq_len=TRAIN_S,
-         accum=TRAIN_ACCUM, steps=steps, lr=TRAIN_LR,
-         cut=f"depth {n_layers} of 36: float32 masters, gradients, both "
-             f"moments and the bf16 copy take 18 B a parameter (79.4 GB at "
-             f"36 layers); {n_layers} is the deepest depth measured under "
-             f"{TRAIN_PEAK_FRAC} of the card (29 layers peaked at "
-             f"76825079296 B of 85017493504); batch {TRAIN_B} x {TRAIN_S} "
-             f"(2 microbatches of 2) of train_4k's 256 x 4096, by memory "
-             f"and the script's time",
-         init_s=init_s, resident_before_bytes=resident,
-         state_bytes=state_bytes - resident, peak_bytes=peak,
-         card_bytes=card, peak_frac=peak / card, losses=losses,
-         grad_norms=gnorms, per_step=per_step,
-         steady_step_s=step_s, steady_forward_s=med("forward_ms") / 1e3,
-         steady_backward_s=med("backward_ms") / 1e3,
-         steady_optimizer_s=med("optimizer_ms") / 1e3,
-         steady_cast_s=med("cast_ms") / 1e3,
-         attention_backward_s=med("attention_backward_ms") / 1e3,
-         attention_backward_share=med("attention_backward_ms")
-         / med("step_ms"),
-         tokens_per_s=tokens / step_s, matmul_params=n_mm,
-         model_tflop_per_s=6 * n_mm * tokens / step_s / 1e12,
-         model_flops_formula=formula, flash_kernel=flash_kernel,
-         launches=launches, seconds=time.perf_counter() - t_all)
-    return launches
+    rec = dict(
+        config=cfg.name, n_layers=n_layers,
+        d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=params, compute_dtype="bfloat16", masters="float32",
+        remat=cfg.remat_policy, batch=TRAIN_B, seq_len=TRAIN_S,
+        accum=TRAIN_ACCUM, steps=steps, lr=TRAIN_LR,
+        cut=f"depth {n_layers} of 36: float32 masters, gradients, both "
+            f"moments and the bf16 copy take 18 B a parameter (79.4 GB at "
+            f"36 layers); {n_layers} is the deepest depth measured under "
+            f"{TRAIN_PEAK_FRAC} of the card (29 layers peaked at "
+            f"76825079296 B of 85017493504); batch {TRAIN_B} x {TRAIN_S} "
+            f"(2 microbatches of 2) of train_4k's 256 x 4096, by memory "
+            f"and the script's time",
+        init_s=init_s, resident_before_bytes=resident,
+        state_bytes=state_bytes - resident, peak_bytes=peak,
+        card_bytes=card, peak_frac=peak / card, losses=losses,
+        grad_norms=gnorms, per_step=per_step,
+        steady_step_s=step_s, steady_forward_s=med("forward_ms") / 1e3,
+        steady_backward_s=med("backward_ms") / 1e3,
+        steady_optimizer_s=med("optimizer_ms") / 1e3,
+        steady_cast_s=med("cast_ms") / 1e3,
+        attention_backward_s=med("attention_backward_ms") / 1e3,
+        attention_backward_share=med("attention_backward_ms")
+        / med("step_ms"),
+        tokens_per_s=tokens / step_s, matmul_params=n_mm,
+        model_tflop_per_s=6 * n_mm * tokens / step_s / 1e12,
+        model_flops_formula=formula, flash_kernel=flash_kernel,
+        launches=launches, seconds=time.perf_counter() - t_all)
+    emit("train_qwen3_4b", **rec)
+    return launches, rec
 
 
 def phase_train_cli() -> dict:
@@ -4364,6 +4533,110 @@ def phase_parallel() -> dict:
     return {f"flash_attention_{kn}": n for kn, n in total.items()}
 
 
+# phase 8: the dry run (``launch/dryrun.py``) on a (1, 1) mesh of sizes at
+# the shapes the card ran, held against 5f's and 6b's measurements: the
+# predicted peak within DRYRUN_PEAK_TOL of the measured one for gemma2-27b's
+# prefill and 6b's step, every cell fitting the card.  The weights take
+# most of either peak (56.8 GB of gemma2-27b's 62.8), so the traced
+# temporaries are held apart, within DRYRUN_TEMP_TOL of what the card
+# allocated above what was live before the step: the prefill's peak less
+# its resident bytes, 6b's peak less its state (masters and moments).
+# Their ratios on the card were 1.0 and 0.9971 (NVIDIA H100 80GB HBM3,
+# 700.00 W), so 0.05 still catches a wrong count of the activations
+DRYRUN_MESH = {"data": 1, "model": 1}
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_TEMP_TOL = 0.05
+
+
+def phase_dryrun(served: dict, trained: dict, card: str) -> None:
+    """Phase 8: ``dryrun.run_cell`` on ``DRYRUN_MESH`` for (i) gemma2-27b's
+    prefill at 5f's shape (8 x 1024 tokens, ``SERVE_SMAX`` slots), (ii) its
+    decode step against that cache, (iii) qwen3-4b's train step at 6b's
+    shape (``TRAIN_LAYERS`` layers, ``TRAIN_B`` x ``TRAIN_S``,
+    ``TRAIN_ACCUM`` microbatches, remat "full").  On meta: nothing runs on
+    the card, and 5f's and 6b's measurements (``served``, ``trained``) are
+    reused.  Per cell: the predicted peak against the measured one (the
+    peak counter's reading less what was live before the phase: 5f's
+    reset before its step-by-step prefill, 6b's over its steps),
+    ``roofline.bound_s`` against the measured seconds as their share, and
+    model FLOPs / measured s / the card's bf16 peak (MFU).  Checks the
+    peaks of (i) and (iii) within ``DRYRUN_PEAK_TOL``, their temporaries
+    within ``DRYRUN_TEMP_TOL`` and ``fits_card`` for all three."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    t0 = time.perf_counter()
+    gemma = configs.get(GEMMA_ARCH)
+    qwen = dataclasses.replace(configs.get("qwen3-4b"),
+                               n_layers=trained["n_layers"])
+    cells = {
+        "gemma2_27b_prefill": dict(
+            arch=GEMMA_ARCH, cfg=gemma, cache_len=SERVE_SMAX,
+            shape=configs.Shape("prefill_5f", SERVE_S, SERVE_B, "prefill"),
+            peak=served["prefill_peak_bytes"]
+            - served["resident_before_bytes"],
+            temp=served["prefill_peak_bytes"]
+            - served["prefill_resident_bytes"],
+            seconds=served["prefill_s"]),
+        "gemma2_27b_decode": dict(
+            arch=GEMMA_ARCH, cfg=gemma, cache_len=SERVE_SMAX,
+            shape=configs.Shape("decode_5f", SERVE_SMAX, SERVE_B, "decode"),
+            peak=None, temp=None,
+            seconds=served["decode_ms_per_step"] / 1e3),
+        "qwen3_4b_train": dict(
+            arch="qwen3-4b", cfg=qwen, cache_len=None,
+            shape=configs.Shape("train_6b", TRAIN_S, TRAIN_B, "train"),
+            peak=trained["peak_bytes"] - trained["resident_before_bytes"],
+            temp=trained["peak_bytes"] - trained["resident_before_bytes"]
+            - trained["state_bytes"],
+            seconds=trained["steady_step_s"]),
+    }
+    out = {}
+    for name, c in cells.items():
+        rec = dryrun.run_cell(c["arch"], c["shape"], mesh=DRYRUN_MESH,
+                              accum=TRAIN_ACCUM if c["shape"].kind
+                              == "train" else None, cfg=c["cfg"],
+                              cache_len=c["cache_len"], verbose=False)
+        mem, roof = rec["memory"], rec["roofline"]
+        pred = mem["peak_per_device_bytes"]
+        model_fl = rec["model_flops"]["total_flops"]
+        row = dict(
+            shape=dict(seq_len=c["shape"].seq_len,
+                       batch=c["shape"].global_batch, kind=c["shape"].kind,
+                       cache_len=c["cache_len"]),
+            trace_s=rec["trace_s"], accum=rec["accum"],
+            predicted_peak_bytes=pred, measured_peak_bytes=c["peak"],
+            peak_ratio=pred / c["peak"] if c["peak"] else None,
+            argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], measured_temp_bytes=c["temp"],
+            temp_ratio=mem["temp_bytes"] / c["temp"] if c["temp"] else None,
+            fits_card=mem["fits_card"],
+            dot_flops=rec["counted"]["dot_flops"],
+            bytes_accessed=rec["counted"]["bytes_accessed"],
+            kernel_calls=rec["counted"]["kernel_calls"],
+            model_flops=model_fl,
+            useful_flops_ratio=rec["useful_flops_ratio"],
+            roofline=roof, measured_s=c["seconds"],
+            bound_share=roof["bound_s"] / c["seconds"],
+            mfu=model_fl / c["seconds"] / mesh_mod.PEAK_FLOPS_BF16)
+        check(mem["fits_card"], f"dryrun {name}: predicted {pred} B does "
+                                f"not fit {mem['card_bytes']}")
+        if c["peak"] is not None:
+            check(abs(pred / c["peak"] - 1) <= DRYRUN_PEAK_TOL,
+                  f"dryrun {name}: predicted peak {pred} B against the "
+                  f"measured {c['peak']} B (tolerance {DRYRUN_PEAK_TOL})")
+        if c["temp"] is not None:
+            check(abs(mem["temp_bytes"] / c["temp"] - 1) <= DRYRUN_TEMP_TOL,
+                  f"dryrun {name}: predicted temporaries {mem['temp_bytes']}"
+                  f" B against the measured {c['temp']} B (tolerance "
+                  f"{DRYRUN_TEMP_TOL})")
+        out[name] = row
+    emit("dryrun", card=card, mesh=DRYRUN_MESH,
+         peak_flops_bf16=mesh_mod.PEAK_FLOPS_BF16, hbm_bw=mesh_mod.HBM_BW,
+         card_memory_bytes=mesh_mod.CARD_MEMORY_BYTES, cells=out,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4464,8 +4737,13 @@ def main() -> int:
         kernels[name]["launches_danube"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_danube_float32"] = n
+    launches, launches_f32, served = phase_serve_gemma()
+    for name, n in launches.items():
+        kernels[name]["launches_gemma2"] = n
+    for name, n in launches_f32.items():
+        kernels[name]["launches_gemma2_float32"] = n
     phase_train_attention()
-    launches = phase_train()
+    launches, trained = phase_train()
     launches_cli = phase_train_cli()
     for kn, n in launches.items():
         kernels[f"flash_attention_{kn}"]["launches_train"] = (
@@ -4474,6 +4752,7 @@ def main() -> int:
         kernels[name]["launches_train"] = launches_cli[name]
     for name, n in phase_parallel().items():
         kernels[name]["launches_parallel"] = n
+    phase_dryrun(served, trained, card)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

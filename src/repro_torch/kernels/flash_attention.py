@@ -45,7 +45,12 @@ pair needs ``0 <= q_pos - kv_pos < window``.  A row with no unmasked slot
 gives 0.  The wrapper launches the kernel for CUDA tensors and raises on
 what the kernels do not take; ``models.layers.attend`` and
 ``kernels.ops.flash_attention`` pick the plain version only for tensors on
-the CPU.  ``LAUNCHES["flash_attention"]`` counts wrapper calls that
+the CPU.  On the ``meta`` device (the dry run, ``launch/roofline.py``)
+neither runs: ``meta_attention`` returns the kernel's output shape and
+bills the tracer in ``META_TRACE`` the FLOPs of the tiles the chosen
+kernel computes (``kernel_flops``, from the positions' values, which the
+tracer knows) and the bytes of its inputs and output; with no tracer it
+raises.  ``LAUNCHES["flash_attention"]`` counts wrapper calls that
 launched a kernel, ``LAUNCHES["flash_attention_<kernel>"]`` each kernel's
 share of them; each hook in ``LAUNCH_HOOKS`` is called with every name a
 launch counts.
@@ -53,9 +58,11 @@ launch counts.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -92,6 +99,18 @@ DECODE_DIRECT_MAX_Q = 8
 PLAIN_KV_CHUNK = 512
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# query rows a block of the wgmma kernel (csrc/flash_attention_wgmma.cu:
+# kRows) and of the SIMT kernel (csrc/flash_attention.cu: kRows) owns, kv
+# slots a tile of the SIMT kernel (kSlots), and the wgmma kernel's box of
+# head-dim columns (a head dim rides in whole 64-column boxes)
+WGMMA_ROWS = 128
+SIMT_ROWS = 64
+SIMT_KV_TILE = 64
+WGMMA_BOX = 64
+# the dry run's tracer (``launch.roofline``) while it counts a step on the
+# meta device: ``positions(t)`` gives a positions tensor's values,
+# ``kernel(name, flops, bytes_read, bytes_written)`` bills a launch
+META_TRACE = None
 
 
 def reset_launches() -> None:
@@ -305,6 +324,121 @@ def choose_kernel(dtype, D: int, Dv: int, rows: int) -> str:
 
 
 # ---------------------------------------------------------------------------
+# The kernels' work, counted (the dry run)
+# ---------------------------------------------------------------------------
+
+def _live_tiles(lo: np.ndarray, hi: np.ndarray, kv_pos: np.ndarray,
+                tile: int, causal: bool, window: Optional[int]
+                ) -> np.ndarray:
+    """[blocks, tiles] bool: whether each ``tile``-slot kv tile holds a slot
+    some row of each block may attend, the wgmma and SIMT kernels' test --
+    position >= 0 and, with ``causal``, inside (lo - window, hi] for the
+    block's query positions lo..hi."""
+    n_tiles = -(-kv_pos.size // tile)
+    pos = np.full(n_tiles * tile, -1, dtype=np.int64)
+    pos[:kv_pos.size] = kv_pos
+    pos = pos.reshape(n_tiles, tile)
+    if not causal:
+        return np.broadcast_to((pos >= 0).any(1), (lo.size, n_tiles))
+    srt = np.sort(np.where(pos >= 0, pos, np.iinfo(np.int64).max), 1)
+    below = np.maximum(lo - window, -1) if window else np.full_like(lo, -1)
+    return np.stack([np.searchsorted(row, hi, "right")
+                     > np.searchsorted(row, below, "right")
+                     for row in srt], 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_flops(kernel: str, B: int, H: int, KH: int, D: int, Dv: int,
+                  q_pos: bytes, kv_pos: bytes, causal: bool,
+                  window: Optional[int]) -> float:
+    qp = np.frombuffer(q_pos, dtype=np.int32).astype(np.int64)
+    kp = np.frombuffer(kv_pos, dtype=np.int32).astype(np.int64)
+    G, Sq = H // KH, qp.size
+    if kernel == "split_kv":
+        rows = Sq * G
+        n_chunks = -(-kp.size // SPLIT_KV_CHUNK)
+        pos = np.full(n_chunks * SPLIT_KV_CHUNK, -1, dtype=np.int64)
+        pos[:kp.size] = kp
+        pos = pos.reshape(n_chunks, SPLIT_KV_CHUNK, 1)
+        ok = pos >= 0
+        if causal:
+            rel = qp[None, None, :] - pos
+            ok = ok & (rel >= 0) & ((rel < window) if window else True)
+        live = int(ok.any((1, 2)).sum())
+        return 2.0 * B * KH * live * rows * SPLIT_KV_CHUNK * (D + Dv)
+    if kernel == "wgmma":
+        gb = min(G, WGMMA_ROWS)
+        per, head_tiles = WGMMA_ROWS // gb, -(-G // gb)
+        starts = np.arange(0, Sq, per)
+        lo = np.minimum.reduceat(qp, starts)
+        hi = np.maximum.reduceat(qp, starts)
+        live = int(_live_tiles(lo, hi, kp, WGMMA_KV_TILE, causal,
+                               window).sum())
+        dims = WGMMA_BOX * (-(-D // WGMMA_BOX) + -(-Dv // WGMMA_BOX))
+        return (2.0 * B * KH * head_tiles * live * WGMMA_ROWS
+                * WGMMA_KV_TILE * dims)
+    # simt: blocks of SIMT_ROWS (position, head) rows, position-major
+    starts = np.arange(0, Sq * G, SIMT_ROWS) // G
+    ends = np.minimum(np.arange(SIMT_ROWS, Sq * G + SIMT_ROWS, SIMT_ROWS),
+                      Sq * G) - 1
+    ends = ends // G
+    lo = np.array([qp[a:b + 1].min() for a, b in zip(starts, ends)])
+    hi = np.array([qp[a:b + 1].max() for a, b in zip(starts, ends)])
+    live = int(_live_tiles(lo, hi, kp, SIMT_KV_TILE, causal, window).sum())
+    return 2.0 * B * KH * live * SIMT_ROWS * SIMT_KV_TILE * (D + Dv)
+
+
+def kernel_flops(kernel: str, B: int, H: int, KH: int, D: int, Dv: int,
+                 q_positions, kv_positions, causal: bool = True,
+                 window: Optional[int] = None) -> float:
+    """FLOPs the kernel ``kernel`` does for one call: 2 (D + Dv) a (row,
+    slot) pair of every tile it computes, by its own tiling and tile
+    skipping --
+      * ``wgmma``: blocks of ``WGMMA_ROWS`` (position, head) rows of a kv
+        head (padding rows computed), each kv tile of ``WGMMA_KV_TILE``
+        slots that ``_live_tiles`` keeps, head dims in whole 64-column
+        boxes (D 120 runs D 128's products);
+      * ``simt``: blocks of ``SIMT_ROWS`` rows, ``SIMT_KV_TILE``-slot tiles
+        the same test keeps;
+      * ``split_kv``: every row of a (batch, kv head) against each
+        ``SPLIT_KV_CHUNK``-slot chunk that holds an unmasked (row, slot)
+        pair.
+    Positions: host int32 tensors or arrays [Sq] and [Skv]."""
+    as_bytes = lambda p: np.ascontiguousarray(
+        np.asarray(p), dtype=np.int32).tobytes()
+    return _kernel_flops(kernel, B, H, KH, D, Dv, as_bytes(q_positions),
+                         as_bytes(kv_positions), bool(causal),
+                         None if window is None else int(window))
+
+
+def meta_attention(q, k, v, q_positions, kv_positions, *, causal=True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """The kernel's call on ``meta`` tensors: bills ``META_TRACE`` the
+    chosen kernel's FLOPs (``kernel_flops``, over the positions' values
+    the tracer holds), the bytes of q, k, v and both positions read and of
+    the output written (no temporaries), and returns the output [B, Sq,
+    H, Dv] in q's dtype, as ``flash_attention_cuda`` does."""
+    trace = META_TRACE
+    if trace is None:
+        raise RuntimeError("attention on the meta device runs only under "
+                           "launch.roofline.analyze_step, which knows the "
+                           "positions")
+    B, Sq, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    name = choose_kernel(q.dtype, D, Dv, Sq * (H // KH))
+    flops = kernel_flops(name, B, H, KH, D, Dv,
+                         trace.positions(q_positions).numpy(),
+                         trace.positions(kv_positions).numpy(), causal,
+                         window)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    n_read = sum(t.numel() * t.element_size()
+                 for t in (q, k, v, q_positions, kv_positions))
+    trace.kernel(f"flash_attention_{name}", flops, n_read,
+                 out.numel() * out.element_size())
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA launch wrapper
 # ---------------------------------------------------------------------------
 
@@ -439,9 +573,20 @@ def flash_attention_backward(q, k, v, q_positions, kv_positions, out, do, *,
     chunks = [(c0, min(c0 + kv_chunk, Skv)) for c0 in range(0, Skv, kv_chunk)]
     masks = [_mask(q_rows, kv_positions[c0:c1], causal, window)[0, :, 0, 0]
              for c0, c1 in chunks]                      # [R, C] each
-    live = torch.stack([mk.any(1) for mk in masks]).int()   # [chunks, R]
-    bounds = torch.stack([live.amax(1), live.argmax(1),
-                          R - live.flip(1).argmax(1)], 1).tolist()
+    if q.is_meta:
+        # no values on meta: the bounds from the positions' host values,
+        # which the dry run's tracer holds (``META_TRACE``)
+        if META_TRACE is None:
+            raise RuntimeError("the attention backward on the meta device "
+                               "runs only under launch.roofline."
+                               "analyze_step")
+        bounds = live_row_bounds(META_TRACE.positions(q_positions).numpy(),
+                                 META_TRACE.positions(kv_positions).numpy(),
+                                 chunks, G, causal, window)
+    else:
+        live = torch.stack([mk.any(1) for mk in masks]).int()  # [chunks, R]
+        bounds = torch.stack([live.amax(1), live.argmax(1),
+                              R - live.flip(1).argmax(1)], 1).tolist()
     chunks = [(c0, c1, r0, r1, mk[r0:r1])
               for (c0, c1), mk, (any_row, r0, r1) in zip(chunks, masks, bounds)
               if any_row]
@@ -487,12 +632,40 @@ def flash_attention_backward(q, k, v, q_positions, kv_positions, out, do, *,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
+def live_row_bounds(q_positions, kv_positions, chunks, G: int, causal: bool,
+                    window: Optional[int]) -> List[List[int]]:
+    """Per kv chunk (c0, c1): [any, r0, r1] -- whether some row attends a
+    slot of the chunk, and the first and one past the last such row (rows
+    position-major, G a position) -- from host positions (numpy), as
+    ``flash_attention_backward`` takes them from its masks: a row of query
+    position q attends a slot of position p >= 0 with, when ``causal``,
+    0 <= q - p (< window)."""
+    q_rows = np.repeat(np.asarray(q_positions, dtype=np.int64), G)
+    kv = np.asarray(kv_positions, dtype=np.int64)
+    out = []
+    for c0, c1 in chunks:
+        srt = np.sort(kv[c0:c1][kv[c0:c1] >= 0])
+        if not causal:
+            live = np.full(q_rows.size, srt.size > 0)
+        else:
+            lo = q_rows - window if window else np.full_like(q_rows, -1)
+            live = (np.searchsorted(srt, q_rows, "right")
+                    > np.searchsorted(srt, lo, "right"))
+        idx = np.flatnonzero(live)
+        out.append([1, int(idx[0]), int(idx[-1]) + 1] if idx.size
+                   else [0, 0, q_rows.size])
+    return out
+
+
 def _attention_forward(q, k, v, q_positions, kv_positions, causal, window,
                        logit_cap, plain):
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, q_positions, kv_positions,
                                     causal=causal, window=window,
                                     logit_cap=logit_cap)
+    if q.is_meta:
+        return meta_attention(q, k, v, q_positions, kv_positions,
+                              causal=causal, window=window)
     return plain(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
                  causal=causal, window=window, logit_cap=logit_cap)
 
@@ -524,8 +697,9 @@ def attend(q, k, v, q_positions, kv_positions, *, causal: bool = True,
            window: Optional[int] = None, logit_cap: Optional[float] = None,
            plain=attention_plain) -> torch.Tensor:
     """Attention through the kernel on CUDA tensors (``flash_attention_cuda``,
-    output in q's dtype) and through ``plain`` on CPU tensors (float32
-    output).  Under grad with an input that requires it, the call goes
+    output in q's dtype), through ``plain`` on CPU tensors (float32
+    output), and on meta tensors the kernel's count (``meta_attention``,
+    the dry run's).  Under grad with an input that requires it, the call goes
     through ``FlashAttention``, so the output always has a ``grad_fn``;
     otherwise (serving, under ``torch.no_grad``) it is the bare forward."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -17,11 +17,21 @@ no network.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 # NVIDIA H100 SXM data sheet figures (roofline denominators, per card)
 PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12                  # HBM3 bytes/s
+# NVLink 4: 900 GB/s a card both ways, 450e9 bytes/s a direction.  One
+# link figure, as the reference has one: it holds within a node of 8
+# cards; a 256-card mesh crosses nodes, where the link (InfiniBand,
+# ~50e9 bytes/s a card) is slower, so the collective term of such a mesh
+# is a lower bound.
+ICI_BW = 450e9
+# device memory of the H100 80GB HBM3 (SXM) card: torch.cuda.
+# get_device_properties(0).total_memory on it, 85017493504 B -- the card
+# the dry run's ``fits_card`` verdict holds a rank's peak against
+CARD_MEMORY_BYTES = 85_017_493_504
 
 
 def _device_type(device_type: Optional[str]) -> str:
@@ -59,8 +69,15 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return init_device_mesh(dev, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+def production_mesh_shape(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The production mesh's axis sizes: 16 x 16, or 2 pods of 16 x 16 (the
+    dry run's mesh of sizes; no process group)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: Optional[str] = None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type)
+    sizes = production_mesh_shape(multi_pod=multi_pod)
+    return make_mesh(tuple(sizes.values()), tuple(sizes), device_type)

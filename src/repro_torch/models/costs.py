@@ -1,8 +1,15 @@
-"""Analytic parameter and per-layer cost accounting (the reference's
-``models/costs.py``, the parts the CFN bridge reads).
+"""Analytic parameter / FLOP accounting (the reference's ``models/costs.py``).
 
-``core.vsr.from_architecture`` turns per-layer GFLOP/token and inter-layer
-activation bytes into the paper's VSR abstraction.  The counts come from
+Two consumers:
+  * the dry run (``launch/dryrun.py``): ``model_flops`` -- 6 N D a train
+    step, 2 N D a prefill, 2 N a decoded token (N = active non-embedding
+    parameters), plus the attention context terms of ``attention_flops``
+    -- is the useful work a step's counted products are held against;
+  * the CFN bridge (``core.vsr.from_architecture``): per-layer GFLOP/token
+    and inter-layer activation bytes turn an architecture into the paper's
+    VSR abstraction.
+
+The counts come from
 parameter shapes: the reference traces ``init_model`` with
 ``jax.eval_shape``; the port makes the same shapes on the ``meta`` device,
 which allocates nothing.  ``layer_costs`` needs only each block's shapes.
@@ -36,6 +43,48 @@ def param_breakdown(cfg: ArchConfig) -> Dict[str, int]:
     return dict(total=total, embed=embed, expert=expert,
                 active=int(active), active_nonembed=int(active - embed),
                 nonembed=total - embed)
+
+
+def _attention_layers(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """(kind, effective kv dim) for every layer that attends."""
+    return [(kind, cfg.head_dim) for grp in M.layer_plan(cfg)
+            for _ in range(grp.repeats) for kind in grp.kinds
+            if kind not in M.SSM_KINDS]
+
+
+def attention_flops(cfg: ArchConfig, s_q: int, s_kv: int,
+                    causal_avg: bool) -> float:
+    """Scores + PV flops for the whole stack at the given context."""
+    total = 0.0
+    H, Dh = cfg.n_heads, cfg.head_dim
+    for kind, _ in _attention_layers(cfg):
+        w = M.block_window(cfg, kind)
+        kv = min(w, s_kv) if w else s_kv
+        if causal_avg and kv == s_kv:
+            kv = max(1, kv // 2)
+        total += 4.0 * s_q * kv * H * Dh
+    return total
+
+
+def model_flops(cfg: ArchConfig, shape) -> Dict[str, float]:
+    """Useful FLOPs for one step of ``shape`` (a ``configs.Shape``) over
+    the whole mesh, with the parameter counts they come from."""
+    from ..launch.specs import dec_len     # launch imports models
+    pb = param_breakdown(cfg)
+    N = pb["active_nonembed"]
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        toks = B * dec_len(cfg, S)
+        flops = 6.0 * N * toks + 3.0 * attention_flops(
+            cfg, dec_len(cfg, S), dec_len(cfg, S), causal_avg=True) * B
+    elif shape.kind == "prefill":
+        toks = B * dec_len(cfg, S)
+        flops = 2.0 * N * toks + attention_flops(
+            cfg, dec_len(cfg, S), dec_len(cfg, S), causal_avg=True) * B
+    else:  # decode: one token against an S-token cache
+        flops = 2.0 * N * B + attention_flops(cfg, 1, S,
+                                              causal_avg=False) * B
+    return dict(total_flops=flops, params=pb)
 
 
 def _block_sizes(cfg: ArchConfig, kind: str) -> Tuple[int, int]:

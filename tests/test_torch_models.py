@@ -239,6 +239,71 @@ def test_danube_head_dim_120_bf16_within_reference_bound():
     assert _rel(dt, dj) < 3e-2
 
 
+# gemma2-27b's smoke configuration (2 layers: local, then global; a
+# 64-slot window, attention softcap 50, final softcap 30) past its window:
+# an 80-token prompt, its first 64 tokens prefilled (the local layer's
+# ring of 64 slots exactly full: a longer prefill writes some slots twice
+# in one scatter, in an order neither package fixes), its last 16 fed by
+# decode steps, then 8 more decode steps -- the ring wraps; the forward
+# pass over all 88 tokens masks by the window
+GEMMA_PREFILL, GEMMA_PROMPT, GEMMA_STEPS = 64, 80, 8
+
+
+def _gemma_past_window(dtype: str, check) -> None:
+    jcfg, jparams, tcfg, model = _pair("gemma2-27b", dtype)
+    assert tcfg.sliding_window == 64 and TM.layer_plan(tcfg)[0].kinds == (
+        "attn_local", "attn_global")
+    P, n = GEMMA_PREFILL, GEMMA_PROMPT + GEMMA_STEPS - GEMMA_PREFILL
+    toks = np.random.default_rng(19).integers(0, jcfg.vocab, (B, P + n)) \
+        .astype(np.int32)
+    jtok, ttok = jnp.asarray(toks), torch.as_tensor(toks)
+    check(TM.forward_hidden(model, tcfg, {"tokens": ttok}),
+          j_forward(jparams, jcfg, {"tokens": jtok}))
+    max_len = GEMMA_PROMPT + GEMMA_STEPS + 8
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jcache = JC.zeros(JC.cache_spec(jcfg, B, max_len, dtype=jdt))
+    tcache = TC.zeros(TC.cache_spec(tcfg, B, max_len, dtype=tdt),
+                      device="cpu")
+    assert tcache[0]["b0"]["k"].shape[2] == 64     # the local ring
+    assert tcache[0]["b1"]["k"].shape[2] == max_len
+    lj, jcache = j_prefill(jparams, jcfg, {"tokens": jtok[:, :P]}, jcache)
+    lt, tcache = tengine.prefill(model, tcfg, {"tokens": ttok[:, :P]},
+                                 tcache)
+    check(lt, lj)
+    for i in range(n):
+        dj, jcache = j_decode(jparams, jcfg, jtok[:, P + i:P + i + 1],
+                              jnp.asarray(P + i, jnp.int32), jcache)
+        dt, tcache = tengine.decode_step(model, tcfg,
+                                         ttok[:, P + i:P + i + 1], P + i,
+                                         tcache)
+        check(dt, dj)
+    for b in ("b0", "b1"):
+        np.testing.assert_array_equal(
+            tcache[0][b]["pos_ids"].numpy(),
+            np.asarray(jcache[0][b]["pos_ids"]))
+    ring = tcache[0]["b0"]["pos_ids"][0]
+    assert int(ring.max()) == P + n - 1 and int(ring.min()) == P + n - 64
+
+
+def test_gemma2_past_window_matches_reference_f32():
+    """Smoke gemma2-27b in float32 with norm noise: the forward pass over
+    88 tokens, a 64-token prefill and 24 decode steps (the prompt's last
+    16 tokens, then 8), the local layer's 64-slot ring wrapped, each
+    against the reference's jitted entry points (rtol 1e-4 / atol 2e-4);
+    both caches' positions equal."""
+    _gemma_past_window("float32", lambda got, want: np.testing.
+                       assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                       atol=2e-4))
+
+
+def test_gemma2_past_window_bf16_within_reference_bound():
+    """The same in bf16: each output within 3e-2 of the reference's
+    largest value."""
+    def check(got, want):
+        assert _rel(got, want) < 3e-2
+    _gemma_past_window("bfloat16", check)
+
+
 @pytest.mark.parametrize("arch,smoke", [(a, s) for a in SERVED
                                         for s in (True, False)])
 def test_cache_spec_matches_reference(arch, smoke):
