@@ -177,7 +177,18 @@ nvcc per source, in parallel), then
      train step, and their temporaries (the peak above what was live
      before the step) within 5%, every cell fitting the card (checked);
      the roofline's bound against the measured seconds, and the model
-     FLOPs' share of the card's bf16 peak (MFU), printed.
+     FLOPs' share of the card's bf16 peak (MFU), printed;
+  9. holds the static-analysis plane (``repro_torch.analysis``) against
+     the card: (9a) the port's linter (``python -m repro_torch.analysis
+     --baseline analysis/baseline-torch.json src/repro_torch
+     chip_smoke.py``) exits 0 with no finding; (9b) for every CUDA
+     template this run launched, at every launched shape, the Python
+     shared-memory mirror equals what the ``.cu`` query says its launcher
+     requests, static plus dynamic bytes fit the card's opt-in limit per
+     block, which equals ``SMEM_PER_BLOCK``; (9c) every entry 3h's
+     telemetry recorded is within its CFN108 static bound, and a fresh
+     two-bucket churn wave on the card (the fingerprint cache cleared)
+     counts within its scenario bounds and within 2x of them.
 
 Each phase prints one JSON line (3a-3f also their seconds; every line
 its seconds since the start, ``at_s``); then the
@@ -2168,7 +2179,7 @@ OBS_RUNS = 2
 MICRO_REPS = 20000
 
 
-def phase_telemetry() -> dict:
+def phase_telemetry() -> tuple:
     """Phase 3h: the telemetry plane's overhead on the churn-wave workload,
     through ``OnlineEmbedder``.
 
@@ -2188,7 +2199,7 @@ def phase_telemetry() -> dict:
     ``validate``), ``compiles.agree`` and ``launches.agree`` (the kernel
     launches mirrored), ledger ticks equal to commits.  The 2% bar of the
     reference is printed, not checked: host-driven times vary between
-    runs.  Returns the phase's launches."""
+    runs.  Returns the phase's launches and its two telemetry runs."""
     import torch
     from repro_torch.api import PlacementSpec
     from repro_torch.core import dynamic, solvers, vsr
@@ -2257,7 +2268,7 @@ def phase_telemetry() -> dict:
     out_dir = ROOT / "build" / "telemetry"
     out_dir.mkdir(parents=True, exist_ok=True)
     pp.reset_launches()
-    runs = []
+    runs, tels = [], []
     for i in range(OBS_RUNS):
         runs.append(dict(arm="off", **replay(None)))
         path = out_dir / f"run{i}.jsonl"
@@ -2284,6 +2295,7 @@ def phase_telemetry() -> dict:
               == rep["counters"].get("span.apply_wave", 0) + 1,
               f"telemetry: {len(tel.ledger.samples)} ledger ticks for "
               f"{n_commits} commits")
+        tels.append(tel)
         run.update(events_emitted=len(evs), jsonl_bytes=path.stat().st_size,
                    ledger_ticks=len(tel.ledger.samples), commits=n_commits,
                    compiles=rep["compiles"], launch_attribution=rep[
@@ -2326,7 +2338,7 @@ def phase_telemetry() -> dict:
          reference_bar_pct=2.0, identical_placements=True,
          micro_ns_per_call=micro, launches=launches,
          seconds_total=time.perf_counter() - t_all)
-    return launches
+    return launches, tels
 
 
 # the reference's kernel test shapes (tests/test_kernels.py:12-21):
@@ -4637,6 +4649,199 @@ def phase_dryrun(served: dict, trained: dict, card: str) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# phase 9c's churn wave: the CPU contract test's scenario
+# (tests/test_torch_cache_contract.py), on the card
+ANALYSIS_WAVES = [[0], [1, 2, 3]]
+# the kernels line's names -> the kinds of ``LAUNCH_SHAPES``
+KERNEL_KIND = {"placement_power": "placement_power",
+               "fused_anneal": "fused_anneal",
+               "fused_anneal_global": "fused_anneal",
+               "flash_attention_wgmma": "wgmma",
+               "flash_attention_split_kv": "split_kv",
+               "flash_attention_simt": "simt"}
+
+
+def smem_rows() -> list:
+    """Phase 9b: one row per CUDA template and shared-memory shape this
+    run launched (``LAUNCH_SHAPES``): the Python mirror, the ``.cu``
+    query's dynamic and static bytes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import placement_power as pp
+    rows = []
+    for shape in sorted(pp.LAUNCH_SHAPES | fa.LAUNCH_SHAPES,
+                        key=lambda t: tuple(map(str, t))):
+        kind, args = shape[0], shape[1:]
+        if kind == "placement_power":
+            mirror = pp.placement_power_launch_smem(*args)
+            template = "placement_power_kernel"
+            dyn, stat = _build.query("placement_power",
+                                     "placement_power_smem", *args)
+        elif kind == "fused_anneal":
+            C, J, P, N, D, K = args
+            variant, cpb = pp.fused_anneal_variant(C, J, P, N, D, K)
+            gx = int(variant == "global")
+            M = 2 * D * K
+            spl = 2 if M <= 64 else 8 if M <= 256 else 32
+            dt = D if M <= 64 and D in (1, 2) else 0
+            template = f"fused_anneal_kernel<{spl}, {dt}, {bool(gx)}>"
+            mirror = pp.fused_anneal_launch_smem(*args)
+            dyn, stat = _build.query("fused_anneal", "fused_anneal_smem",
+                                     J, P, N, D, K, cpb, gx)
+        elif kind == "wgmma":
+            D, Dv, Skv, cap = args
+            nch, ncv = -(-D // fa.WGMMA_BOX), -(-Dv // fa.WGMMA_BOX)
+            template = f"flash_attention_wgmma_kernel<{nch}, {ncv}, {cap}>"
+            mirror = fa.wgmma_launch_smem(D, Dv, Skv)
+            dyn, stat = _build.query("flash_attention_wgmma",
+                                     "flash_attention_wgmma_smem", D, Dv,
+                                     Skv, int(cap))
+        elif kind == "split_kv":
+            D, Dv, dt, n_rows, cps = args
+            template = ("flash_attention_split_kernel<"
+                        f"{'float' if dt == 0 else 'bf16'}>")
+            mirror = fa.split_kv_launch_smem(D, Dv, 4 if dt == 0 else 2,
+                                             n_rows, cps)
+            dyn, stat = _build.query("flash_attention_decode",
+                                     "flash_attention_decode_smem", *args)
+        else:
+            D, Dv, dt = args
+            dv_ch = next(c for c, lim in ((1, 32), (2, 64), (4, 128),
+                                          (8, 1 << 30))
+                         if (Dv + 3) // 4 * 4 <= lim)
+            template = (f"flash_attention_kernel<"
+                        f"{'float' if dt == 0 else 'bf16'}, {dv_ch}>")
+            mirror = fa.simt_launch_smem(D, Dv)
+            dyn, stat = _build.query("flash_attention",
+                                     "flash_attention_smem", *args)
+        rows.append(dict(kernel=kind, template=template, shape=list(args),
+                         mirror_bytes=mirror, requested_bytes=dyn,
+                         static_bytes=stat))
+    return rows
+
+
+def phase_analysis(obs_tels: list, kernels: dict, card: str) -> None:
+    """Phase 9: the static-analysis plane on the card's host and the card.
+
+    (9a) the port's linter over ``src/repro_torch`` and this script, as
+    the CLI runs it: exit 0, no finding, its seconds.  (9b) ``smem_rows``:
+    every mirror equal to the launcher's request, static plus dynamic
+    bytes within ``cudaDevAttrMaxSharedMemoryPerBlockOptin``, which equals
+    ``SMEM_PER_BLOCK``, and every kernel with launches in the kernels
+    line with a recorded shape.  (9c) ``Telemetry.report(bounds=)`` of
+    phase 3h's two telemetry runs: every recorded entry within its
+    static bound; then the CPU contract test's two-bucket churn wave on
+    the card, the fingerprint cache cleared, a ``Telemetry`` attached:
+    ``sweep`` and ``anneal_delta`` within their ``resolve_incremental``
+    scenario bounds and within 2x of them, every recorded entry within
+    its static bound."""
+    import torch
+    from repro_torch.analysis import compute_cache_bounds, load_project
+    from repro_torch.core import power, solvers, topology, vsr
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import placement_power as pp
+    from repro_torch.telemetry import Telemetry
+    t0 = time.perf_counter()
+    # (9a) the linter, as the CLI runs it
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--baseline",
+           "analysis/baseline-torch.json", "--format", "json",
+           "src/repro_torch", "chip_smoke.py"]
+    t_lint = time.perf_counter()
+    lint = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                          "PATH": "/usr/bin:/bin"})
+    lint_s = time.perf_counter() - t_lint
+    check(lint.returncode == 0, f"analysis: the linter exited "
+          f"{lint.returncode}: {lint.stdout[-800:]} {lint.stderr[-800:]}")
+    report = json.loads(lint.stdout)
+    check(report["findings"] == [] and report["total"] == 0,
+          f"analysis: findings {report['findings'][:3]}")
+    # (9b) shared memory: mirrors, requests, the opt-in limit
+    optin = _build.query("placement_power", "device_smem_optin")[0]
+    check(optin == pp.SMEM_PER_BLOCK == fa.SMEM_PER_BLOCK,
+          f"analysis: the card's opt-in shared memory a block is {optin}, "
+          f"SMEM_PER_BLOCK {pp.SMEM_PER_BLOCK}")
+    rows = smem_rows()
+    for r in rows:
+        check(r["mirror_bytes"] == r["requested_bytes"],
+              f"analysis: {r['template']} at {r['shape']}: the mirror "
+              f"says {r['mirror_bytes']} B, the launcher requests "
+              f"{r['requested_bytes']}")
+        check(0 <= r["static_bytes"]
+              and r["static_bytes"] + r["requested_bytes"] <= optin,
+              f"analysis: {r['template']} at {r['shape']}: "
+              f"{r['static_bytes']} static + {r['requested_bytes']} "
+              f"dynamic bytes over the card's {optin}")
+    launched = {r["kernel"] for r in rows}
+    ran = {KERNEL_KIND[k["name"]] for k in kernels.values()
+           if any(isinstance(v, int) and v > 0 for f, v in k.items()
+                  if f.startswith("launches"))}
+    check(ran <= launched, f"analysis: kernels {sorted(ran - launched)} "
+          "launched with no recorded shape")
+    # (9c) the static bounds against 3h's recorded shapes, then a fresh
+    # churn wave on the card
+    project, errors = load_project([str(ROOT / "src" / "repro_torch")])
+    check(not errors, f"analysis: syntax errors {errors}")
+    bounds = compute_cache_bounds(project)
+    obs = []
+    for tel in obs_tels:
+        got = tel.report(bounds=bounds)["compiles"]
+        check(all(c["within"] for c in got["bounds"].values()),
+              f"analysis: 3h compiles over their bounds {got['bounds']}")
+        obs.append({"recorded": got["recorded"], "bounds": got["bounds"]})
+    topo = topology.paper_topology()
+    vs = vsr.random_vsrs(6, rng=0, n_vms=5,
+                         source_nodes=topo.layer_indices("iot")[:3])
+    problem = power.build_problem(topo, vs, device="cuda")
+    state = power.init_state(problem,
+                             solvers.fixed_layer(problem, topo, "iot").X)
+    fixed = problem.host.fixed_mask
+    realized = {solvers._pow2(int((~fixed[rows_]).sum()))
+                for rows_ in ANALYSIS_WAVES}
+    check(len(realized) == 2, f"analysis: wave buckets {realized}")
+    tel = Telemetry()
+    tel.attach_traces()
+    solvers.clear_trace_cache()
+    before = dict(solvers.TRACE_COUNTS)
+    for rows_ in ANALYSIS_WAVES:
+        solvers.resolve_wave(problem, state, rows_,
+                             gen=solvers.default_generator(0),
+                             anneal_steps=50, anneal_chains=4)
+    torch.cuda.synchronize()
+    measured = {k: v - before.get(k, 0) for k, v in
+                solvers.TRACE_COUNTS.items() if v != before.get(k, 0)}
+    rep = tel.report(bounds=bounds)["compiles"]
+    tel.close()
+    check(rep["agree"] and rep["recorded"] == measured
+          and all(c["within"] for c in rep["bounds"].values()),
+          f"analysis: churn attribution {rep}")
+    cards = {"resolve_incremental.pad_changed_to": len(realized),
+             "resolve_incremental.pad_positions_to": 1}
+    scenario = {}
+    for entry in ("sweep", "anneal_delta"):
+        b = bounds[entry].evaluate(sites=["resolve_incremental"],
+                                   axis_cards=cards)
+        n = measured.get(entry, 0)
+        check(b is not None and n <= b <= 2 * n,
+              f"analysis: {entry} measured {n} against the scenario bound "
+              f"{b}")
+        scenario[entry] = {"measured": n, "scenario_bound": b,
+                           "static_bound": bounds[entry].static_bound()}
+    emit("analysis", card=card,
+         lint={"findings": len(report["findings"]),
+               "baselined": report["suppressed"], "seconds": lint_s,
+               "command": " ".join(cmd[1:])},
+         smem={"optin_bytes": optin,
+               "smem_per_block": pp.SMEM_PER_BLOCK,
+               "templates": sorted({r["template"] for r in rows}),
+               "shapes": len(rows), "rows": rows},
+         bounds={"static": {e: eb.static_bound()
+                            for e, eb in sorted(bounds.items())},
+                 "telemetry_3h": obs, "churn_wave": scenario},
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4708,7 +4913,7 @@ def main() -> int:
     launches = phase_federation()
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_federation"] = launches[name]
-    launches = phase_telemetry()
+    launches, obs_tels = phase_telemetry()
     for name in MAIN_PATH_KERNELS:
         kernels[name]["launches_telemetry"] = launches[name]
     for name in ("placement_power", "fused_anneal", "fused_anneal_global"):
@@ -4753,6 +4958,7 @@ def main() -> int:
     for name, n in phase_parallel().items():
         kernels[name]["launches_parallel"] = n
     phase_dryrun(served, trained, card)
+    phase_analysis(obs_tels, kernels, card)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

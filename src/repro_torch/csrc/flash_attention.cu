@@ -364,6 +364,19 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
                       causal, window, cap, stream);
 }
 
+// The template launch_dtype runs for Dv (as a function pointer).
+template <typename T>
+const void* kernel_for(int Dv) {
+  const int Dvp = (Dv + 3) & ~3;
+  if (Dvp <= 32)
+    return reinterpret_cast<const void*>(flash_attention_kernel<T, 1>);
+  if (Dvp <= 64)
+    return reinterpret_cast<const void*>(flash_attention_kernel<T, 2>);
+  if (Dvp <= 128)
+    return reinterpret_cast<const void*>(flash_attention_kernel<T, 4>);
+  return reinterpret_cast<const void*>(flash_attention_kernel<T, 8>);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means none; logit_cap
@@ -388,4 +401,21 @@ extern "C" int flash_attention_launch(
                                             H, KH, D, Dv, causal, window,
                                             logit_cap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory flash_attention_launch requests at D, Dv
+// (*dyn) and the static shared memory of the template it runs for dtype
+// (*stat).  Returns the attribute call's error.
+extern "C" int flash_attention_smem(int D, int Dv, int dtype, int* dyn,
+                                    int* stat) {
+  if (D <= 0 || Dv <= 0 || D > kMaxDim || Dv > kMaxDim ||
+      (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *dyn = (int)smem_bytes(D, Dv);
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, dtype == 0 ? kernel_for<float>(Dv) : kernel_for<__nv_bfloat16>(Dv));
+  *stat = e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  return (int)e;
 }

@@ -437,14 +437,18 @@ size_t smem_bytes(int D, int Dv, int esz, int n_rows, int cps, int nbuf) {
          4 * ((size_t)cps * kChunk + n_rows + cps + 1);
 }
 
+// K/V buffers a block holds: 2 (the next chunk lands during this one's
+// math) where they fit the block's shared memory, else 1.
+int nbuf_for(int D, int Dv, int esz, int n_rows, int cps) {
+  return smem_bytes(D, Dv, esz, n_rows, cps, 2) <= kMaxSmem ? 2 : 1;
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, float* ml, float* acc, int B,
            Shape sh, cudaStream_t stream) {
   const int n_rows = sh.Sq * (sh.H / sh.KH);
-  sh.nbuf =
-      smem_bytes(sh.D, sh.Dv, sizeof(T), n_rows, sh.cps, 2) <= kMaxSmem ? 2
-                                                                         : 1;
+  sh.nbuf = nbuf_for(sh.D, sh.Dv, sizeof(T), n_rows, sh.cps);
   const size_t smem =
       smem_bytes(sh.D, sh.Dv, sizeof(T), n_rows, sh.cps, sh.nbuf);
   auto split = flash_attention_split_kernel<T>;
@@ -508,4 +512,30 @@ extern "C" int flash_attention_decode_launch(
   float* a = static_cast<float*>(acc);
   if (dtype == 0) return launch<float>(q, k, v, qp, kp, out, m, a, B, sh, s);
   return launch<__nv_bfloat16>(q, k, v, qp, kp, out, m, a, B, sh, s);
+}
+
+// The dynamic shared memory flash_attention_decode_launch requests for its
+// split kernel at D, Dv, dtype, n_rows = Sq * (H / KH) rows a kv head and
+// cps chunks a split, after its choice of K/V buffers (*dyn), and that
+// kernel's static shared memory (*stat).  Returns the attribute call's
+// error.
+extern "C" int flash_attention_decode_smem(int D, int Dv, int dtype,
+                                           int n_rows, int cps, int* dyn,
+                                           int* stat) {
+  const int esz = dtype == 0 ? 4 : 2;
+  if (D <= 0 || Dv <= 1 || D > kMaxDim || Dv > kMaxDim || n_rows <= 0 ||
+      n_rows > kMaxRows || cps < 1 || cps > kMaxChunksPerSplit ||
+      (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *dyn = (int)smem_bytes(D, Dv, esz, n_rows, cps,
+                         nbuf_for(D, Dv, esz, n_rows, cps));
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      dtype == 0
+          ? cudaFuncGetAttributes(&a, flash_attention_split_kernel<float>)
+          : cudaFuncGetAttributes(
+                &a, flash_attention_split_kernel<__nv_bfloat16>);
+  *stat = e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  return (int)e;
 }

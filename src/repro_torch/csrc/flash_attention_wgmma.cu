@@ -695,6 +695,27 @@ int launch_cap(const CUtensorMap& tq, const CUtensorMap& tk,
              : launch<NCH, NCV, false>(tq, tk, tv, prm, B, stream);
 }
 
+// The template the launcher runs for nch / ncv 64-column boxes and a
+// softcap (as a function pointer).
+template <int NCH, int NCV>
+const void* kernel_cap(bool cap) {
+  return cap ? reinterpret_cast<const void*>(
+                   flash_attention_wgmma_kernel<NCH, NCV, true>)
+             : reinterpret_cast<const void*>(
+                   flash_attention_wgmma_kernel<NCH, NCV, false>);
+}
+
+const void* kernel_for(int nch, int ncv, bool cap) {
+  if (ncv == 1) {
+    if (nch == 1) return kernel_cap<1, 1>(cap);
+    if (nch == 2) return kernel_cap<2, 1>(cap);
+    return kernel_cap<3, 1>(cap);
+  }
+  if (nch == 1) return kernel_cap<1, 2>(cap);
+  if (nch == 2) return kernel_cap<2, 2>(cap);
+  return kernel_cap<3, 2>(cap);
+}
+
 }  // namespace
 
 // bfloat16 only; D and Dv multiples of 8 with 8 <= D <= 192 and
@@ -754,4 +775,23 @@ extern "C" int flash_attention_wgmma_launch(
   if (nch == 1) return launch_cap<1, 2>(tq, tk, tv, prm, B, cap, s);
   if (nch == 2) return launch_cap<2, 2>(tq, tk, tv, prm, B, cap, s);
   return launch_cap<3, 2>(tq, tk, tv, prm, B, cap, s);
+}
+
+// The dynamic shared memory flash_attention_wgmma_launch requests at D, Dv
+// and Skv kv slots (*dyn) and the static shared memory of the template it
+// runs, with a softcap when cap != 0 (*stat).  Returns the attribute
+// call's error (cudaErrorInvalidValue for dims it does not take).
+extern "C" int flash_attention_wgmma_smem(int D, int Dv, int Skv, int cap,
+                                          int* dyn, int* stat) {
+  if (D % 8 != 0 || Dv % 8 != 0 || D < 8 || D > 192 || Dv < 8 ||
+      Dv > 128 || Skv < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nch = (D + kCols - 1) / kCols, ncv = (Dv + kCols - 1) / kCols;
+  *dyn = (int)smem_bytes(nch, ncv, (Skv + kSlots - 1) / kSlots);
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, kernel_for(nch, ncv, cap != 0));
+  *stat = e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  return (int)e;
 }

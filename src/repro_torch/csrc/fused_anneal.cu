@@ -590,6 +590,21 @@ int launch(int cpb, size_t smem, cudaStream_t stream, const int* X0,
   return (int)cudaGetLastError();
 }
 
+// The template fused_anneal_launch runs for M = 2 D K route slots and D
+// (its FA_DISPATCH, as a function pointer).
+template <bool GX>
+const void* kernel_for(int M, int D) {
+  if (M <= 64 && D == 1)
+    return reinterpret_cast<const void*>(fused_anneal_kernel<2, 1, GX>);
+  if (M <= 64 && D == 2)
+    return reinterpret_cast<const void*>(fused_anneal_kernel<2, 2, GX>);
+  if (M <= 64)
+    return reinterpret_cast<const void*>(fused_anneal_kernel<2, 0, GX>);
+  if (M <= 256)
+    return reinterpret_cast<const void*>(fused_anneal_kernel<8, 0, GX>);
+  return reinterpret_cast<const void*>(fused_anneal_kernel<32, 0, GX>);
+}
+
 }  // namespace
 
 // X [C, J] int32 (pins applied); jprop/pprop/uprop [C, T]; temps [T];
@@ -631,4 +646,23 @@ extern "C" int fused_anneal_launch(
   FA_DISPATCH(false);
 #undef FA_DISPATCH
 #undef FA_ARGS
+}
+
+// The dynamic shared memory fused_anneal_launch requests for cpb chains a
+// block of J VMs (P, N, D, K as there; global_x its variant) in *dyn, and
+// the static shared memory of the template it runs in *stat.  Returns the
+// attribute call's error (cudaErrorInvalidValue for shapes it does not
+// take).
+extern "C" int fused_anneal_smem(int J, int P, int N, int D, int K, int cpb,
+                                 int global_x, int* dyn, int* stat) {
+  const int M = 2 * D * K;
+  if (D > 32 || M > 1024 || cpb < 1 || cpb > 32)
+    return (int)cudaErrorInvalidValue;
+  *dyn = (int)(param_bytes(P, N) +
+               (size_t)cpb * chain_bytes(J, P, N, D, global_x));
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, global_x ? kernel_for<true>(M, D) : kernel_for<false>(M, D));
+  *stat = e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  return (int)e;
 }

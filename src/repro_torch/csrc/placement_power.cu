@@ -262,6 +262,14 @@ placement_power_kernel(const int* __restrict__ X,
   }
 }
 
+// Dynamic shared memory of one block at P processing and N network nodes:
+// the per-warp omega | theta copies [kWarps][2P], the half-warps' lambda
+// copies [2 * kWarps][N + 1] and the CTA's loads [2P + N + 1], float32.
+size_t smem_bytes(int P, int N) {
+  return (size_t)(kWarps * 2 * P + 2 * kWarps * (N + 1) + 2 * P + N + 1) *
+         sizeof(float);
+}
+
 }  // namespace
 
 // X [B, J] int32 (pins applied), link_src/link_dst [L] int32, F [J],
@@ -275,9 +283,7 @@ extern "C" int placement_power_launch(const int* X, const int* link_src,
                                       float* out, int B, int J, int L, int P,
                                       int N, int K, int cs, void* stream) {
   if (cs < 1 || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(kWarps * 2 * P + 2 * kWarps * (N + 1) + 2 * P + N + 1) *
-      sizeof(float);
+  const size_t smem = smem_bytes(P, N);
   cudaError_t e = cudaFuncSetAttribute(
       placement_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -298,4 +304,26 @@ extern "C" int placement_power_launch(const int* X, const int* link_src,
                          F, H, route, pp, nn, out, J, L, P, N, K);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory placement_power_launch requests at P and N
+// (*dyn) and the kernel's static shared memory (*stat, from
+// cudaFuncGetAttributes).  Returns the attribute call's error.
+extern "C" int placement_power_smem(int P, int N, int* dyn, int* stat) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, placement_power_kernel);
+  *dyn = (int)smem_bytes(P, N);
+  *stat = e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  return (int)e;
+}
+
+// The shared memory a block of the current device may opt into
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), in *out.
+extern "C" int device_smem_optin(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return (int)e;
 }

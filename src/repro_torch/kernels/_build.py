@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +35,19 @@ LAUNCHERS = {
     "flash_attention": ("flash_attention_launch", 6, 10, 1),
     "flash_attention_wgmma": ("flash_attention_wgmma_launch", 6, 9, 1),
     "flash_attention_decode": ("flash_attention_decode_launch", 8, 11, 1),
+}
+
+# exported shared-memory queries of each source: (name, int args, int
+# results); each writes its results through int pointers (the dynamic
+# bytes its launcher requests and its kernel's static bytes; the device's
+# opt-in limit) and returns a cudaError_t
+QUERIES = {
+    "placement_power": (("placement_power_smem", 2, 2),
+                        ("device_smem_optin", 0, 1)),
+    "fused_anneal": (("fused_anneal_smem", 7, 2),),
+    "flash_attention": (("flash_attention_smem", 3, 2),),
+    "flash_attention_wgmma": (("flash_attention_wgmma_smem", 4, 2),),
+    "flash_attention_decode": (("flash_attention_decode_smem", 5, 2),),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -64,6 +77,10 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
     fn = getattr(lib, fn_name)
     fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_F] * n_float + [_P]
     fn.restype = ctypes.c_int
+    for q_name, n_int, n_out in QUERIES[name]:
+        q = getattr(lib, q_name)
+        q.argtypes = [_I] * n_int + [ctypes.POINTER(_I)] * n_out
+        q.restype = ctypes.c_int
     return lib
 
 
@@ -112,3 +129,15 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def query(name: str, fn_name: str, *ints: int) -> Tuple[int, ...]:
+    """The int results of the exported query ``fn_name`` of
+    ``csrc/<name>.cu`` (``QUERIES``) at ``ints``; raises on its error."""
+    n_out = next(q[2] for q in QUERIES[name] if q[0] == fn_name)
+    outs = [_I(0) for _ in range(n_out)]
+    err = getattr(library(name), fn_name)(
+        *ints, *(ctypes.byref(o) for o in outs))
+    if err != 0:
+        raise RuntimeError(f"{fn_name}{ints} failed: CUDA error {err}")
+    return tuple(o.value for o in outs)

@@ -60,7 +60,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -107,6 +107,16 @@ WGMMA_ROWS = 128
 SIMT_ROWS = 64
 SIMT_KV_TILE = 64
 WGMMA_BOX = 64
+# the wgmma kernel's K/V ring depth (kStages), the split-KV kernel's
+# threads a block (kThreads), and the shared memory a block may opt into
+# on the H100 (the split-KV kernel's kMaxSmem)
+WGMMA_STAGES = 3
+SPLIT_KV_THREADS = 128
+SMEM_PER_BLOCK = 232448
+# the distinct shapes that set a launch's shared memory, since import:
+# ("wgmma", D, Dv, Skv, softcap?), ("split_kv", D, Dv, dtype, rows, cps),
+# ("simt", D, Dv, dtype); dtype 0 float32, 1 bfloat16
+LAUNCH_SHAPES: Set[tuple] = set()
 # the dry run's tracer (``launch.roofline``) while it counts a step on the
 # meta device: ``positions(t)`` gives a positions tensor's values,
 # ``kernel(name, flops, bytes_read, bytes_written)`` bills a launch
@@ -294,6 +304,61 @@ def split_kv_attention_plain(q, k, v, *, q_positions, kv_positions,
     acc = (w[..., None] * torch.stack(accs)).sum(0)
     out = acc / torch.clamp_min(L, 1e-20)[..., None]
     return out.reshape(B, Sq, H, Dv)
+
+
+def simt_launch_smem(D: int, Dv: int) -> int:
+    """Dynamic shared memory ``csrc/flash_attention.cu`` requests at head
+    dims D, Dv (its ``smem_bytes``): Q and a K tile of
+    ``SIMT_ROWS`` / ``SIMT_KV_TILE`` rows of QS floats (D rounded up to 4,
+    plus 4 where that is a multiple of 8), a V tile, the scores
+    [rows, tile + 1], two row vectors, and the int positions."""
+    Dp, Dvp = (D + 3) & ~3, (Dv + 3) & ~3
+    QS = Dp + 4 if Dp % 8 == 0 else Dp
+    floats = (SIMT_ROWS * QS + SIMT_KV_TILE * QS + SIMT_KV_TILE * Dvp
+              + SIMT_ROWS * (SIMT_KV_TILE + 1) + 2 * SIMT_ROWS)
+    return floats * 4 + (SIMT_ROWS + SIMT_KV_TILE) * 4
+
+
+def split_kv_smem_bytes(D: int, Dv: int, esz: int, rows: int, cps: int,
+                        nbuf: int) -> int:
+    """Dynamic shared memory of the split-KV kernel
+    (``csrc/flash_attention_decode.cu``: ``smem_bytes``) with ``nbuf``
+    K/V chunk buffers: K rows padded to an odd number of 16-byte units,
+    V rows, then float32 Q, scores, partial sums and int bookkeeping;
+    ``esz`` bytes an element, ``rows`` = Sq * G, ``cps`` chunks a
+    split."""
+    units = (D * esz + 15) // 16
+    k_stride = 16 * (units if units % 2 else units + 1)
+    RP = (rows + 3) & ~3
+    parts = SPLIT_KV_THREADS // (Dv // 2)
+    return (nbuf * SPLIT_KV_CHUNK * (k_stride + Dv * esz)
+            + 4 * (rows * D + rows * SPLIT_KV_CHUNK + SPLIT_KV_CHUNK * RP
+                   + parts * RP * Dv + 3 * RP)
+            + 4 * (cps * SPLIT_KV_CHUNK + rows + cps + 1))
+
+
+def split_kv_launch_smem(D: int, Dv: int, esz: int, rows: int,
+                         cps: int) -> int:
+    """What the split-KV launcher requests: two K/V buffers (the next
+    chunk lands during this one's math) where they fit
+    ``SMEM_PER_BLOCK``, else one (its ``nbuf_for``)."""
+    two = split_kv_smem_bytes(D, Dv, esz, rows, cps, 2)
+    if two <= SMEM_PER_BLOCK:
+        return two
+    return split_kv_smem_bytes(D, Dv, esz, rows, cps, 1)
+
+
+def wgmma_launch_smem(D: int, Dv: int, Skv: int) -> int:
+    """Dynamic shared memory ``csrc/flash_attention_wgmma.cu`` requests
+    (its ``smem_bytes``): 1024 bytes of alignment, the Q boxes
+    (``WGMMA_ROWS`` rows of 128 bytes each box), the K/V ring of
+    ``WGMMA_STAGES`` stages of ``WGMMA_KV_TILE``-row boxes, the barriers,
+    and the live-tile count, flags and list (two ints a kv tile)."""
+    nch, ncv = -(-D // WGMMA_BOX), -(-Dv // WGMMA_BOX)
+    n_tiles = -(-Skv // WGMMA_KV_TILE)
+    return (1024 + nch * WGMMA_ROWS * 128
+            + WGMMA_STAGES * (nch + ncv) * WGMMA_KV_TILE * 128
+            + 8 * (1 + 2 * WGMMA_STAGES) + 4 * (4 + 2 * n_tiles))
 
 
 def _takes(kernel: str, dtype, D: int, Dv: int, rows: int) -> bool:
@@ -505,24 +570,27 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
     ptrs = (p(q), p(k), p(v), p(q_positions), p(kv_positions), p(out))
     win = 0 if window is None else int(window)
     cap = 0.0 if logit_cap is None else float(logit_cap)
+    dt = _DTYPES[q.dtype]
     if name == "wgmma":
+        LAUNCH_SHAPES.add((name, D, Dv, Skv, logit_cap is not None))
         err = _build.library("flash_attention_wgmma") \
             .flash_attention_wgmma_launch(*ptrs, B, Sq, Skv, H, KH, D, Dv,
                                           int(causal), win, cap, stream)
     elif name == "split_kv":
         cps = split_kv_chunks_per_split(B, KH, Skv)
+        LAUNCH_SHAPES.add((name, D, Dv, dt, rows, cps))
         splits = -(-Skv // (SPLIT_KV_CHUNK * cps))
         ml = torch.empty((B, KH, splits, rows, 2), device=dev)
         acc = torch.empty((B, KH, splits, rows, Dv), device=dev)
         err = _build.library("flash_attention_decode") \
             .flash_attention_decode_launch(*ptrs, p(ml), p(acc), B, Sq, Skv,
                                            H, KH, D, Dv, int(causal), win,
-                                           _DTYPES[q.dtype], cps, cap,
-                                           stream)
+                                           dt, cps, cap, stream)
     else:
+        LAUNCH_SHAPES.add((name, D, Dv, dt))
         err = _build.library("flash_attention").flash_attention_launch(
-            *ptrs, B, Sq, Skv, H, KH, D, Dv, int(causal), win,
-            _DTYPES[q.dtype], cap, stream)
+            *ptrs, B, Sq, Skv, H, KH, D, Dv, int(causal), win, dt, cap,
+            stream)
     if err != 0:
         raise RuntimeError(f"flash attention ({name}) launch failed: error "
                            f"{err}")

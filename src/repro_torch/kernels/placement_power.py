@@ -36,7 +36,7 @@ Module constants mirror core.power (kernels stay import-clean of core).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -58,10 +58,16 @@ FUSED_MAX_D = 32
 FUSED_MAX_SLOTS = 1024
 FUSED_LOG = 128
 
+# csrc/placement_power.cu: warps a block (kThreads / 32)
+PLACEMENT_POWER_WARPS = 8
+
 # kernel launches since the last reset, per kernel (the fused anneal's per
 # variant: state in shared memory, X and best X in global memory)
 LAUNCHES: Dict[str, int] = {"placement_power": 0, "fused_anneal": 0,
                             "fused_anneal_global": 0}
+# the distinct shapes that set a launch's shared memory, since import:
+# ("placement_power", P, N) and ("fused_anneal", C, J, P, N, D, K)
+LAUNCH_SHAPES: Set[tuple] = set()
 # callables hook(kernel name), called at every launch LAUNCHES counts
 LAUNCH_HOOKS: List = []
 
@@ -89,6 +95,16 @@ def placement_power_cluster_size(B: int) -> int:
     return cs
 
 
+def placement_power_launch_smem(P: int, N: int) -> int:
+    """Dynamic shared memory ``placement_power_launch`` requests at P
+    processing and N network nodes (``smem_bytes`` of
+    ``csrc/placement_power.cu``): the warps' omega | theta copies [warps,
+    2P], the half-warps' lambda copies [2 warps, N + 1] and the block's
+    loads [2P + N + 1], float32."""
+    warps = PLACEMENT_POWER_WARPS
+    return (warps * 2 * P + 2 * warps * (N + 1) + 2 * P + N + 1) * 4
+
+
 def fused_anneal_smem_bytes(J: int, P: int, N: int, D: int,
                             chains: int, global_x: bool = False) -> int:
     """Dynamic shared memory of one ``csrc/fused_anneal.cu`` block of
@@ -100,6 +116,18 @@ def fused_anneal_smem_bytes(J: int, P: int, N: int, D: int,
     chain = up16(4 * ((N + 1) * words + (0 if global_x else 2 * J) + 2 * P
                       + (N + 1) + 4 * D + FUSED_LOG))
     return params + chains * chain
+
+
+def fused_anneal_launch_smem(C: int, J: int, P: int, N: int, deg: int,
+                             K: int) -> int:
+    """Dynamic shared memory ``fused_anneal_launch`` requests for C chains
+    of J VMs (``deg`` incident links a VM, K route slots): the block of
+    the variant and chains a block ``fused_anneal_variant`` picks; 0
+    where no variant takes the shape (no launch)."""
+    variant, cpb = fused_anneal_variant(C, J, P, N, deg, K)
+    if variant == "delta":
+        return 0
+    return fused_anneal_smem_bytes(J, P, N, deg, cpb, variant == "global")
 
 
 def _chains_that_fit(J: int, P: int, N: int, D: int, global_x: bool) -> int:
@@ -446,6 +474,7 @@ def placement_power_launch(out, X, link_src, link_dst, F, H, route,
     it); B >= 1."""
     B, J = X.shape
     P, N, K = proc_params.shape[1], net_params.shape[1], route.shape[1]
+    LAUNCH_SHAPES.add(("placement_power", P, N))
     lib = _build.library("placement_power")
     _launch(lib.placement_power_launch, _ptr(X), _ptr(link_src),
             _ptr(link_dst), _ptr(F), _ptr(H), _ptr(route), _ptr(proc_params),
@@ -516,9 +545,12 @@ def fused_anneal_launch(bX, stats, *args) -> None:
     P, N = proc_params.shape[1], net_params.shape[1]
     variant, cpb = fused_anneal_variant(C, J, P, N, D, K)
     global_x = variant == "global"
+    LAUNCH_SHAPES.add(("fused_anneal", C, J, P, N, D, K))
     scratch = torch.empty_like(bX) if global_x else None
     lib = _build.library("fused_anneal")
     _launch(lib.fused_anneal_launch, *(_ptr(t) for t in args), _ptr(bX),
             _ptr(stats),
             ctypes.c_void_p(scratch.data_ptr() if global_x else None),
+            # global_x is a Python bool (the variant's name), not a tensor
+            # tracelint: allow[CFN101]
             C, J, T, D, P, N, K, cpb, int(global_x))

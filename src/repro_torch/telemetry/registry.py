@@ -349,9 +349,12 @@ class Telemetry:
             lines.append(f"{base}_count {h.count}")
         return "\n".join(lines) + "\n"
 
-    def report(self) -> Dict[str, Any]:
+    def report(self, bounds: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
         """Run summary: metrics, integrated energy, the shape attribution
-        cross-checked against live ``TRACE_COUNTS`` (``compiles``) and the
+        cross-checked against live ``TRACE_COUNTS`` (``compiles``; and,
+        when ``bounds`` -- the ``repro_torch.analysis.compute_cache_bounds``
+        dict -- is given, against the CFN108 static bounds) and the
         mirrored kernel launches against the live ``LAUNCHES`` deltas
         (``launches``)."""
         from ..core import solvers
@@ -369,6 +372,14 @@ class Telemetry:
             live = {k: v for k, v in live.items() if v}
             compiles["live"] = live
             compiles["agree"] = (recorded == live)
+        if bounds is not None:
+            checks = {}
+            for entry, n in recorded.items():
+                eb = bounds.get(entry)
+                b = None if eb is None else eb.static_bound()
+                checks[entry] = {"static_bound": b,
+                                 "within": (b is None or n <= b)}
+            compiles["bounds"] = checks
         out["compiles"] = compiles
         if self._launch_base is not None:
             rec = {k[len("launch."):]: int(v)
