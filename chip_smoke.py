@@ -88,7 +88,10 @@ nvcc per source, in parallel), then
      prefill shape in float32 (its own role since the wgmma kernel took
      every bf16 shape of the configurations) beside SDPA in float32, and
      counts the wgmma kernel's tensor-core (HGMMA) and TMA (UTMALDG)
-     instructions in its SASS;
+     instructions in its SASS; holds the split-KV kernel's lse output
+     (sharded serving's decode) against its plain version at qwen3-4b's
+     decode shape and at 5g's (96 heads on 8 kv heads), and times the
+     launch with and without it at both;
   5. serves qwen3-4b at full width and depth (random bf16 weights from a
      seed) for 8 requests of 1024 prompt tokens and 32 generated tokens,
      checks that its 36 prefill attention calls went through the wgmma
@@ -96,7 +99,10 @@ nvcc per source, in parallel), then
      cached decode against the forward pass, and places the served model
      on the datacenter CFN, directly and through the energy-aware
      scheduler (a ``Telemetry`` attached: the ledger's joules by tier)
-     beside an olmoe-1b-7b service;
+     beside an olmoe-1b-7b service; then prefills the smoke gemma2-27b 20
+     times with 88 tokens, past its 64-slot local ring: every run's cache
+     byte-equal to the first's, every ring slot's K/V those of the
+     position its pos_ids names;
   5b. serves the MoE family through the same protocol: olmoe-1b-7b at full
      width and depth (64 experts, top-8; 16 wgmma prefill and 496 split-KV
      decode calls, checked) and deepseek-v2-236b at full width, 4 of its
@@ -142,6 +148,17 @@ nvcc per source, in parallel), then
      4096-slot local ring filled by the prefill and wrapped by 64 decode
      steps (checked); the peak under 90% of the card; places it on the
      datacenter CFN, both placement kernels launched;
+  5g. serves command-r-plus-104b at full width and 19 of its 64 layers
+     (the deepest the dry run puts under 90% of the card, checked against
+     20) through the same protocol, first on the plain engine, then
+     through the sharded entry on a ("data", "model") (1, 1) NCCL mesh
+     over the same weights (sharded in place, no copy, checked): the
+     cache the rank's blocks, every decode attention through split-KV's
+     lse output and the log-sum-exp combine; ids equal and logits
+     bit-equal to the plain run's (checked), 19 wgmma and 589 split-KV
+     launches in each run (the sharded run's all with lse), cached decode
+     against the forward pass in bf16 and in float32 at 2 layers, the
+     peak under 90% of the card (all checked);
   6. trains on the card: (6a) the differentiable attention (the kernel's
      forward, the reference's chunked backward in plain torch) against
      the same function with the plain forward and against float32
@@ -176,6 +193,8 @@ nvcc per source, in parallel), then
      predicted peak within 15% of the measured one for the prefill and the
      train step, and their temporaries (the peak above what was live
      before the step) within 5%, every cell fitting the card (checked);
+     the same for command-r-plus-104b's prefill at 5g's depth against
+     5g's sharded run (a serving cell traces the rank's sharded step);
      the roofline's bound against the measured seconds, and the model
      FLOPs' share of the card's bf16 peak (MFU), printed;
   9. holds the static-analysis plane (``repro_torch.analysis``) against
@@ -203,7 +222,9 @@ as ``launches_moe`` / ``launches_ssm`` / ``launches_encdec`` /
 served models' placements) and, for the flash kernels,
 ``launches_moe_float32`` / ``launches_ssm_float32`` /
 ``launches_encdec_float32`` / ``launches_danube_float32`` /
-``launches_gemma2_float32`` (the float32 checks), and as
+``launches_gemma2_float32`` (the float32 checks), the flash kernels' in
+phase 5g as ``launches_cmdr`` / ``launches_cmdr_sharded`` /
+``launches_cmdr_float32``, and as
 ``launches_train`` the flash kernels' in phases 6b and 6c and the
 placement kernels' in 6c, and as ``launches_parallel`` the flash
 kernels' in phase 7;
@@ -2617,6 +2638,39 @@ def versus_simt(name, q, k, v, qp, kp, held, plains, faster=True,
     return rec
 
 
+def split_kv_lse(q, k, v, qp, kp) -> dict:
+    """The split-KV kernel's lse output (``return_lse``: sharded serving's
+    decode) at a decode shape: its lse against the plain version's
+    (``split_kv_attention_plain``, atol 2e-3, -inf rows alike) and its
+    output byte-equal to the launch without lse (checked); the two
+    launches timed in turns as CUDA-graph replays (without, with, with,
+    without)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
+    p_out, p_lse = fa.split_kv_attention_plain(
+        q, k, v, q_positions=qp, kv_positions=kp, return_lse=True)
+    fin = torch.isfinite(p_lse)
+    err = float((lse[fin] - p_lse[fin]).abs().max())
+    same = bool(torch.equal(got, fa.flash_attention_cuda(
+        q, k, v, qp, kp, kernel="split_kv")))
+    check(err <= 2e-3 and same and bool(torch.equal(
+              torch.isneginf(lse), torch.isneginf(p_lse))),
+          f"flash split_kv lse: err {err}, out equal without lse {same}")
+    call = {True: lambda: fa.flash_attention_cuda(q, k, v, qp, kp,
+                                                  return_lse=True),
+            False: lambda: fa.flash_attention_cuda(q, k, v, qp, kp,
+                                                   kernel="split_kv")}
+    times = {True: [], False: []}
+    for with_lse in (False, True, True, False):
+        times[with_lse].append(graph_ms(call[with_lse], 200))
+    return dict(max_abs_err=err, out_equal_without_lse=same,
+                graph_ms_with=times[True], graph_ms_without=times[False],
+                plain_ms=cuda_ms(lambda: fa.split_kv_attention_plain(
+                    q, k, v, q_positions=qp, kv_positions=kp,
+                    return_lse=True), 5))
+
+
 def phase_flash(kernels: dict) -> None:
     """Phase 4: each flash-attention kernel against its plain version and
     the reference's ``attend`` arithmetic; the serving shapes timed in
@@ -2767,6 +2821,15 @@ def phase_flash(kernels: dict) -> None:
           f"flash decode, planted slot {S}: err {err}, gap without it {gap}")
     out["decode"]["planted_slot"] = {"max_abs_err": err,
                                      "max_abs_gap_without_slot": gap}
+    out["decode"]["lse"] = split_kv_lse(q, k, v, qp, kp)
+    # phase 5g's decode shape, whose lse the sharded run's combine reads:
+    # command-r-plus-104b's 96 query heads on the same 8 kv heads of 128
+    # (12 rows a kv head, against qwen3-4b's 4)
+    from repro_torch import configs
+    q = rnd((B, 1, configs.get(CMDR_ARCH).n_heads, D), bf)
+    out["decode"]["lse_cmdr"] = dict(
+        split_kv_lse(q, k, v, qp, kp),
+        shape=[B, q.shape[2], KH, 1, Smax, D])
     del q, k, v, vp
     out.update(hymba_attention(held, rnd))
     out.update(encdec_attention(held, rnd))
@@ -2852,6 +2915,16 @@ def phase_flash(kernels: dict) -> None:
             f"bound_by_{name}": rec["bound_by"],
             f"library_ms_{name}": min(rec["library_graph_ms"]),
             f"tflop_per_s_{name}": rec["wgmma"]["tflop_per_s"]})
+    for tag in ("lse", "lse_cmdr"):
+        lse, sfx = out["decode"][tag], tag[3:]
+        kernels["flash_attention_split_kv"].update({
+            f"lse_max_abs_err{sfx}": lse["max_abs_err"],
+            f"ms_lse{sfx}": min(lse["graph_ms_with"]),
+            f"ms_without_lse{sfx}": min(lse["graph_ms_without"]),
+            f"plain_ms_lse{sfx}": lse["plain_ms"]})
+    kernels["flash_attention_split_kv"]["shape_lse_cmdr"] = (
+        f"5g decode [B, H, KH, Sq, Skv, D] = "
+        f"{out['decode']['lse_cmdr']['shape']}, bf16")
     for name, kn in (("hymba_prefill", "wgmma"),
                      ("hymba_decode_wrapped", "split_kv")):
         kernels[f"flash_attention_{kn}"][f"ms_{name}"] = out[name][kn][
@@ -2960,7 +3033,8 @@ def cross_leaves(cache) -> list:
 
 
 def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
-                   max_len: int = SERVE_SMAX) -> dict:
+                   max_len: int = SERVE_SMAX, mesh=None,
+                   keep_logits=False) -> dict:
     """Phase 5's protocol on a built model and its prompt ``batch``
     (tokens, and frames or patches): a cold, then a warm
     ``greedy_generate`` call (the main path as a user runs it, synchronized
@@ -2970,8 +3044,22 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
     its ids those of the calls (an encoder-decoder's cross cache checked
     byte-equal after the last decode step to its state after prefill);
     then the serving profile (``cross_check``: its two readers held
-    together).  Returns the fields to print ("launches", "tokens_per_s",
-    ...)."""
+    together).  ``mesh``: sharded serving -- the model sharded on it
+    (``engine.shard_model``), ``batch`` the rank's rows, every cache the
+    rank's blocks, every call under its ``mesh_context``.  Returns the
+    fields to print ("launches", "tokens_per_s", ..., "lse_launches":
+    the warm call's split-KV launches with lse); with ``keep_logits``
+    also "ids" and "logits" (every step's, on the host)."""
+    import contextlib
+    from repro_torch.parallel import sharding as sh
+    with sh.mesh_context(mesh) if mesh is not None \
+            else contextlib.nullcontext():
+        return _serve_protocol(model, cfg, batch, spec, want, cross_check,
+                               max_len, mesh, keep_logits)
+
+
+def _serve_protocol(model, cfg, batch, spec, want, cross_check, max_len,
+                    mesh, keep_logits) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import cache as C, engine
@@ -2983,7 +3071,7 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
     # and whose launches are counted
     for cold in (True, False):
         cache = None    # free the last call's cache before the fresh one
-        cache = C.zeros(spec, device=dev)
+        cache = C.zeros(spec, device=dev, mesh=mesh)
         torch.cuda.synchronize()
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -2995,6 +3083,7 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
     launches = {kn: fa.LAUNCHES[f"flash_attention_{kn}"]
                 for kn in fa.KERNELS}
     calls = fa.LAUNCHES["flash_attention"]
+    lse_launches = fa.LAUNCHES["flash_attention_split_kv_lse"]
     check(bool(torch.equal(cold_seq, seq)),
           f"serve {cfg.name}: two greedy_generate calls chose different ids")
     check(launches == want and calls == sum(want.values()),
@@ -3005,8 +3094,8 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
     peak = torch.cuda.max_memory_allocated()
 
     times = {"prefill": [], "decode_step": []}
-    cache = C.zeros(spec, device=dev)
-    finite, ids, extra = True, [], {}
+    cache = C.zeros(spec, device=dev, mesh=mesh)
+    finite, ids, extra, kept = True, [], {}, []
     for i in range(GEN):
         torch.cuda.synchronize()
         if i == 0:
@@ -3027,6 +3116,8 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
             cross = [buf.clone() for buf in cross_leaves(cache)]
         finite = finite and bool(torch.isfinite(logits).all())
         ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        if keep_logits:
+            kept.append(logits.cpu())
     check(finite, f"serve {cfg.name}: a logit is not finite")
     check(bool(torch.equal(torch.stack(ids, 1), seq)),
           f"serve {cfg.name}: the step-by-step pass chose other ids than "
@@ -3053,7 +3144,8 @@ def serve_protocol(model, cfg, batch, spec, want: dict, cross_check=False,
         prefill_resident_bytes=prefill_resident,
         first_row_ids=seq[0].tolist(),
         flash_launches=calls, flash_launches_by_kernel=launches,
-        profile=profile)
+        lse_launches=lse_launches, profile=profile,
+        **(dict(ids=seq.cpu(), logits=kept) if keep_logits else {}))
 
 
 def decode_vs_forward(model, cfg, batch, max_len: int = SERVE_SMAX,
@@ -3145,8 +3237,69 @@ def build_served(cfg, prompt_len: int = SERVE_S, enc_len: int = 0):
     return model, init_s, batch
 
 
+# phase 5's ring-write check: the smoke gemma2-27b (its local layer a
+# 64-slot ring) prefilled with a prompt longer than the ring, on the card
+RING_ARCH, RING_B, RING_S, RING_REPEATS = "gemma2-27b", 4, 88, 20
+
+
+def ring_write_check() -> dict:
+    """A prefill past a ring, ``RING_REPEATS`` times on the card: every
+    run's cache leaves byte-equal to the first run's, and every ring
+    slot's K and V equal to those of the position its ``pos_ids`` names
+    (that layer's K/V of every position, written by the same attention
+    call into a cache of ``RING_S`` slots).  Before the mend a slot
+    written twice in one ``index_put_`` kept either write."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.serve import cache as C, engine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_smoke(RING_ARCH), n_layers=2)
+    model = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                         device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (RING_B, RING_S)), dtype=torch.int32, device="cuda")
+    spec = C.cache_spec(cfg, RING_B, RING_S + 8)
+    first, differing = None, 0
+    for _ in range(RING_REPEATS):
+        cache = C.zeros(spec, "cuda")
+        engine.prefill(model, cfg, {"tokens": tokens}, cache)
+        got = [t.clone() for t in C.leaves(cache)]
+        if first is None:
+            first = got
+        differing += not all(torch.equal(a, b) for a, b in zip(got, first))
+    ring = cache[0]["b0"]
+    smax = ring["pos_ids"].shape[-1]
+    # the local layer's K/V of every position, into a cache of RING_S slots
+    blk = model.groups[0][0]["b0"]
+    h = L.rms_norm(M.embed_tokens(model, cfg, tokens), blk["ln1"],
+                   cfg.norm_eps)
+    whole = dict(k=torch.zeros((RING_B, RING_S) + ring["k"].shape[-2:],
+                               dtype=ring["k"].dtype, device="cuda"),
+                 pos_ids=torch.full((RING_S,), -1, dtype=torch.int32,
+                                    device="cuda"))
+    whole["v"] = torch.zeros_like(whole["k"])
+    L.attention(blk, h, cfg, positions=torch.arange(
+        RING_S, dtype=torch.int32, device="cuda"), cache=whole,
+        window=M.block_window(cfg, "attn_local"))
+    pos = ring["pos_ids"][0].long()
+    consistent = bool(torch.equal(ring["k"][0], whole["k"][:, pos])
+                      and torch.equal(ring["v"][0], whole["v"][:, pos])
+                      and torch.equal(pos.sort().values, torch.arange(
+                          RING_S - smax, RING_S, device="cuda")))
+    check(differing == 0 and consistent,
+          f"ring write: {differing} of {RING_REPEATS} prefills differ from "
+          f"the first; slots consistent with pos_ids: {consistent}")
+    return dict(config=cfg.name, batch=RING_B, prompt=RING_S, ring=smax,
+                repeats=RING_REPEATS, runs_differing=differing,
+                slots_consistent=consistent,
+                seconds=time.perf_counter() - t0)
+
+
 def phase_serve() -> dict:
-    """Phase 5: serve qwen3-4b at full width and depth, then place it."""
+    """Phase 5: serve qwen3-4b at full width and depth, then place it;
+    then the ring-write check (``ring_write_check``)."""
     from repro_torch import configs
     from repro_torch.models import model as M
     from repro_torch.serve import cache as C
@@ -3167,7 +3320,8 @@ def phase_serve() -> dict:
              cfg, device="meta")), init_s=init_s, **rec,
          decode_vs_forward_rel=rel,
          **place_served(cfg, rec["tokens_per_s"]),
-         scheduler=schedule_served(cfg, rec["tokens_per_s"]))
+         scheduler=schedule_served(cfg, rec["tokens_per_s"]),
+         ring_write=ring_write_check())
     return rec["flash_launches_by_kernel"]
 
 
@@ -3628,6 +3782,184 @@ def phase_serve_gemma() -> tuple:
         seconds=time.perf_counter() - t0)
     emit("serve_gemma2_27b", **out)
     return launches, launches_f32, out
+
+
+# phase 5g: command-r-plus-104b at full width (d_model 12288, 96 / 8 heads
+# of 128, d_ff 33792, vocab 256000) and a cut depth: all 64 layers are 208
+# GB in bf16.  The depth is the deepest whose dry-run peak
+# (``launch.dryrun.run_cell`` on a (1, 1) mesh of sizes, phase 5's
+# prefill) stays under CMDR_PEAK_FRAC of the card (5f's rule): 19 layers,
+# checked on every run against 20.  Served by the plain engine, then by the
+# sharded entry on a (1, 1) NCCL mesh over the same weights (sharded in
+# place: at (1, 1) no leaf is copied), so the phase's peak is one model and
+# one cache
+CMDR_ARCH = "command-r-plus-104b"
+CMDR_LAYERS = 19
+CMDR_PEAK_FRAC = 0.9
+CMDR_F32_LAYERS = 2
+# the sharded run's logits against the plain run's: bit-equal is expected
+# at world size 1 (the same kernels on the same live tiles); this bound is
+# the fallback, relative to the largest logit
+CMDR_LOGITS_REL = 2e-2
+
+
+def cmdr_depth(cfg) -> dict:
+    """The dry run's predicted prefill peak at ``CMDR_LAYERS`` and one
+    layer more, against ``CMDR_PEAK_FRAC`` of the card (checked: the first
+    under, the second not); the ``CMDR_LAYERS`` record is phase 8's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    shape = configs.Shape("prefill_5g", SERVE_S, SERVE_B, "prefill")
+    recs = {n: dryrun.run_cell(CMDR_ARCH, shape, mesh=DRYRUN_MESH,
+                               cfg=dataclasses.replace(cfg, n_layers=n),
+                               cache_len=SERVE_SMAX, verbose=False)
+            for n in (CMDR_LAYERS, CMDR_LAYERS + 1)}
+    frac = {n: r["memory"]["peak_per_device_bytes"]
+            / mesh_mod.CARD_MEMORY_BYTES for n, r in recs.items()}
+    check(frac[CMDR_LAYERS] < CMDR_PEAK_FRAC <= frac[CMDR_LAYERS + 1],
+          f"serve {CMDR_ARCH}: predicted peaks {frac} of the card do not "
+          f"put the deepest depth under {CMDR_PEAK_FRAC} at {CMDR_LAYERS}")
+    return dict(predicted_peak_frac=frac, record=recs[CMDR_LAYERS],
+                shape=shape)
+
+
+def phase_serve_cmdr() -> tuple:
+    """Phase 5g: command-r-plus-104b at ``CMDR_LAYERS`` layers through
+    phase 5's protocol, first on the plain engine (its ids and logits
+    kept, its cache freed), then through the sharded entry on a ("data",
+    "model") (1, 1) NCCL mesh (``launch.mesh.make_mesh``): the weights
+    sharded in place (``engine.shard_model``), the cache the rank's blocks,
+    every decode attention through split-KV's lse output and the
+    log-sum-exp combine.  Checks: the sharded run's ids equal to the
+    plain run's and its logits bit-equal (else within
+    ``CMDR_LOGITS_REL`` of the largest logit; recorded either way); each
+    run's launches 19 wgmma, 19 x 31 split-KV (the sharded run's all with
+    lse, the plain run's none), 0 SIMT; sharding the model allocates
+    nothing; cached decode against the forward pass in bf16 (3e-2 of the
+    largest logit) and in float32 at ``CMDR_F32_LAYERS`` layers on 2
+    prompts; the peak under ``CMDR_PEAK_FRAC`` of the card.  Returns
+    (launches by kernel-line name of the plain and the sharded run, the
+    float32 check's, the sharded run's record and the depth's for phase
+    8), every earlier model freed before it."""
+    import dataclasses
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C, engine
+    t0 = time.perf_counter()
+    full = configs.get(CMDR_ARCH)
+    check(full.n_layers == 64 and full.d_model == 12288
+          and full.n_heads == 96 and full.n_kv_heads == 8
+          and full.head_dim == 128 and full.d_ff == 33792
+          and full.vocab == 256000 and full.sliding_window is None,
+          f"serve {CMDR_ARCH}: {full}")
+    cfg = dataclasses.replace(full, n_layers=CMDR_LAYERS)
+    depth = cmdr_depth(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    model, init_s, batch = build_served(cfg)
+    spec = C.cache_spec(cfg, SERVE_B, SERVE_SMAX)
+    L = cfg.n_layers
+    want = {"wgmma": L, "split_kv": L * (SERVE_GEN - 1), "simt": 0}
+    plain = serve_protocol(model, cfg, batch, spec, want, keep_logits=True)
+    rel_bf16 = decode_vs_forward(model, cfg, batch, SERVE_SMAX)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    try:
+        before = torch.cuda.memory_allocated()
+        engine.shard_model(model, mesh)
+        shard_bytes = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        sharded = serve_protocol(model, cfg, engine.batch_block(batch, mesh),
+                                 spec, want, mesh=mesh, keep_logits=True)
+    finally:
+        dist.destroy_process_group()
+    check(rel_bf16 < 3e-2, f"serve {cfg.name}: cached decode vs forward "
+                           f"rel {rel_bf16} (bf16 bound 3e-2)")
+    check(plain["lse_launches"] == 0
+          and sharded["lse_launches"] == want["split_kv"],
+          f"serve {cfg.name}: lse launches plain {plain['lse_launches']}, "
+          f"sharded {sharded['lse_launches']}, want 0 and "
+          f"{want['split_kv']}")
+    check(shard_bytes == 0, f"serve {cfg.name}: sharding the model on a "
+                            f"(1, 1) mesh allocated {shard_bytes} B")
+    ids_equal = bool(torch.equal(plain.pop("ids"), sharded.pop("ids")))
+    pl, sl = plain.pop("logits"), sharded.pop("logits")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(pl, sl))
+    logits_rel = max(float((a - b).abs().max() / a.abs().max())
+                     for a, b in zip(pl, sl))
+    check(ids_equal and (bit_equal or logits_rel <= CMDR_LOGITS_REL),
+          f"serve {cfg.name}: sharded vs plain ids equal {ids_equal}, "
+          f"logits rel {logits_rel}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    peak = max(plain["max_memory_allocated"],
+               sharded["max_memory_allocated"],
+               torch.cuda.max_memory_allocated())
+    check(peak < CMDR_PEAK_FRAC * card,
+          f"serve {cfg.name}: peak {peak} B above {CMDR_PEAK_FRAC} of {card}")
+    params = M.param_count(model)
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    del model, batch, pl, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 at the cut depth, 2 prompts (its prefill attention on the
+    # SIMT kernel, its decode on split-KV, counted apart)
+    cfg32 = dataclasses.replace(cfg, n_layers=CMDR_F32_LAYERS,
+                                dtype="float32")
+    model32 = M.init_model(cfg32, torch.Generator(device="cuda")
+                           .manual_seed(0), device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (F32_CHECK_B, SERVE_S)), dtype=torch.int32,
+        device="cuda")
+    fa.reset_launches()
+    rel = decode_vs_forward(model32, cfg32, {"tokens": tokens}, SERVE_SMAX)
+    launches_f32 = {f"flash_attention_{kn}": fa.LAUNCHES[
+        f"flash_attention_{kn}"] for kn in fa.KERNELS}
+    check(rel < 3e-2, f"serve {cfg.name}: cached decode vs forward rel "
+                      f"{rel} (float32 at {CMDR_F32_LAYERS} layers; bound "
+                      "3e-2)")
+    del model32, tokens
+    torch.cuda.empty_cache()
+
+    names = lambda rec: {f"flash_attention_{kn}": n for kn, n in
+                         rec["flash_launches_by_kernel"].items()}
+    shared = ("batch", "prompt_len", "gen", "max_len", "cache_bytes")
+    out = dict(
+        config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=params, params_bytes=params_bytes, init_s=init_s,
+        resident_before_bytes=resident,
+        **{k: plain[k] for k in shared},
+        predicted_peak_frac=depth["predicted_peak_frac"],
+        plain={k: v for k, v in plain.items() if k not in shared},
+        sharded={k: v for k, v in sharded.items() if k not in shared},
+        mesh={"axes": ["data", "model"], "shape": [1, 1],
+              "backend": "nccl"},
+        shard_model_bytes=shard_bytes, ids_equal=ids_equal,
+        logits_bit_equal=bit_equal, logits_rel=logits_rel,
+        peak_bytes=peak, card_bytes=card, peak_frac=peak / card,
+        decode_vs_forward_rel_bf16=rel_bf16, decode_vs_forward_rel=rel,
+        launches_float32=launches_f32,
+        reduced=f"{CMDR_LAYERS} of {full.n_layers} layers (the deepest "
+                f"whose dry-run prefill peak is under {CMDR_PEAK_FRAC} of "
+                f"the card; all {full.n_layers} take "
+                f"{2 * M.param_count(M.init_model(full, device='meta')) / 1e9:.0f}"
+                f" GB in bf16); the float32 decode-vs-forward check at "
+                f"{CMDR_F32_LAYERS} layers on {F32_CHECK_B} prompts",
+        seconds=time.perf_counter() - t0)
+    emit("serve_command_r_plus_104b", **out)
+    return names(plain), names(sharded), launches_f32, dict(
+        sharded, resident_before_bytes=resident), depth
 
 
 def serve_cells(phase: str, archs) -> tuple:
@@ -4560,7 +4892,8 @@ DRYRUN_PEAK_TOL = 0.15
 DRYRUN_TEMP_TOL = 0.05
 
 
-def phase_dryrun(served: dict, trained: dict, card: str) -> None:
+def phase_dryrun(served: dict, trained: dict, card: str, cmdr: dict,
+                 cmdr_depth_: dict) -> None:
     """Phase 8: ``dryrun.run_cell`` on ``DRYRUN_MESH`` for (i) gemma2-27b's
     prefill at 5f's shape (8 x 1024 tokens, ``SERVE_SMAX`` slots), (ii) its
     decode step against that cache, (iii) qwen3-4b's train step at 6b's
@@ -4573,7 +4906,11 @@ def phase_dryrun(served: dict, trained: dict, card: str) -> None:
     ``roofline.bound_s`` against the measured seconds as their share, and
     model FLOPs / measured s / the card's bf16 peak (MFU).  Checks the
     peaks of (i) and (iii) within ``DRYRUN_PEAK_TOL``, their temporaries
-    within ``DRYRUN_TEMP_TOL`` and ``fits_card`` for all three."""
+    within ``DRYRUN_TEMP_TOL`` and ``fits_card`` for all three.  (iv)
+    command-r-plus-104b's prefill at 5g's depth and shape: its record is
+    the one 5g's depth came from (``cmdr_depth_``), held against 5g's
+    sharded run (``cmdr``) as (i) is against 5f: the traced step is the
+    rank's sharded step on a (1, 1) mesh, the one that run took."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.launch import dryrun, mesh as mesh_mod
@@ -4602,13 +4939,19 @@ def phase_dryrun(served: dict, trained: dict, card: str) -> None:
             temp=trained["peak_bytes"] - trained["resident_before_bytes"]
             - trained["state_bytes"],
             seconds=trained["steady_step_s"]),
+        "command_r_plus_104b_prefill": dict(
+            arch=CMDR_ARCH, cache_len=SERVE_SMAX, rec=cmdr_depth_["record"],
+            shape=cmdr_depth_["shape"],
+            peak=cmdr["prefill_peak_bytes"] - cmdr["resident_before_bytes"],
+            temp=cmdr["prefill_peak_bytes"] - cmdr["prefill_resident_bytes"],
+            seconds=cmdr["prefill_s"]),
     }
     out = {}
     for name, c in cells.items():
-        rec = dryrun.run_cell(c["arch"], c["shape"], mesh=DRYRUN_MESH,
-                              accum=TRAIN_ACCUM if c["shape"].kind
-                              == "train" else None, cfg=c["cfg"],
-                              cache_len=c["cache_len"], verbose=False)
+        rec = c.get("rec") or dryrun.run_cell(
+            c["arch"], c["shape"], mesh=DRYRUN_MESH,
+            accum=TRAIN_ACCUM if c["shape"].kind == "train" else None,
+            cfg=c["cfg"], cache_len=c["cache_len"], verbose=False)
         mem, roof = rec["memory"], rec["roofline"]
         pred = mem["peak_per_device_bytes"]
         model_fl = rec["model_flops"]["total_flops"]
@@ -4628,6 +4971,8 @@ def phase_dryrun(served: dict, trained: dict, card: str) -> None:
             kernel_calls=rec["counted"]["kernel_calls"],
             model_flops=model_fl,
             useful_flops_ratio=rec["useful_flops_ratio"],
+            serving_pattern=rec["serving_pattern"],
+            cache_sharded=rec["cache_sharded"],
             roofline=roof, measured_s=c["seconds"],
             bound_share=roof["bound_s"] / c["seconds"],
             mfu=model_fl / c["seconds"] / mesh_mod.PEAK_FLOPS_BF16)
@@ -4947,6 +5292,12 @@ def main() -> int:
         kernels[name]["launches_gemma2"] = n
     for name, n in launches_f32.items():
         kernels[name]["launches_gemma2_float32"] = n
+    launches, launches_sh, launches_f32, cmdr, cmdr_depth_ = \
+        phase_serve_cmdr()
+    for tag, counts in (("cmdr", launches), ("cmdr_sharded", launches_sh),
+                        ("cmdr_float32", launches_f32)):
+        for name, n in counts.items():
+            kernels[name][f"launches_{tag}"] = n
     phase_train_attention()
     launches, trained = phase_train()
     launches_cli = phase_train_cli()
@@ -4957,7 +5308,7 @@ def main() -> int:
         kernels[name]["launches_train"] = launches_cli[name]
     for name, n in phase_parallel().items():
         kernels[name]["launches_parallel"] = n
-    phase_dryrun(served, trained, card)
+    phase_dryrun(served, trained, card, cmdr, cmdr_depth_)
     phase_analysis(obs_tels, kernels, card)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card, flush=True)

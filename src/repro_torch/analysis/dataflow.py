@@ -122,7 +122,7 @@ LAUNCH_OUTPUTS: Dict[str, Tuple[int, ...]] = {
     "fused_anneal_launch": (16, 17, 18),
     "flash_attention_launch": (5,),
     "flash_attention_wgmma_launch": (5,),
-    "flash_attention_decode_launch": (5, 6, 7),
+    "flash_attention_decode_launch": (5, 6, 7, 8),
 }
 # Python functions that launch a kernel into buffers their caller hands
 # them: (defining module suffix, name) -> output argument slots

@@ -34,6 +34,11 @@
 // (m, l, acc[Dv]) of each row to scratch the wrapper allocates.
 // Combine kernel: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s
 // over the splits with m_s > -inf (M their max); 0 when there are none.
+// Given an lse buffer it also writes each row's log-sum-exp of its
+// scores, M + log(sum_s e^(m_s - M) l_s) (-inf when nothing is unmasked):
+// what a caller needs to combine this call's output with attention over
+// other kv slots (sharded serving's ranks, each holding a block of the
+// cache).
 //
 // Bound on the H100: the bytes of K and V of the written slots (decode
 // reads each once, 4 rows per kv head are far below the tensor cores'
@@ -381,7 +386,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_combine_kernel(const float* __restrict__ ml,
                                    const float* __restrict__ acc,
-                                   T* __restrict__ out, const Shape sh) {
+                                   T* __restrict__ out,
+                                   float* __restrict__ lse, const Shape sh) {
   const int G = sh.H / sh.KH;
   const int n_rows = sh.Sq * G;
   const int kh = blockIdx.y, b = blockIdx.z;
@@ -427,6 +433,11 @@ __global__ void __launch_bounds__(kThreads)
   const int i = r / G, g = r - i * G;
   out[(((size_t)b * sh.Sq + i) * sh.H + kh * G + g) * sh.Dv + d] =
       from_f<T>(o);
+  // lse [B, H, Sq]: one thread a row writes it
+  if (lse != nullptr && d == 0) {
+    lse[((size_t)b * sh.H + kh * G + g) * sh.Sq + i] =
+        M == -INFINITY ? -INFINITY : M + logf(L);
+  }
 }
 
 size_t smem_bytes(int D, int Dv, int esz, int n_rows, int cps, int nbuf) {
@@ -445,8 +456,8 @@ int nbuf_for(int D, int Dv, int esz, int n_rows, int cps) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
-           const int* kv_pos, void* out, float* ml, float* acc, int B,
-           Shape sh, cudaStream_t stream) {
+           const int* kv_pos, void* out, float* ml, float* acc, float* lse,
+           int B, Shape sh, cudaStream_t stream) {
   const int n_rows = sh.Sq * (sh.H / sh.KH);
   sh.nbuf = nbuf_for(sh.D, sh.Dv, sizeof(T), n_rows, sh.cps);
   const size_t smem =
@@ -463,7 +474,8 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   const int blocks = (n_rows * sh.Dv + kThreads - 1) / kThreads;
   flash_attention_combine_kernel<T><<<dim3(blocks, sh.KH, B), kThreads, 0,
                                       stream>>>(ml, acc,
-                                                static_cast<T*>(out), sh);
+                                                static_cast<T*>(out), lse,
+                                                sh);
   return (int)cudaGetLastError();
 }
 
@@ -472,14 +484,15 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
 // A split is cps consecutive 64-slot chunks (1 <= cps <= 16); ml
 // [B, KH, splits, Sq*G, 2] and acc [B, KH, splits, Sq*G, Dv] are float32
 // scratch, splits = ceil(ceil(Skv / 64) / cps) (the wrapper's
-// split_kv_chunks_per_split).  dtype: 0 = float32, 1 = bfloat16.
-// window <= 0 means none; logit_cap <= 0 means none.  Returns
-// cudaGetLastError() after the launches.
+// split_kv_chunks_per_split).  lse: null, or float32 [B, H, Sq] that
+// receives each row's log-sum-exp (the combine kernel's comment).  dtype:
+// 0 = float32, 1 = bfloat16.  window <= 0 means none; logit_cap <= 0
+// means none.  Returns cudaGetLastError() after the launches.
 extern "C" int flash_attention_decode_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* kv_pos, void* out, void* ml, void* acc, int B, int Sq,
-    int Skv, int H, int KH, int D, int Dv, int causal, int window, int dtype,
-    int cps, float logit_cap, void* stream) {
+    const void* kv_pos, void* out, void* ml, void* acc, void* lse, int B,
+    int Sq, int Skv, int H, int KH, int D, int Dv, int causal, int window,
+    int dtype, int cps, float logit_cap, void* stream) {
   const int esz = dtype == 0 ? 4 : 2;
   if (B <= 0 || Sq <= 0 || Skv < 0 || H <= 0 || KH <= 0 || H % KH != 0 ||
       D <= 0 || Dv <= 0 || D > kMaxDim || Dv > kMaxDim ||
@@ -491,6 +504,8 @@ extern "C" int flash_attention_decode_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Skv == 0) {   // nothing to attend: every row gives 0
     cudaMemsetAsync(out, 0, (size_t)B * Sq * H * Dv * esz, s);
+    // the wrapper fills an lse itself (-inf) and never launches here
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
   }
   Shape sh;
@@ -510,8 +525,11 @@ extern "C" int flash_attention_decode_launch(
   const int* kp = static_cast<const int*>(kv_pos);
   float* m = static_cast<float*>(ml);
   float* a = static_cast<float*>(acc);
-  if (dtype == 0) return launch<float>(q, k, v, qp, kp, out, m, a, B, sh, s);
-  return launch<__nv_bfloat16>(q, k, v, qp, kp, out, m, a, B, sh, s);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) {
+    return launch<float>(q, k, v, qp, kp, out, m, a, l, B, sh, s);
+  }
+  return launch<__nv_bfloat16>(q, k, v, qp, kp, out, m, a, l, B, sh, s);
 }
 
 // The dynamic shared memory flash_attention_decode_launch requests for its

@@ -34,7 +34,7 @@ LAUNCHERS = {
     "fused_anneal": ("fused_anneal_launch", 19, 9, 0),
     "flash_attention": ("flash_attention_launch", 6, 10, 1),
     "flash_attention_wgmma": ("flash_attention_wgmma_launch", 6, 9, 1),
-    "flash_attention_decode": ("flash_attention_decode_launch", 8, 11, 1),
+    "flash_attention_decode": ("flash_attention_decode_launch", 9, 11, 1),
 }
 
 # exported shared-memory queries of each source: (name, int args, int

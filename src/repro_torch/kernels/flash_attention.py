@@ -30,6 +30,10 @@ their plain PyTorch versions.
     plain versions of the wgmma and split-KV kernels' own arithmetic (P
     rounded to the input dtype before P . V; per-chunk partials and their
     log-sum-exp combine).
+  * ``attend_lse`` -- the split-KV kernel with its optional output, each
+    row's log-sum-exp [B, H, Sq] (float32, -inf where nothing is
+    unmasked), beside the attention: sharded serving's ranks each attend
+    their block of the cache and combine by it (``models/layers.py``).
 
 ``attend`` makes either differentiable: an autograd ``Function`` whose
 forward is the kernel on CUDA tensors (its plain version on CPU tensors)
@@ -52,8 +56,9 @@ kernel computes (``kernel_flops``, from the positions' values, which the
 tracer knows) and the bytes of its inputs and output; with no tracer it
 raises.  ``LAUNCHES["flash_attention"]`` counts wrapper calls that
 launched a kernel, ``LAUNCHES["flash_attention_<kernel>"]`` each kernel's
-share of them; each hook in ``LAUNCH_HOOKS`` is called with every name a
-launch counts.
+share of them, and ``LAUNCHES["flash_attention_split_kv_lse"]`` the
+split-KV launches that wrote the lse output; each hook in
+``LAUNCH_HOOKS`` is called with every name a launch counts.
 """
 from __future__ import annotations
 
@@ -70,9 +75,11 @@ from . import _build
 KERNELS = ("wgmma", "split_kv", "simt")
 # kernel launches since the last reset: all, and per kernel
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
-                            **{f"flash_attention_{n}": 0 for n in KERNELS}}
+                            **{f"flash_attention_{n}": 0 for n in KERNELS},
+                            "flash_attention_split_kv_lse": 0}
 # callables hook(counter name), called at every count LAUNCHES takes
-# (two a launch: "flash_attention" and the kernel's own)
+# (two a launch: "flash_attention" and the kernel's own; a third,
+# "flash_attention_split_kv_lse", for a split-KV launch with lse)
 LAUNCH_HOOKS: List = []
 # the split-KV kernel takes calls of at most this many rows (Sq * G) per
 # (batch, kv head) (csrc/flash_attention_decode.cu: kMaxRows)
@@ -267,19 +274,22 @@ def split_kv_chunks_per_split(B: int, KH: int, Skv: int) -> int:
 
 def split_kv_attention_plain(q, k, v, *, q_positions, kv_positions,
                              causal=True, window: Optional[int] = None,
-                             logit_cap: Optional[float] = None
-                             ) -> torch.Tensor:
+                             logit_cap: Optional[float] = None,
+                             return_lse: bool = False):
     """The split-KV kernel's arithmetic (``csrc/flash_attention_decode.cu``):
     per split (``split_kv_chunks_per_split`` chunks of ``SPLIT_KV_CHUNK``
     slots) the partials (m, l, acc) of each row (m = -inf, l = 0 where the
     split has no unmasked slot), then out = sum_s e^(m_s - M) acc_s /
     sum_s e^(m_s - M) l_s, 0 for a row with no unmasked slot at all.
-    -> float32."""
+    -> float32; with ``return_lse`` (out, lse [B, H, Sq] float32): M +
+    log(sum_s e^(m_s - M) l_s), -inf for a row with no unmasked slot."""
     B, Sq, H, D = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KH
     if Skv == 0:
-        return torch.zeros((B, Sq, H, Dv), device=q.device)
+        out = torch.zeros((B, Sq, H, Dv), device=q.device)
+        return (out, torch.full((B, H, Sq), -math.inf, device=q.device)) \
+            if return_lse else out
     qg = (q.float() / math.sqrt(D)).reshape(B, Sq, KH, G, D)
     neg_inf = torch.tensor(-math.inf, device=q.device)
     ms, ls, accs = [], [], []
@@ -303,7 +313,11 @@ def split_kv_attention_plain(q, k, v, *, q_positions, kv_positions,
     L = (w * torch.stack(ls)).sum(0)
     acc = (w[..., None] * torch.stack(accs)).sum(0)
     out = acc / torch.clamp_min(L, 1e-20)[..., None]
-    return out.reshape(B, Sq, H, Dv)
+    out = out.reshape(B, Sq, H, Dv)
+    if not return_lse:
+        return out
+    lse = torch.where(torch.isneginf(M), -math.inf, M + torch.log(L))
+    return out, lse.reshape(B, Sq, H).transpose(1, 2).contiguous()
 
 
 def simt_launch_smem(D: int, Dv: int) -> int:
@@ -477,12 +491,14 @@ def kernel_flops(kernel: str, B: int, H: int, KH: int, D: int, Dv: int,
 
 
 def meta_attention(q, k, v, q_positions, kv_positions, *, causal=True,
-                   window: Optional[int] = None) -> torch.Tensor:
+                   window: Optional[int] = None, return_lse: bool = False):
     """The kernel's call on ``meta`` tensors: bills ``META_TRACE`` the
     chosen kernel's FLOPs (``kernel_flops``, over the positions' values
     the tracer holds), the bytes of q, k, v and both positions read and of
     the output written (no temporaries), and returns the output [B, Sq,
-    H, Dv] in q's dtype, as ``flash_attention_cuda`` does."""
+    H, Dv] in q's dtype, as ``flash_attention_cuda`` does (with
+    ``return_lse``: the split-KV kernel's, and its lse [B, H, Sq]
+    float32)."""
     trace = META_TRACE
     if trace is None:
         raise RuntimeError("attention on the meta device runs only under "
@@ -490,17 +506,21 @@ def meta_attention(q, k, v, q_positions, kv_positions, *, causal=True,
                            "positions")
     B, Sq, H, D = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
-    name = choose_kernel(q.dtype, D, Dv, Sq * (H // KH))
+    name = "split_kv" if return_lse else choose_kernel(q.dtype, D, Dv,
+                                                       Sq * (H // KH))
     flops = kernel_flops(name, B, H, KH, D, Dv,
                          trace.positions(q_positions).numpy(),
                          trace.positions(kv_positions).numpy(), causal,
                          window)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    outs = [out]
+    if return_lse:
+        outs.append(torch.empty((B, H, Sq), device=q.device))
     n_read = sum(t.numel() * t.element_size()
                  for t in (q, k, v, q_positions, kv_positions))
     trace.kernel(f"flash_attention_{name}", flops, n_read,
-                 out.numel() * out.element_size())
-    return out
+                 sum(t.numel() * t.element_size() for t in outs))
+    return tuple(outs) if return_lse else out
 
 
 # ---------------------------------------------------------------------------
@@ -524,12 +544,16 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, dev) -> None:
 def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                          causal: bool = True, window: Optional[int] = None,
                          logit_cap: Optional[float] = None,
-                         kernel: Optional[str] = None) -> torch.Tensor:
+                         kernel: Optional[str] = None,
+                         return_lse: bool = False):
     """Launch a flash-attention kernel: q [B, Sq, H, D], k [B, Skv, KH, D],
     v [B, Skv, KH, Dv] (float32 or bfloat16, one dtype), q_positions [Sq]
     and kv_positions [Skv] int32 -> [B, Sq, H, Dv] in q's dtype.  D, Dv <=
     256.  ``kernel`` (one of ``KERNELS``) overrides ``choose_kernel``, and
-    raises if that kernel does not take the inputs."""
+    raises if that kernel does not take the inputs.  ``return_lse``: the
+    split-KV kernel (raises if it does not take the inputs, or another
+    ``kernel`` is named) with its lse output -> (out, lse [B, H, Sq]
+    float32, -inf for a row with no unmasked slot)."""
     dev = q.device
     if q.dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -556,15 +580,21 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
     if logit_cap is not None and logit_cap <= 0:
         raise ValueError(f"logit_cap must be positive, got {logit_cap}")
     rows = Sq * (H // KH)
-    name = kernel or choose_kernel(q.dtype, D, Dv, rows)
+    if return_lse and kernel not in (None, "split_kv"):
+        raise ValueError(f"return_lse is the split_kv kernel's, not the "
+                         f"{kernel} kernel's")
+    name = "split_kv" if return_lse else kernel or choose_kernel(
+        q.dtype, D, Dv, rows)
     if not _takes(name, q.dtype, D, Dv, rows):
         raise ValueError(f"the {name} kernel does not take {q.dtype} at "
                          f"D {D}, Dv {Dv}, {rows} rows per kv head")
     if name != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the {name} kernel needs 16-byte aligned q, k, v")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
+    lse = torch.empty((B, H, Sq), device=dev) if return_lse else None
+    if out.numel() == 0 or (return_lse and Skv == 0):
+        # nothing to attend: every row 0, its lse -inf
+        return (out.zero_(), lse.fill_(-math.inf)) if return_lse else out
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     ptrs = (p(q), p(k), p(v), p(q_positions), p(kv_positions), p(out))
@@ -582,10 +612,11 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
         splits = -(-Skv // (SPLIT_KV_CHUNK * cps))
         ml = torch.empty((B, KH, splits, rows, 2), device=dev)
         acc = torch.empty((B, KH, splits, rows, Dv), device=dev)
+        lse_ptr = p(lse) if return_lse else ctypes.c_void_p(None)
         err = _build.library("flash_attention_decode") \
-            .flash_attention_decode_launch(*ptrs, p(ml), p(acc), B, Sq, Skv,
-                                           H, KH, D, Dv, int(causal), win,
-                                           dt, cps, cap, stream)
+            .flash_attention_decode_launch(*ptrs, p(ml), p(acc), lse_ptr, B,
+                                           Sq, Skv, H, KH, D, Dv, int(causal),
+                                           win, dt, cps, cap, stream)
     else:
         LAUNCH_SHAPES.add((name, D, Dv, dt))
         err = _build.library("flash_attention").flash_attention_launch(
@@ -596,7 +627,9 @@ def flash_attention_cuda(q, k, v, q_positions, kv_positions, *,
                            f"{err}")
     _count_launch("flash_attention")
     _count_launch(f"flash_attention_{name}")
-    return out
+    if return_lse:
+        _count_launch("flash_attention_split_kv_lse")
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +769,28 @@ def _attention_forward(q, k, v, q_positions, kv_positions, causal, window,
                               causal=causal, window=window)
     return plain(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
                  causal=causal, window=window, logit_cap=logit_cap)
+
+
+def attend_lse(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+               window: Optional[int] = None,
+               logit_cap: Optional[float] = None):
+    """(out [B, Sq, H, Dv], lse [B, H, Sq] float32) of attention over the
+    given kv slots: on CUDA tensors the split-KV kernel with its lse output
+    (``flash_attention_cuda(..., return_lse=True)``; out in q's dtype; it
+    raises where the kernel does not take the call), on CPU tensors its
+    plain version (``split_kv_attention_plain``, float32), on meta tensors
+    the kernel's count.  Serving only: no gradient."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, q_positions, kv_positions,
+                                    causal=causal, window=window,
+                                    logit_cap=logit_cap, return_lse=True)
+    if q.is_meta:
+        return meta_attention(q, k, v, q_positions, kv_positions,
+                              causal=causal, window=window, return_lse=True)
+    return split_kv_attention_plain(q, k, v, q_positions=q_positions,
+                                    kv_positions=kv_positions, causal=causal,
+                                    window=window, logit_cap=logit_cap,
+                                    return_lse=True)
 
 
 class FlashAttention(torch.autograd.Function):

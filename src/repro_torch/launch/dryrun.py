@@ -25,22 +25,35 @@ dot FLOPs are the whole model on its batch block, so on the 16 x 16 mesh
 ``useful_flops_ratio`` (the model FLOPs a device's share of the mesh over
 the FLOPs it counts) is about 1/16 for every cell.
 
-Serving has no sharded path in the port (ROADMAP item 13), and the
-reference leaves its layout to XLA's partitioner, so a serving cell on more
-than one device is a modelled design that neither package runs
-(``serving_pattern``: "gather_per_step"; on one device "whole"): a rank
-holds its blocks of the bf16 parameters as the train step holds its
-masters, makes each leaf whole for every step (the all-gathers, bf16), and
-runs ``serve.engine.prefill`` or ``decode_step`` on its batch block.  The
-fits, collective terms and bounds of such cells are that design's.  Its
-cache is unsharded (the cache specs carry no axes): ``cache_sharded`` is
-false.  A decode cell's cache holds ``seq_len - 1`` positions of history
-(each ring slot its latest) and the step decodes position ``seq_len - 1``.
+A serving cell's step is the rank's sharded serving step
+(``serve/engine.py``), traced under ``parallel.sharding.mesh_context`` of
+the sizes, for the mesh's rank 0 (``serving_pattern``:
+"gather_weights_split_cache"; "whole" on one device):
+  * the rank holds its blocks of the serving parameters (bf16 matrices,
+    float32 1-D leaves) as the train step holds its masters, and each leaf
+    a mesh axis splits is made whole where the step reads it
+    (``engine.gathered_view``; here ``_meta_whole``, which moves no data)
+    and dropped after its layer; a leaf no axis splits is read in place;
+  * its cache is its block (``serve.cache.zeros(..., mesh=...)``): split
+    along ``batch`` over ("pod", "data") and along ``kv_seq`` over "model"
+    where they divide, the recurrent states whole on the model ranks
+    (``cache_sharded``: whether any leaf is split; ``memory.cache_bytes``:
+    the rank's block);
+  * a prefill attends its fresh K/V with no collective; a decode step
+    attends the rank's block of each split cache and all-gathers (out,
+    lse) over the model ranks to combine them (``models/layers.py``).
+A decode cell's cache holds ``seq_len - 1`` positions of history (each
+ring slot its latest) and the step decodes position ``seq_len - 1``.
 
 The collectives are counted from the step's own pattern, each op billed
 by ``roofline.collective_bytes`` at its group size:
   * per leaf, an all-gather of the compute copy over each axis that
-    splits it (major axis last, the payload growing), once a step;
+    splits it (major axis last, the payload growing): training once a
+    step, serving at each read of the leaf (a layer's leaves once, a tied
+    embedding twice), billed as the trace reaches it;
+  * serving's decode, per attention layer whose cache ``kv_seq`` is split,
+    the (out, lse) all-gather over the model ranks, billed by the
+    attention's own call (``roofline._Tracer.collective``);
   * training, per microbatch, a reduce-scatter of the float32 gradient
     over each batch axis that splits the leaf; after the microbatches an
     all-reduce over each batch axis that does not, and over "pod"; the
@@ -85,6 +98,7 @@ import numpy as np
 import torch
 
 from .. import configs
+from ..kernels import flash_attention as fa
 from ..models import costs as costs_mod
 from ..models import model as M
 from ..models.config import ArchConfig
@@ -109,6 +123,7 @@ class _Cell:
     batch_per_device: int
     collectives: Callable[[StepAnalysis], None]
     serving_pattern: Optional[str] = None
+    cache_sharded: bool = False
 
 
 def _nbytes(tensors) -> int:
@@ -166,18 +181,11 @@ def _place(model: M.Model, sizes: Mapping[str, int]
     return placed
 
 
-def _gather_leaf(model: M.Model, placed, dtype, keep_whole: bool):
-    """The ``compute_view`` leaf function of a rank: ``_MetaGather`` by
-    each leaf's factors; with ``keep_whole`` an unsplit leaf is used as it
-    is (serving: no cast, no copy)."""
+def _gather_leaf(model: M.Model, placed, dtype):
+    """The train step's ``compute_view`` leaf function of a rank:
+    ``_MetaGather`` by each leaf's factors."""
     factors = {id(p): f for p, (_, _, f) in zip(model.parameters(), placed)}
-
-    def leaf(p):
-        f = factors[id(p)]
-        if keep_whole and not any(k > 1 for k in f):
-            return p
-        return _MetaGather.apply(p, f, dtype)
-    return leaf
+    return lambda p: _MetaGather.apply(p, factors[id(p)], dtype)
 
 
 def _batch_rows(global_batch: int, sizes: Mapping[str, int]
@@ -188,17 +196,27 @@ def _batch_rows(global_batch: int, sizes: Mapping[str, int]
     return global_batch // math.prod(sizes[a] for a in axes), axes
 
 
+def _leaf_gathers(shape, spec: sh.Spec, f, itemsize: int,
+                  sizes: Mapping[str, int]) -> List[Tuple[int, int]]:
+    """(result bytes a rank, ranks) of each all-gather that makes a leaf
+    of ``shape`` whole from its block (``f`` blocks a dimension,
+    ``itemsize`` bytes an element), minor axis first."""
+    cur = math.prod(n // k for n, k in zip(shape, f)) * itemsize
+    out = []
+    for d in range(len(shape)):
+        for a in reversed(sh.entry_axes(spec[d]) if d < len(spec) else ()):
+            cur *= sizes[a]
+            out.append((cur, sizes[a]))
+    return out
+
+
 def _bill_gathers(rec: StepAnalysis, placed, sizes,
                   itemsizes: Sequence[int]) -> None:
     """Each leaf's all-gathers of its compute copy (``itemsizes[i]`` bytes
     an element), minor axis first."""
     for (shape, spec, f), itemsize in zip(placed, itemsizes):
-        cur = math.prod(n // k for n, k in zip(shape, f)) * itemsize
-        for d in range(len(shape)):
-            for a in reversed(sh.entry_axes(spec[d]) if d < len(spec)
-                              else ()):
-                cur *= sizes[a]
-                rec.add_collective("all-gather", cur, sizes[a])
+        for n_bytes, g in _leaf_gathers(shape, spec, f, itemsize, sizes):
+            rec.add_collective("all-gather", n_bytes, g)
 
 
 def build_train(cfg: ArchConfig, shape: configs.Shape,
@@ -213,7 +231,7 @@ def build_train(cfg: ArchConfig, shape: configs.Shape,
         raise ValueError(f"a rank's {rows} rows do not split into {accum} "
                          "microbatches")
     batch = S.token_specs(cfg, rows, shape.seq_len, with_labels=True)
-    leaf = _gather_leaf(model, placed, torch.bfloat16, keep_whole=False)
+    leaf = _gather_leaf(model, placed, torch.bfloat16)
     opt_cfg = adamw.AdamWConfig()
 
     def step():
@@ -286,50 +304,75 @@ def _cache_positions(cache, n: int) -> Dict[torch.Tensor, np.ndarray]:
     return known
 
 
+def _meta_whole(placed, model: M.Model, sizes: Mapping[str, int]
+                ) -> Callable:
+    """``engine.gathered_view``'s leaf function of a rank on meta: a leaf
+    a mesh axis splits made whole (``repeat``: the gathers' output,
+    written), each all-gather billed to the tracer as ``_bill_gathers``
+    bills the train step's (minor axis first); any other leaf as it is."""
+    whole = {id(p): (shape, spec, f)
+             for p, (shape, spec, f) in zip(model.parameters(), placed)}
+
+    def leaf(p: torch.Tensor) -> torch.Tensor:
+        shape, spec, f = whole[id(p)]
+        if not any(k > 1 for k in f):
+            return p
+        for n_bytes, g in _leaf_gathers(shape, spec, f, p.element_size(),
+                                        sizes):
+            fa.META_TRACE.collective("all-gather", n_bytes, g)
+        return p.repeat(*f)
+    return leaf
+
+
 def build_serve(cfg: ArchConfig, shape: configs.Shape,
                 sizes: Mapping[str, int], kind: str,
                 cache_len: Optional[int] = None) -> _Cell:
-    """The rank's prefill or decode step on meta (module docstring);
-    ``cache_len``: the cache's slots (default: the decoder's length of
-    ``shape.seq_len``, the reference's ``serve_specs``)."""
+    """The rank's sharded prefill or decode step on meta (module
+    docstring); ``cache_len``: the cache's slots (default: the decoder's
+    length of ``shape.seq_len``, the reference's ``serve_specs``)."""
     rows, _ = _batch_rows(shape.global_batch, sizes)
-    _, _, batch, _, spec = S.serve_specs(cfg, rows, shape.seq_len, kind)
+    _, _, batch, _, spec = S.serve_specs(cfg, shape.global_batch,
+                                         shape.seq_len, kind)
+    # the rank's rows, in storages of their own (argument bytes)
+    batch = {k: v.clone() for k, v in engine.batch_block(batch, sizes)
+             .items()}
     if cache_len is not None:
-        spec = C.cache_spec(cfg, rows, cache_len, enc_len=(
+        spec = C.cache_spec(cfg, shape.global_batch, cache_len, enc_len=(
             shape.seq_len if cfg.is_encoder_decoder else 0))
     # the serving model's own leaves: matrices in cfg.dtype, 1-D leaves
     # float32 (``models.layers.leaf_dtype``), as ``init_model`` makes them
     model = M.init_model(cfg, device="meta")
     placed = _place(model, sizes)
     split = any(k > 1 for _, _, f in placed for k in f)
-    leaf = _gather_leaf(model, placed, None, keep_whole=True)
-    cache = C.zeros(spec, device=META)
+    view = engine.gathered_view(model, _meta_whole(placed, model, sizes)) \
+        if split else model
+    cache = C.zeros(spec, device=META, mesh=sizes)
+    blocks = C.leaves(cache)
+    cache_split = any(tuple(b.shape) != s.shape
+                      for b, s in zip(blocks, C.leaves(spec)))
     dl = S.dec_len(cfg, shape.seq_len)
-
-    def params():
-        # the leaves made whole inside the step, as the train step does
-        return M.compute_view(model, None, leaf=leaf) if split else model
 
     if kind == "prefill":
         known = _cache_positions(cache, 0)
 
-        def step():
-            return engine.prefill(params(), cfg, batch, cache)
+        def run():
+            return engine.prefill(view, cfg, batch, cache)
     else:
         known = _cache_positions(cache, dl - 1)
 
-        def step():
-            return engine.decode_step(params(), cfg, batch["tokens"],
-                                      dl - 1, cache)
+        def run():
+            return engine.decode_step(view, cfg, batch["tokens"], dl - 1,
+                                      cache)
 
-    def collectives(rec: StepAnalysis) -> None:
-        _bill_gathers(rec, placed, sizes,
-                      [p.element_size() for p in model.parameters()])
+    def step():
+        with sh.mesh_context(sizes):
+            return run()
 
-    args = (list(model.parameters()) + list(batch.values())
-            + list(C.leaves(cache)))
-    return _Cell(step, known, _nbytes(args), C.cache_bytes(spec), rows,
-                 collectives, "gather_per_step" if split else "whole")
+    args = list(model.parameters()) + list(batch.values()) + blocks
+    pattern = "gather_weights_split_cache" if split or cache_split \
+        else "whole"
+    return _Cell(step, known, _nbytes(args), _nbytes(blocks), rows,
+                 lambda rec: None, pattern, cache_split)
 
 
 def _shape(shape) -> configs.Shape:
@@ -382,7 +425,7 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
         mesh=dict(shape=list(sizes.values()), axes=list(sizes),
                   n_devices=int(n_dev)),
         accum=accum, batch_per_device=cell.batch_per_device,
-        trace_s=trace_s, cache_sharded=False,
+        trace_s=trace_s, cache_sharded=cell.cache_sharded,
         serving_pattern=cell.serving_pattern,
         memory=dict(
             argument_bytes=cell.argument_bytes,

@@ -46,7 +46,9 @@ reference's while-loop multiplication does not arise.
     outside ``analyze_step`` an attention call on ``meta`` raises.
   * collectives: the sharded step's are counted by the dry run from its
     own pattern (``launch/dryrun.py``), each op billed by
-    ``collective_bytes``.
+    ``collective_bytes``; those that sharded serving's attention makes
+    inside the step (its (out, lse) all-gather over the model ranks,
+    ``models/layers.py``) bill themselves through ``collective``.
 
   * speed: an op that allocates fresh outputs takes their layouts from
     the first op of its kind with the same input layouts and arguments
@@ -406,6 +408,11 @@ class _Tracer(TorchDispatchMode):
                 "attention on meta: the dry run does not know these "
                 f"positions' values ({tuple(t.shape)} {t.dtype})")
         return h.clone()
+
+    def collective(self, opcode: str, result_bytes: float, g: int) -> None:
+        """Bill one collective the step makes (``StepAnalysis.
+        add_collective``)."""
+        self.rec.add_collective(opcode, result_bytes, g)
 
     def kernel(self, name: str, flops: float, bytes_read: float,
                bytes_written: float) -> None:

@@ -10,6 +10,35 @@ are plain matrix products, as the reference leaves them to XLA; so are
 MLA's absorbed decode and the MoE dispatch, which the reference computes
 in plain JAX outside any kernel.
 
+**Sharded serving.**  Under ``parallel.sharding.mesh_context(mesh)`` a
+cache leaf laid out along ``("batch", "kv_seq", ...)`` may be this rank's
+block (``serve.cache.zeros(..., mesh=mesh)``): where the ``kv_seq`` rule
+splits the cache's Smax slots over the mesh axes it names ("model"), the
+rank at model coordinate r holds slots [r Smax/m, (r+1) Smax/m), and
+``pos_ids`` stays whole on every rank (every rank writes it, and reads its
+block's slice).  Then
+  * a prefill (S > 1; it must start at position 0, as the engine's do)
+    attends the call's last min(S, Smax) fresh K/V at their positions --
+    equal to attending the cache after the write, since every stale slot
+    that survives the write holds a position >= S, which the causal mask
+    drops -- with no collective, and keeps its block of the write;
+  * a decode step (S == 1) writes the new K/V on the owner of its slot
+    only (found on the host from the position the engine records),
+    attends its block (``kernels.flash_attention.attend_lse``: the
+    split-KV kernel with its log-sum-exp output on the card), all-gathers
+    (out, lse) over the mesh axes that split the cache (one buffer a
+    layer: B x H x Dv values and B x H float32 a rank) and combines by
+    log-sum-exp; a rank whose block is fully masked has lse = -inf and
+    weight 0.
+The combine runs even when those axes hold one rank, so a (1, 1) mesh on
+one card drives it.  Where the rule drops ``kv_seq`` (the model axis does
+not divide Smax) the leaf is whole on every rank and the single-device
+path runs on the rank's batch block.  An MoE layer on a batch split over
+the mesh keeps the reference's capacity semantics (``moe``): from the
+sizes the engine records (``parallel.sharding.step_fact``), it counts the
+whole batch's tokens and queues them across the ranks below the
+expert-parallel threshold.
+
 A block's parameters are read by name (``params["wq"]``), so a dict of
 tensors and a ``models.model.ParamBlock`` both serve.  Weights are cast to
 the activation dtype at each use, as in the reference; that cast is a no-op
@@ -20,21 +49,23 @@ backward, the rest is autograd's.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as fa
 from ..kernels.flash_attention import (DECODE_DIRECT_MAX_Q, direct_attention,
                                        flash_attention, softcap)
+from ..parallel import sharding as sh
 from .config import ArchConfig
 
 __all__ = ["Init", "FLOAT32_LEAVES", "leaf_dtype", "rms_norm", "rope",
            "softcap", "flash_attention", "direct_attention", "attend", "init_attention", "attention",
            "init_mla", "mla_attention", "init_mlp", "mlp", "init_moe",
            "moe", "moe_plan", "route", "queue_ranks", "moe_dropped",
-           "DECODE_DIRECT_MAX_Q"]
+           "combine_ranks", "DECODE_DIRECT_MAX_Q"]
 
 # ---------------------------------------------------------------------------
 # init helper
@@ -174,32 +205,209 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
         k = rms_norm(k, params[prefix + "k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    kw = dict(causal=causal, window=window, logit_cap=cfg.attn_logit_softcap)
     if cache is None:
         out = attend(q, k, v, q_positions=positions, kv_positions=positions,
-                     causal=causal, window=window,
-                     logit_cap=cfg.attn_logit_softcap)
+                     **kw)
     else:
-        _write_cache(cache, positions, k.dtype, k=k, v=v)
-        out = attend(q, cache["k"], cache["v"], q_positions=positions,
-                     kv_positions=cache["pos_ids"], causal=causal,
-                     window=window, logit_cap=cfg.attn_logit_softcap)
+        blk = _kv_block(cache, "k")
+        if blk is None:
+            _write_cache(cache, positions, k.dtype, k=k, v=v)
+            out = attend(q, cache["k"], cache["v"], q_positions=positions,
+                         kv_positions=cache["pos_ids"], **kw)
+        elif S > 1:
+            k, v, kv_pos = _write_block(cache, positions, blk, k.dtype,
+                                        k=k, v=v)
+            out = attend(q, k, v, q_positions=positions,
+                         kv_positions=kv_pos, **kw)
+        else:
+            _, _, kv_pos = _write_block(cache, positions, blk, k.dtype,
+                                        k=k, v=v)
+            out = combine_ranks(*fa.attend_lse(
+                q, cache["k"], cache["v"], positions, kv_pos, **kw), blk[2])
     out = out.to(x.dtype).reshape(B, S, H * Dh)
     return out @ w("wo"), cache
+
+
+def _check_dtypes(cache: Dict, dtype, names) -> None:
+    for name in names:
+        if cache[name].dtype != dtype:
+            raise ValueError(f"cache dtype {cache[name].dtype} differs from "
+                             f"the activations' {dtype}")
+
+
+def _last_ring(positions: torch.Tensor, Smax: int, new: Mapping
+               ) -> Tuple[torch.Tensor, Dict]:
+    """The call's last ``Smax`` positions and their leaves [B, S, ...]:
+    what a ring of ``Smax`` slots keeps of a longer write (each slot the
+    last of its positions, as the reference's last-wins scatter leaves
+    it).  The positions are consecutive, as the engine makes them."""
+    S = positions.shape[0]
+    if S <= Smax:
+        return positions, dict(new)
+    return positions[S - Smax:], {name: t[:, S - Smax:]
+                                  for name, t in new.items()}
 
 
 def _write_cache(cache: Dict, positions: torch.Tensor, dtype,
                  **new: torch.Tensor) -> None:
     """Write ``new`` leaves [B, S, ...] at the ring-buffer slots of
-    ``positions`` and record the positions, in place."""
-    for name in new:
-        if cache[name].dtype != dtype:
-            raise ValueError(f"cache dtype {cache[name].dtype} differs from "
-                             f"the activations' {dtype}")
+    ``positions`` and record the positions, in place.  A call longer than
+    the ring writes only its last Smax positions (``_last_ring``), so no
+    slot is written twice in one indexed write, whose order neither the
+    CPU's thread pool nor CUDA fixes."""
+    _check_dtypes(cache, dtype, new)
     Smax = cache["pos_ids"].shape[0]
+    for name in new:
+        if cache[name].shape[1] != Smax:
+            raise ValueError(
+                f"cache {name} holds {cache[name].shape[1]} of {Smax} slots: "
+                "a rank's block serves only under its mesh_context")
+    positions, new = _last_ring(positions, Smax, new)
     slots = (positions % Smax).long()
     for name, t in new.items():
         cache[name][:, slots] = t
     cache["pos_ids"][slots] = positions.to(cache["pos_ids"].dtype)
+
+
+def _kv_block(cache: Dict, name: str
+              ) -> Optional[Tuple[int, int, Tuple[str, ...]]]:
+    """(start, width, axes) of the slots this rank holds of ``cache[name]``
+    under the active mesh (module docstring), or None when no mesh axis
+    splits its ``kv_seq`` (no mesh, or the rule drops it: the leaf is
+    whole)."""
+    Smax = cache["pos_ids"].shape[0]
+    start, width, axes = sh.dim_block("kv_seq", Smax)
+    if not axes:
+        return None
+    if cache[name].shape[1] != width:
+        raise ValueError(f"cache {name} holds {cache[name].shape[1]} slots; "
+                         f"its block of {Smax} under the mesh is {width}")
+    return start, width, axes
+
+
+def _host_first(positions: torch.Tensor) -> int:
+    """The first position's value: the one the step recorded
+    (``parallel.sharding.step_fact("position")``: the engine's), else on
+    meta from the dry run's tracer, else read from the device."""
+    first = sh.step_fact("position")
+    if first is not None:
+        return first
+    if positions.is_meta:
+        if fa.META_TRACE is None:
+            raise RuntimeError("attention on the meta device runs only under "
+                               "launch.roofline.analyze_step")
+        return int(fa.META_TRACE.positions(positions)[0])
+    return int(positions[0])
+
+
+def _write_block(cache: Dict, positions: torch.Tensor,
+                 blk: Tuple[int, int, Tuple[str, ...]], dtype,
+                 **new: torch.Tensor):
+    """The sharded write (module docstring): ``pos_ids`` whole on every
+    rank, each leaf's slots in this rank's block ``blk`` only.  A decode
+    step (S == 1) writes its slot on the rank that owns it, found from the
+    position the step recorded (``_host_first``: no device read).  A
+    prefill (S > 1, from position 0, checked) copies the block's slots of
+    the call's last min(S, Smax) positions by index (host-computed, each
+    slot once).  Returns what the call attends: for a prefill those fresh
+    leaves and positions, for a decode step the block's leaves and
+    positions."""
+    _check_dtypes(cache, dtype, new)
+    Smax = cache["pos_ids"].shape[0]
+    start, width, _ = blk
+    S = positions.shape[0]
+    first = _host_first(positions)
+    if S == 1:
+        local = first % Smax - start
+        if 0 <= local < width:
+            for name, t in new.items():
+                cache[name][:, local] = t[:, 0]
+        cache["pos_ids"][first % Smax] = first
+        return (None,) * len(new) + (cache["pos_ids"][start:start + width],)
+    if first != 0:
+        raise ValueError("a sharded prefill starts at position 0 (the "
+                         "engine's); decode steps one token at a time")
+    n = min(S, Smax)
+    q = np.arange(S - n, S)
+    g = q % Smax
+    sel = (g >= start) & (g < start + width)
+    dev = positions.device
+    src = torch.as_tensor(q[sel], device=dev)
+    dst = torch.as_tensor(g[sel] - start, device=dev)
+    for name, t in new.items():
+        cache[name].index_copy_(1, dst, t.index_select(1, src))
+    last, fresh = _last_ring(positions, Smax, new)
+    cache["pos_ids"][(last % Smax).long()] = last.to(cache["pos_ids"].dtype)
+    return tuple(t.contiguous() for t in fresh.values()) + (last,)
+
+
+def _ranks(axes: Tuple[str, ...]) -> int:
+    """The number of ranks along ``axes`` of the active mesh."""
+    sizes = sh.mesh_shape(sh.current_mesh())
+    return math.prod(sizes[a] for a in axes)
+
+
+def _gather_ranks(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """[n, *x.shape]: ``x`` of every rank along the active mesh's ``axes``
+    (n ranks), stacked -- an all-gather over each axis's process group;
+    for n == 1, ``x`` itself, with nothing moved.  On meta (the dry run)
+    the gathered buffer is made and billed to the tracer as an
+    all-gather; a mapping of sizes holds no process group, so it takes
+    only n == 1 for real tensors."""
+    mesh = sh.current_mesh()
+    sizes = sh.mesh_shape(mesh)
+    n = _ranks(axes)
+    x = x.contiguous()[None]
+    if n == 1:
+        return x
+    if x.is_meta:
+        if fa.META_TRACE is None:
+            raise RuntimeError("a collective on the meta device runs only "
+                               "under launch.roofline.analyze_step")
+        out = x.expand((n,) + tuple(x.shape[1:])).contiguous()
+        fa.META_TRACE.collective("all-gather",
+                                 out.numel() * out.element_size(), n)
+        return out
+    if isinstance(mesh, Mapping):
+        raise ValueError("a mesh of sizes has no process group")
+    import torch.distributed as dist
+    # all_gather_single is all_gather_into_tensor's newer name
+    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    for a in reversed(axes):
+        out = x.new_empty((sizes[a] * x.shape[0],) + tuple(x.shape[1:]))
+        gather(out, x, group=mesh.get_group(a))
+        x = out
+    return x
+
+
+def combine_ranks(out: torch.Tensor, lse: torch.Tensor,
+                  axes: Tuple[str, ...]) -> torch.Tensor:
+    """Attention over every rank's block of the kv slots from each rank's
+    ``out`` [B, Sq, H, Dv] over its own block and its ``lse`` [B, H, Sq]
+    (float32, -inf where the block has no unmasked slot): one all-gather
+    of both over ``axes`` (packed into one buffer in out's dtype), then
+    sum_r e^(lse_r - L) out_r with L = log sum_r e^(lse_r), in float32; 0
+    for a row no rank has a slot for.  -> out's dtype.  One rank: nothing
+    is gathered or packed, and the sum is out itself (its weight e^0 =
+    1): at one rank the combine shows the path runs, not that its
+    arithmetic is right (the multi-rank CPU tests show that)."""
+    B, Sq, H, Dv = out.shape
+    dt = out.dtype
+    if _ranks(axes) == 1:
+        outs, lses = out[None].float(), lse.transpose(1, 2)[None]
+    else:
+        lse_t = lse.transpose(1, 2).contiguous()              # [B, Sq, H]
+        packed = torch.cat([out.reshape(B, Sq, H * Dv),
+                            lse_t.view(dt) if dt != torch.float32
+                            else lse_t], -1)
+        got = _gather_ranks(packed, axes)
+        n = got.shape[0]
+        outs = got[..., :H * Dv].reshape(n, B, Sq, H, Dv).float()
+        lses = got[..., H * Dv:].contiguous().view(torch.float32)
+    # the weights e^(lse_r - L); a row with every lse -inf gives NaN, then 0
+    wts = torch.softmax(lses, 0).nan_to_num_(0.0)            # [n, B, Sq, H]
+    return (wts[..., None] * outs).sum(0).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +440,10 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     the compressed space, in float32 (W^UK folded into q, W^UV applied
     after the softmax), never expanding the cache; every other call expands
     it to per-head K [.., dn + dr] and V [.., dv] and goes through
-    ``attend`` (the flash kernel on the card)."""
+    ``attend`` (the flash kernel on the card).  A cache split along
+    ``kv_seq`` (module docstring): a prefill expands its fresh compressed
+    KV, a decode step runs absorbed over its block and combines the ranks'
+    outputs by their log-sum-exp."""
     B, S, D = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_dim
@@ -248,12 +459,22 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     c_kv = rms_norm(kv_a[..., :rank], params["kv_a_norm"], cfg.norm_eps)
     k_rope = rope(kv_a[..., None, rank:], positions, cfg.rope_theta)[:, :, 0]
     pos_ids = positions
-    if cache is not None:
+    absorbed = S <= DECODE_DIRECT_MAX_Q and cache is not None
+    blk = None if cache is None else _kv_block(cache, "c_kv")
+    if blk is not None:
+        # sharded: a prefill attends its fresh compressed KV, expanded; a
+        # decode step its block, absorbed, then combines (module docstring)
+        fresh = _write_block(cache, positions, blk, x.dtype, c_kv=c_kv,
+                             k_rope=k_rope)
+        c_kv, k_rope, pos_ids = fresh if S > 1 else (
+            cache["c_kv"], cache["k_rope"], fresh[-1])
+        absorbed = S == 1
+    elif cache is not None:
         _write_cache(cache, positions, x.dtype, c_kv=c_kv, k_rope=k_rope)
         c_kv, k_rope, pos_ids = cache["c_kv"], cache["k_rope"], \
             cache["pos_ids"]
 
-    if S <= DECODE_DIRECT_MAX_Q and cache is not None:
+    if absorbed:
         # absorbed decode: q_c = q_nope . W^UK (per head), scores against
         # c_kv and k_rope, softmax, then (p . c_kv) . W^UV
         wk_b = w("wk_b").reshape(rank, H, dn)
@@ -269,9 +490,13 @@ def mla_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m))
         p = torch.where(mask, p, 0.0)
-        p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-20)
+        l = p.sum(-1, keepdim=True)
+        p = p / torch.clamp_min(l, 1e-20)
         out_c = torch.einsum("bshk,bkr->bshr", p, c_kv.float())
         out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype), wv_b)
+        if blk is not None:
+            lse = torch.where(torch.isneginf(m), -math.inf, m + torch.log(l))
+            out = combine_ranks(out, lse[..., 0].transpose(1, 2), blk[2])
     else:
         # expand the compressed KV to per-head keys and values; K is made
         # contiguous (the rope part broadcast to every head) for the kernel
@@ -394,9 +619,11 @@ def _expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
 
 
 def moe_sort_group(params, xg: torch.Tensor, cfg: ArchConfig,
-                   cap: int) -> torch.Tensor:
+                   cap: int, queue=queue_ranks) -> torch.Tensor:
     """Sort-based dispatch of xg [T, D] into an [E, cap, D] buffer, the
-    experts, then the gate-weighted combine -> [T, D].
+    experts, then the gate-weighted combine -> [T, D].  ``queue`` gives
+    each (token, k) its place in its expert's queue (``queue_ranks``; a
+    split batch's ``_queue_ranks_across``).
 
     A (token, k) past its expert's capacity goes to one spare row behind
     the buffer, which the experts never see (the reference's
@@ -406,7 +633,7 @@ def moe_sort_group(params, xg: torch.Tensor, cfg: ArchConfig,
     T, D = xg.shape
     E, K = cfg.n_experts, cfg.top_k
     gates, experts = route(params["router"], xg, K)
-    ranks = queue_ranks(experts)
+    ranks = queue(experts)
     in_cap = ranks < cap
     slot = torch.where(in_cap, experts * cap + ranks, E * cap)
     xe = xg.new_zeros((E * cap + 1, D))
@@ -418,13 +645,16 @@ def moe_sort_group(params, xg: torch.Tensor, cfg: ArchConfig,
     return y.to(xg.dtype)
 
 
-def moe_ep(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The reference's expert-parallel MoE with no mesh (one device): one
-    shard's body over all t_local = B * S tokens -- the sort dispatch with
-    the capacity of t_local, then the shared experts."""
+def moe_ep(params, x: torch.Tensor, cfg: ArchConfig,
+           t_local: Optional[int] = None) -> torch.Tensor:
+    """The reference's expert-parallel MoE, one shard's body: the sort
+    dispatch of its own B * S tokens with the capacity of ``t_local``
+    tokens (default B * S: one device; the reference's whole batch over
+    its data shards on a mesh), then the shared experts."""
     B, S, D = x.shape
     xg = x.reshape(B * S, D)
-    y = moe_sort_group(params, xg, cfg, _capacity(cfg, B * S))
+    y = moe_sort_group(params, xg, cfg, _capacity(
+        cfg, B * S if t_local is None else t_local))
     if cfg.n_shared_experts:
         y = y + mlp(params, xg, prefix="shared_")
     return y.reshape(B, S, D)
@@ -467,19 +697,68 @@ def _ungroup(y: torch.Tensor, B: int) -> torch.Tensor:
         B, n * (Tg // B), *y.shape[2:])
 
 
+def _batch_share(B: int) -> Tuple[int, int, Tuple[str, ...]]:
+    """(whole batch, this rank's first row, the mesh axes splitting the
+    batch) of a rank's B rows: B, 0, () on one device or a mesh whose
+    ``batch`` rule splits nothing; under a mesh that splits it, the batch
+    a sharded serving step recorded (``parallel.sharding.step_fact``)."""
+    if sh.rule_size("batch") == 1:
+        return B, 0, ()
+    whole = sh.step_fact("batch")
+    if whole is None:
+        raise ValueError("an MoE layer on a mesh that splits the batch "
+                         "needs the whole batch: serve it through "
+                         "serve.engine with a cache from serve.cache."
+                         "zeros(..., mesh=mesh)")
+    start, rows, axes = sh.dim_block("batch", whole)
+    if rows != B:
+        raise ValueError(f"{B} rows are not this rank's block of the "
+                         f"batch of {whole} ({rows} rows)")
+    return whole, start, axes
+
+
+def _queue_ranks_across(experts: torch.Tensor, axes: Tuple[str, ...],
+                        first: int) -> torch.Tensor:
+    """``queue_ranks`` of this rank's experts [T, K] among the whole
+    batch's: the ranks along ``axes`` hold consecutive blocks of its
+    tokens, this rank's from token ``first``.  One all-gather of the
+    routing (T x K indices a rank)."""
+    every = _gather_ranks(experts, axes)                     # [n, T, K]
+    T = experts.shape[0]
+    return queue_ranks(every.reshape(-1, experts.shape[1]))[first:first + T]
+
+
 def moe(params, x: torch.Tensor, cfg: ArchConfig,
         impl: str = "ep_sort") -> torch.Tensor:
     """Top-k MoE with capacity-based dispatch, x [B, S, D] -> [B, S, D];
-    ``moe_plan`` says which path and capacity.  The shared experts are
-    added after the sort and onehot paths (inside the expert-parallel
-    one)."""
+    ``moe_plan`` of the whole batch says which path and capacity.  The
+    shared experts are added after the sort and onehot paths (inside the
+    expert-parallel one).
+
+    A rank's block of a batch split over a mesh (``_batch_share``) keeps
+    the reference's semantics: from ``MOE_EP_MIN_TOKENS`` tokens of the
+    whole batch its expert-parallel shard takes the capacity of its share
+    of them and queues its own tokens; below, the capacity counts the
+    whole batch and each token queues behind every rank's earlier ones
+    (``_queue_ranks_across``), as the reference's sort path over all
+    tokens."""
     B, S, D = x.shape
-    path, cap, chunk = moe_plan(cfg, B, S, impl)
+    whole, first, axes = _batch_share(B)
+    path, cap, chunk = moe_plan(cfg, whole, S, impl)
     if path == "ep":
-        return moe_ep(params, x, cfg)
+        dp = sh.rule_size("batch")
+        if axes and whole % dp:
+            raise ValueError(f"a batch of {whole} split over some of its "
+                             f"{dp} batch ranks: the expert-parallel MoE "
+                             "takes it split over all or none")
+        return moe_ep(params, x, cfg, whole * S // dp)
+    if axes and path != "sort":
+        raise ValueError(f"the {path} MoE path does not take a split batch")
     if path == "sort":
-        y = moe_sort_group(params, x.reshape(B * S, D), cfg,
-                           cap).reshape(B, S, D)
+        queue = queue_ranks if not axes else (
+            lambda e: _queue_ranks_across(e, axes, first * S))
+        y = moe_sort_group(params, x.reshape(B * S, D), cfg, cap,
+                           queue).reshape(B, S, D)
     else:
         y = _ungroup(torch.stack([moe_onehot_group(params, xg, cfg, cap)
                                   for xg in _groups(x, chunk)]), B)

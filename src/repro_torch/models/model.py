@@ -47,6 +47,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.power import Device, resolve_device
 from ..kernels import flash_attention as fa
+from ..parallel import sharding as sh
+from . import layers as L
 from . import ssm
 from .config import ArchConfig
 from .layers import (Init, attention, init_attention, init_mla, init_mlp,
@@ -371,28 +373,58 @@ def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     [B, S_enc, KH, Dh]}``, written into it in place; without (decode) they
     are read from the cache.  CUDA tensors launch the flash-attention
     kernel; CPU tensors run the chunked plain version (its default chunk,
-    the reference's) at every Sq, as the reference calls it."""
+    the reference's) at every Sq, as the reference calls it.
+
+    Under a mesh whose ``kv_seq`` rule splits the cross cache
+    (``models/layers.py``'s sharded serving), prefill writes this rank's
+    block of the projected K/V and attends them whole; decode attends the
+    rank's block and combines the model ranks' outputs by log-sum-exp.
+    The block alone does not tell whether the rule split the encoder's
+    length or kept it whole (a length the model axis does not divide):
+    decode reads the length the engine recorded for the step
+    (``parallel.sharding.step_fact("enc_len")``) and combines only where
+    the rule split it."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     w = lambda name: params[prefix + name].to(x.dtype)
     q = (x @ w("wq")).reshape(B, S, H, Dh)
+    q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
     if enc_out is None:
         if cache is None:
             raise ValueError("cross attention needs enc_out or a cache")
         k, v = cache["k"], cache["v"]
+        # under a mesh that splits kv_seq the cache may be this rank's
+        # block: attend it and combine the model ranks' outputs
+        n = k.shape[1] if sh.rule_size("kv_seq") == 1 \
+            else sh.step_fact("enc_len")
+        if n is None:
+            raise ValueError("a cross cache on a mesh that splits kv_seq "
+                             "needs its encoder length: serve it through "
+                             "serve.engine with a cache from serve.cache."
+                             "zeros(..., mesh=mesh)")
+        start, width, axes = sh.dim_block("kv_seq", n)
+        if width != k.shape[1]:
+            raise ValueError(f"cross cache of {k.shape[1]} slots; its "
+                             f"block of {n} under the mesh is {width}")
+        if axes:
+            out = L.combine_ranks(*fa.attend_lse(
+                q, k, v, q_pos, _positions(width, x.device, start),
+                causal=False), axes)
+            return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")
     else:
         k = (enc_out @ w("wk")).reshape(B, -1, KH, Dh)
         v = (enc_out @ w("wv")).reshape(B, -1, KH, Dh)
         if cache is not None:
-            if cache["k"].shape != k.shape or cache["k"].dtype != k.dtype:
+            start, width, _ = sh.dim_block("kv_seq", k.shape[1])
+            held = (B, width, KH, Dh)
+            if tuple(cache["k"].shape) != held or cache["k"].dtype != k.dtype:
                 raise ValueError(
                     f"cross cache {tuple(cache['k'].shape)} "
                     f"{cache['k'].dtype} does not hold the encoder's K/V "
-                    f"{tuple(k.shape)} {k.dtype}")
-            cache["k"].copy_(k)
-            cache["v"].copy_(v)
+                    f"{held} {k.dtype}")
+            cache["k"].copy_(k[:, start:start + width])
+            cache["v"].copy_(v[:, start:start + width])
     kv_pos = _positions(k.shape[1], x.device)
-    q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
     out = fa.attend(q, k, v, q_pos, kv_pos, causal=False,
                     plain=fa.flash_attention)
     return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")

@@ -13,7 +13,11 @@ mesh axis name, or a tuple of names (the dimension split over several
 axes, the first the major one), as the reference's ``PartitionSpec``.
 ``placements`` translates it into DTensor placements (``Shard(d)`` /
 ``Replicate()`` a mesh dimension); ``block`` gives a rank's contiguous
-block of a global tensor under it, ``distribute`` a DTensor of it.
+block of a global tensor under it, ``distribute`` a DTensor of it, and
+``dim_block`` the block of one dimension a rank holds (sharded serving's
+cache along ``kv_seq``); ``step_facts`` records, for one step, what the
+host knows and its tensors cannot tell (the whole sizes its blocks were
+cut from, its first position).
 
 Default rules (overridable per context):
   batch   -> ('pod', 'data')     a batch's leading dim (data parallelism)
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import math
 import threading
+import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -58,6 +63,7 @@ class MeshContext(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: Dict[str, Tuple[str, ...]] = dict(DEFAULT_RULES)
+        self.facts: Dict[str, int] = {}
 
 
 _CTX = MeshContext()
@@ -80,11 +86,51 @@ def current_mesh():
     return _CTX.mesh
 
 
+@contextmanager
+def step_facts(facts: Mapping[str, int]):
+    """Record, for the step run inside, what the host knows of it that its
+    tensors cannot tell, or tell only by a device read (sharded serving:
+    ``serve.engine`` records the global ``batch`` and the cross caches'
+    ``enc_len`` that its cache's blocks were cut from, and the step's
+    first ``position``); ``step_fact`` reads them."""
+    prev = _CTX.facts
+    _CTX.facts = {**prev, **facts}
+    try:
+        yield
+    finally:
+        _CTX.facts = prev
+
+
+def step_fact(name: str) -> Optional[int]:
+    """The value ``step_facts`` recorded under ``name``, or None."""
+    return _CTX.facts.get(name)
+
+
+# a DeviceMesh's axis sizes and this rank's coordinate, which never change:
+# read once a mesh (its ``shape`` and ``get_coordinate`` cost tens of
+# microseconds, and sharded serving asks at every attention layer)
+_SIZES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_COORDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _read_once(cache: "weakref.WeakKeyDictionary", mesh, read):
+    """``read(mesh)``, kept for ``mesh`` in ``cache`` when it can be weakly
+    referenced (a ``DeviceMesh``; a stand-in object is read every time)."""
+    try:
+        got = cache.get(mesh)
+    except TypeError:
+        return read(mesh)
+    if got is None:
+        got = cache[mesh] = read(mesh)
+    return dict(got)
+
+
 def mesh_shape(mesh) -> Dict[str, int]:
     """Axis name -> size of a ``DeviceMesh``, or of a mapping of sizes."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return _read_once(_SIZES, mesh,
+                      lambda m: dict(zip(m.mesh_dim_names, m.shape)))
 
 
 def axis_size(name: str) -> int:
@@ -159,8 +205,41 @@ def placements(spec: Spec, mesh) -> list:
 
 
 def coordinate(mesh) -> Dict[str, int]:
-    """This rank's index along every axis of ``mesh``."""
-    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    """This rank's index along every axis of ``mesh`` (a ``DeviceMesh``;
+    of a mapping of axis sizes -- the dry run's mesh, which has no ranks
+    -- its rank 0's)."""
+    if isinstance(mesh, Mapping):
+        return {a: 0 for a in mesh}
+    return _read_once(_COORDS, mesh, lambda m: dict(
+        zip(m.mesh_dim_names, m.get_coordinate())))
+
+
+def rule_size(name: str, mesh=None) -> int:
+    """How many blocks the rule of logical axis ``name`` cuts a dimension
+    into when the dimension divides: the product of the sizes of its
+    mesh axes present in ``mesh`` (default: the active mesh)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return 1
+    sizes = mesh_shape(mesh)
+    return math.prod(sizes[a] for a in _CTX.rules.get(name, ())
+                     if a in sizes)
+
+
+def dim_block(name: str, n: int, mesh=None
+              ) -> Tuple[int, int, Tuple[str, ...]]:
+    """(start, width, axes): the block of a dimension of ``n`` elements
+    with logical axis ``name`` that this rank holds under ``mesh``
+    (default: the active mesh; a mapping of sizes stands for its rank 0),
+    and the mesh axes that split it -- empty, with the whole dimension,
+    outside a mesh or where the rule drops every axis (none divides
+    ``n``)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return 0, n, ()
+    spec = _resolve((name,), (n,), mesh_shape(mesh))
+    sl = block(spec, (n,), mesh_shape(mesh), coordinate(mesh))[0]
+    return sl.start, sl.stop - sl.start, entry_axes(spec[0])
 
 
 def block(spec: Spec, shape: Sequence[int], sizes: Mapping[str, int],

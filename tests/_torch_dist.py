@@ -204,3 +204,48 @@ def elastic_restore(rank, world, out_dir, ckpt_dir):
                                 count=int(state.opt.count),
                                 step=int(state.step),
                                 restored=restored))
+
+
+def sharded_serving(rank, world, out_dir, cells):
+    """On 4 ranks, a ("data", "model") (2, 2) mesh: for each cell (arch,
+    reference weights ``tree``, float32 config overrides, global batch,
+    max_len, encoder length, decode steps) the port's sharded serving --
+    ``shard_model``, the cache's blocks (``zeros(..., mesh=...)``), the
+    rank's rows (``batch_block``) -- through prefill and greedy decode
+    steps under ``mesh_context``: the rank's logits of every step, its
+    ids, its cache leaves and its coordinate."""
+    _init(rank, world, out_dir)
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serve import cache as C, engine
+    mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {"coordinate": sh.coordinate(mesh)}
+    for cell in cells:
+        cfg = dataclasses.replace(configs.get_smoke(cell["arch"]),
+                                  **cell["overrides"])
+        model = engine.shard_model(
+            M.params_from_numpy(cfg, cell["tree"], device="cpu"), mesh)
+        batch = engine.batch_block(
+            {k: torch.as_tensor(v) for k, v in cell["batch"].items()}, mesh)
+        spec = C.cache_spec(cfg, cell["batch"]["tokens"].shape[0],
+                            cell["max_len"], enc_len=cell["enc_len"],
+                            dtype=torch.float32)
+        cache = C.zeros(spec, "cpu", mesh=mesh)
+        prompt = batch["tokens"].shape[1] + (cfg.vision_prefix_tokens or 0)
+        with sh.mesh_context(mesh):
+            logits, cache = engine.prefill(model, cfg, batch, cache)
+            steps = [logits]
+            for i in range(cell["steps"]):
+                tok = torch.argmax(steps[-1], -1).to(torch.int32)[:, None]
+                logits, cache = engine.decode_step(model, cfg, tok,
+                                                   prompt + i, cache)
+                steps.append(logits)
+        out[cell["arch"]] = dict(
+            logits=[t.numpy() for t in steps],
+            ids=torch.stack([torch.argmax(t, -1) for t in steps], 1)
+            .numpy(),
+            cache=[t.numpy().copy() for t in C.leaves(cache)])
+    _finish(rank, out_dir, out)

@@ -30,7 +30,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import dryrun as TD, mesh as TMESH
 from repro_torch.launch import roofline as TR, specs as TS
-from repro_torch.models import costs as tcosts, model as TM
+from repro_torch.models import costs as tcosts, layers as TL, model as TM
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as sh
 from repro_torch.serve import cache as TC
@@ -453,7 +453,8 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "alias_bytes",
 def _expected_argument_bytes(cfg, shape, sizes) -> int:
     """The rank's blocks of every leaf (``logical_spec`` over the sizes),
     12 B a master element (the master and both moments) or its serving
-    dtype's bytes, plus the batch block and an unsharded cache."""
+    dtype's bytes, plus the batch block and the rank's blocks of the cache
+    (``serve.cache.held_spec``)."""
     rows = shape.global_batch // math.prod(
         sizes[a] for a in sh.entry_axes(sh.logical_spec(
             ("batch",), (shape.global_batch,), sizes)[0]))
@@ -470,7 +471,13 @@ def _expected_argument_bytes(cfg, shape, sizes) -> int:
     if train:
         batch = TS.token_specs(cfg, rows, shape.seq_len, with_labels=True)
     else:
-        total += TC.cache_bytes(spec)
+        spec = TS.serve_specs(cfg, shape.global_batch, shape.seq_len,
+                              kind)[4]
+        for leaf in TC.leaves(spec):
+            held = TC.held_spec(leaf, sizes)
+            total += math.prod(
+                n // math.prod(sizes[a] for a in sh.entry_axes(e))
+                for n, e in zip(leaf.shape, held)) * leaf.dtype.itemsize
     return total + sum(t.numel() * t.element_size() for t in batch.values())
 
 
@@ -493,11 +500,17 @@ def test_run_cell_record(arch, shape, multi_pod):
                                                              sizes)
     assert mem["peak_per_device_bytes"] == mem["argument_bytes"] \
         + mem["temp_bytes"]
-    assert mem["fits_card"] and not rec["cache_sharded"]
-    # no serving path of either package shards its parameters: on the
-    # production mesh a serving cell is the modelled gather-per-step design
+    assert mem["fits_card"]
+    # a serving cell is the rank's sharded serving step: weights gathered
+    # where read, its cache split along batch (and kv_seq where the model
+    # axis divides it)
+    split = sh_.kind != "train" and any(
+        any(e is not None for e in TC.held_spec(leaf, sizes))
+        for leaf in TC.leaves(TS.serve_specs(cfg, sh_.global_batch,
+                                             sh_.seq_len, sh_.kind)[4]))
+    assert rec["cache_sharded"] == split
     assert rec["serving_pattern"] == (None if sh_.kind == "train"
-                                      else "gather_per_step")
+                                      else "gather_weights_split_cache")
     counted = rec["counted"]
     assert counted["dot_flops"] > 0 and counted["collective_wire_bytes"] > 0
     dp = sizes.get("pod", 1) * sizes["data"]
@@ -525,3 +538,48 @@ def test_main_writes_the_record_and_the_ok_line(tmp_path, capsys):
     assert rec["counted"]["kernel_calls"] == {
         "flash_attention_split_kv": 36}
     assert rec["memory"]["fits_card"]
+
+
+def test_serving_decode_bills_the_combine_all_gather():
+    """A decode step whose cache the model axis splits bills, beside the
+    weights' all-gathers (the prefill's, read for read), one (out, lse)
+    all-gather a layer over the model ranks: out [B, 1, H * Dh] in bf16
+    and lse [B, 1, H] float32 a rank, packed, gathered from 2."""
+    cfg = tconfigs.get_smoke("qwen3-4b")
+    mesh = {"data": 1, "model": 2}
+    recs = {kind: TD.run_cell("qwen3-4b", tconfigs.Shape(kind, 96, 2, kind),
+                              cfg=cfg, mesh=mesh, verbose=False)
+            for kind in ("prefill", "decode")}
+    assert all(r["cache_sharded"] for r in recs.values())
+    wire = {k: r["counted"]["per_collective"]["all-gather"]
+            for k, r in recs.items()}
+    B, H, Dh = 2, cfg.n_heads, cfg.head_dim
+    result = 2 * B * (H * Dh * 2 + H * 4)
+    assert wire["decode"] - wire["prefill"] == pytest.approx(
+        cfg.n_layers * TR.collective_bytes("all-gather", result, 2)[0])
+    assert recs["decode"]["counted"]["kernel_calls"] == {
+        "flash_attention_split_kv": cfg.n_layers}
+
+
+def test_serving_moe_on_a_split_batch_bills_the_routing_all_gather():
+    """Below the expert-parallel threshold an MoE layer on a batch the
+    data axis splits all-gathers its routing (each token's top-k expert
+    indices, int64) over the data ranks, once a layer: the prefill's
+    [B / 2 * S, K] a rank against the decode's [B / 2, K], the weights'
+    gathers equal read for read."""
+    cfg = tconfigs.get_smoke("deepseek-v2-236b")
+    mesh = {"data": 2, "model": 1}
+    S, B = 96, 2
+    recs = {kind: TD.run_cell("deepseek-v2-236b",
+                              tconfigs.Shape(kind, S, B, kind), cfg=cfg,
+                              mesh=mesh, verbose=False)
+            for kind in ("prefill", "decode")}
+    wire = {k: r["counted"]["per_collective"]["all-gather"]
+            for k, r in recs.items()}
+    n_moe = sum(grp.repeats * grp.kinds.count("mla_moe")
+                for grp in TM.layer_plan(cfg))
+    routing = lambda tokens: TR.collective_bytes(
+        "all-gather", 2 * tokens * cfg.top_k * 8, 2)[0]
+    assert n_moe > 0 and B * S < TL.MOE_EP_MIN_TOKENS
+    assert wire["prefill"] - wire["decode"] == pytest.approx(
+        n_moe * (routing(B // 2 * S) - routing(B // 2)))

@@ -417,7 +417,8 @@ def test_plains_at_padded_head_dims_vs_reference_attend(H, KH, D, Dv,
 
 
 def test_launch_counts_have_one_key_per_kernel():
-    assert set(tfa.LAUNCHES) == {"flash_attention"} | {
+    assert set(tfa.LAUNCHES) == {"flash_attention",
+                                 "flash_attention_split_kv_lse"} | {
         f"flash_attention_{n}" for n in tfa.KERNELS}
     tfa.reset_launches()
     assert not any(tfa.LAUNCHES.values())
@@ -539,3 +540,92 @@ def test_new_kernels_fully_masked_rows_are_zero(hopper):
             kernel=kernel)
         assert bool(torch.isfinite(got).all())
         assert float(got.abs().max()) == 0.0
+
+
+def _lse64(q, k, kv_pos, q_pos, window, cap):
+    """Each row's log-sum-exp [B, H, Sq] of its unmasked scores, in float64
+    (-inf where none), straight from the definition."""
+    B, Sq, H, Dh = q.shape
+    KH = k.shape[2]
+    qd, kd = q.double().numpy(), k.double().numpy()
+    kd = np.repeat(kd, H // KH, axis=2)                  # [B, Skv, H, D]
+    s = np.einsum("bqhd,bkhd->bhqk", qd / np.sqrt(Dh), kd)
+    if cap is not None:
+        s = cap * np.tanh(s / cap)
+    rel = q_pos.numpy()[:, None].astype(np.int64) - kv_pos.numpy()[None]
+    ok = (kv_pos.numpy() >= 0)[None] & (rel >= 0)
+    if window is not None:
+        ok &= rel < window
+    s = np.where(ok[None, None], s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    m_safe = np.where(np.isneginf(m), 0.0, m)
+    with np.errstate(divide="ignore"):
+        return (m_safe + np.log(np.exp(s - m_safe).sum(-1, keepdims=True))
+                )[..., 0]
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (40, 30.0)])
+def test_split_kv_plain_lse_vs_float64(window, cap):
+    """``split_kv_attention_plain``'s lse against a float64 log-sum-exp over
+    a ring with dead (-1) slots, across several splits, one query row
+    fully masked (-inf, output 0); its output the one without lse."""
+    B, H, KH, Dh, Skv = 2, 8, 2, 32, 3 * tfa.SPLIT_KV_CHUNK + 17
+    r = np.random.default_rng(13)
+    q, k, v = (torch.as_tensor(r.standard_normal(s, dtype=np.float32))
+               for s in ((B, 2, H, Dh), (B, Skv, KH, Dh), (B, Skv, KH, Dh)))
+    kv_pos = torch.as_tensor(np.where(r.random(Skv) < 0.2, -1,
+                                      r.permutation(Skv)).astype(np.int32))
+    q_pos = torch.tensor([Skv - 1, -5], dtype=torch.int32)  # row 1: nothing
+    kw = dict(q_positions=q_pos, kv_positions=kv_pos, window=window,
+              logit_cap=cap)
+    out, lse = tfa.split_kv_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (B, H, 2) and lse.dtype == torch.float32
+    want = _lse64(q, k, kv_pos, q_pos, window, cap)
+    assert np.isneginf(want[:, :, 1]).all() and np.isfinite(
+        want[:, :, 0]).all()
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()),
+                                  np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(lse.numpy()[fin], want[fin], rtol=1e-6,
+                               atol=1e-5)
+    torch.testing.assert_close(out, tfa.split_kv_attention_plain(q, k, v,
+                                                                 **kw),
+                               rtol=0, atol=0)
+    assert float(out[:, 1].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_split_kv_kernel_lse_vs_plain(hopper, dtype):
+    """The split-KV kernel's lse output (``return_lse``) against its plain
+    version's, atol 2e-3, a fully masked row -inf in both; its output as
+    without lse, the launch counted once as split_kv and once as
+    split_kv_lse."""
+    B, H, KH, Dh, Skv = 2, 8, 2, 64, 3 * tfa.SPLIT_KV_CHUNK + 17
+    r = np.random.default_rng(14)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(r.standard_normal(s, dtype=np.float32),
+                               device=hopper).to(dt)
+               for s in ((B, 2, H, Dh), (B, Skv, KH, Dh), (B, Skv, KH, Dh)))
+    kv_pos = torch.as_tensor(np.where(r.random(Skv) < 0.2, -1,
+                                      r.permutation(Skv)).astype(np.int32),
+                             device=hopper)
+    q_pos = torch.tensor([Skv - 1, -5], dtype=torch.int32, device=hopper)
+    kw = dict(window=40, logit_cap=30.0)
+    n = tfa.LAUNCHES["flash_attention_split_kv"]
+    n_lse = tfa.LAUNCHES["flash_attention_split_kv_lse"]
+    out, lse = tfa.flash_attention_cuda(q, k, v, q_pos, kv_pos,
+                                        return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_split_kv"] == n + 1
+    assert tfa.LAUNCHES["flash_attention_split_kv_lse"] == n_lse + 1
+    p_out, p_lse = tfa.split_kv_attention_plain(
+        q, k, v, q_positions=q_pos, kv_positions=kv_pos, return_lse=True,
+        **kw)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(p_lse))
+    fin = torch.isfinite(p_lse)
+    torch.testing.assert_close(lse[fin], p_lse[fin], rtol=0, atol=2e-3)
+    assert torch.equal(out, tfa.flash_attention_cuda(q, k, v, q_pos, kv_pos,
+                                                     **kw))
+    torch.testing.assert_close(out.float(), p_out, rtol=0,
+                               atol=_atol(dtype))

@@ -241,12 +241,12 @@ def test_danube_head_dim_120_bf16_within_reference_bound():
 
 # gemma2-27b's smoke configuration (2 layers: local, then global; a
 # 64-slot window, attention softcap 50, final softcap 30) past its window:
-# an 80-token prompt, its first 64 tokens prefilled (the local layer's
-# ring of 64 slots exactly full: a longer prefill writes some slots twice
-# in one scatter, in an order neither package fixes), its last 16 fed by
-# decode steps, then 8 more decode steps -- the ring wraps; the forward
-# pass over all 88 tokens masks by the window
-GEMMA_PREFILL, GEMMA_PROMPT, GEMMA_STEPS = 64, 80, 8
+# an 80-token prompt prefilled whole, past the local layer's ring of 64
+# slots (its first 16 positions overwritten within the prefill, each slot
+# keeping its last, as the reference's scatter leaves it), then 8 decode
+# steps -- the ring wraps again; the forward pass over all 88 tokens masks
+# by the window
+GEMMA_PREFILL, GEMMA_PROMPT, GEMMA_STEPS = 80, 80, 8
 
 
 def _gemma_past_window(dtype: str, check) -> None:
@@ -287,10 +287,9 @@ def _gemma_past_window(dtype: str, check) -> None:
 
 def test_gemma2_past_window_matches_reference_f32():
     """Smoke gemma2-27b in float32 with norm noise: the forward pass over
-    88 tokens, a 64-token prefill and 24 decode steps (the prompt's last
-    16 tokens, then 8), the local layer's 64-slot ring wrapped, each
-    against the reference's jitted entry points (rtol 1e-4 / atol 2e-4);
-    both caches' positions equal."""
+    88 tokens, an 80-token prefill past the local layer's 64-slot ring and
+    8 decode steps, each against the reference's jitted entry points (rtol
+    1e-4 / atol 2e-4); both caches' positions equal."""
     _gemma_past_window("float32", lambda got, want: np.testing.
                        assert_allclose(_np(got), _np(want), rtol=1e-4,
                                        atol=2e-4))
