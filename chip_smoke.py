@@ -49,7 +49,7 @@ nvcc per source, in parallel), then
      adopted 3e bootstrap placement, a hosting node's, the busiest
      network element's, a source's and an idle node's failure, then their
      recoveries, one of them with the periodic full solve on the degraded
-     problem; then a rack storm of two nodes around a flash-crowd wave,
+     problem; then a rack storm of one node around a flash-crowd wave,
      replayed in waves; each event held to the float64 oracle on the
      degraded problem, no VM on a dead node, no service lost;
   3g. runs the federation (``FederatedSession``) at four city-scale
@@ -159,6 +159,22 @@ nvcc per source, in parallel), then
      launches in each run (the sharded run's all with lse), cached decode
      against the forward pass in bf16 and in float32 at 2 layers, the
      peak under 90% of the card (all checked);
+  5h. serves tensor-parallel on two ranks of the one card: two spawned
+     processes on cuda:0 in gloo groups (NCCL puts no two ranks of a
+     group on one device), a ("data", "model") (1, 2) mesh: qwen3-4b at
+     full width and depth (its heads, kv heads, ffn columns and
+     vocabulary split across the two ranks) and hymba-1.5b at full width
+     and 2 of 32 layers (25 heads: its prefill splits the query rows),
+     8 prompts of 1024 tokens, the weights a plain run in this process
+     drew: each rank's logits at every step (prefill, decode
+     teacher-forced on the plain run's ids) within 3e-2 of the largest
+     plain logit in bf16 and 1e-4 in float32 at 2 layers, the ranks
+     equal, each rank's flash launches and attention shapes (16 / 4
+     heads a rank at qwen3-4b's prefill, 512 query rows at hymba's; all
+     heads over the rank's half of the slots at decode) checked; where
+     greedy ids part, the top-2 margins, prefill s and decode ms a step
+     beside the plain run's, each rank's prefill peak against the dry
+     run's at {"data": 1, "model": 2}, recorded;
   6. trains on the card: (6a) the differentiable attention (the kernel's
      forward, the reference's chunked backward in plain torch) against
      the same function with the plain forward and against float32
@@ -224,7 +240,9 @@ served models' placements) and, for the flash kernels,
 ``launches_encdec_float32`` / ``launches_danube_float32`` /
 ``launches_gemma2_float32`` (the float32 checks), the flash kernels' in
 phase 5g as ``launches_cmdr`` / ``launches_cmdr_sharded`` /
-``launches_cmdr_float32``, and as
+``launches_cmdr_float32``, the flash kernels' of rank 0 in phase 5h as
+``launches_tensor_parallel`` / ``launches_tensor_parallel_float32``, and
+as
 ``launches_train`` the flash kernels' in phases 6b and 6c and the
 placement kernels' in 6c, and as ``launches_parallel`` the flash
 kernels' in phase 7;
@@ -419,6 +437,16 @@ def timed_pair(launch, reps: int) -> dict:
     return {"ms": graph_ms(launch, reps), "event_ms": cuda_ms(launch, reps)}
 
 
+# phase 1's float64 oracle: the dense one (``ref.placement_objective_f64``:
+# [L, P] one-hots and a [P, P] traffic matrix) takes 1.5-2.3 s a placement
+# at R = 1024 on a host CPU, 48 of them most of the phase
+ORACLE_CUT = ("the float64 oracle of the 16 + 32 checked rows evaluated "
+              "link by link (ref.placement_objective_f64_links, equal to "
+              "the dense oracle at rel 1e-12: tests/test_torch_federation."
+              "py::test_link_oracle_equals_dense_oracle) in place of the "
+              "dense one, ~2 s a row at R = 1024: pays for phase 5h")
+
+
 def phase_kernels(kernels: dict) -> None:
     """Phase 1: each placement kernel against its plain version at
     city_p468, at the main path's shapes and at the shapes its design has
@@ -436,7 +464,8 @@ def phase_kernels(kernels: dict) -> None:
 
     def held_power(Xf, n_f64=0):
         """placement_power on Xf against its plain version (rtol 2e-5,
-        atol 1e-2) and, on its first n_f64 rows, the float64 oracle."""
+        atol 1e-2) and, on its first n_f64 rows, the float64 oracle
+        (``ORACLE_CUT``)."""
         got = pp.placement_power_cuda(Xf, *operands)
         want = pp.placement_power_ref(Xf, *operands)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-2)
@@ -444,8 +473,8 @@ def phase_kernels(kernels: dict) -> None:
                "max_abs_err_vs_plain": float((got - want).abs().max())}
         if n_f64:
             Xr = Xf[:n_f64].reshape(n_f64, R, V)
-            f64 = np.array([ref.placement_objective_f64(prob, X)
-                            for X in Xr])
+            f64 = np.array([ref.placement_objective_f64_links(
+                prob, X.cpu().numpy()) for X in Xr])
             np.testing.assert_allclose(got[:n_f64, 0].cpu().numpy(), f64,
                                        rtol=2e-5, atol=1e-2)
             rec["max_rel_err_vs_f64"] = float(np.max(np.abs(
@@ -650,7 +679,7 @@ def phase_kernels(kernels: dict) -> None:
         ptxas=[f for f in ptxas_usage(_build.BUILD_LOG.get("fused_anneal",
                                                            ""))
                if f["function"].endswith("true>")])
-    emit("kernels_vs_plain", **out)
+    emit("kernels_vs_plain", cut=ORACLE_CUT, **out)
 
 
 def rescore(session, result) -> None:
@@ -1504,16 +1533,21 @@ def hosted_vms(session, topo) -> tuple:
     return hosted, [int(sv.src[0]) for sv in eng._vsrs]
 
 
+# phase 3f (ii)'s rack storm: the non-source nodes hosting the most, cut
+# from 2 to 1 in PR 32 (a failure and a recovery fewer) to pay for 5h
+STORM_NODES = 1
+
+
 def fault_targets(session, topo) -> dict:
     """Phase 3f's fault targets on the adopted placement: the non-source
     node hosting the most live VMs, the network element with the most
-    traffic, the source of fewest live services, and the two non-source
-    nodes hosting the most."""
+    traffic, the source of fewest live services, and the
+    ``STORM_NODES`` non-source nodes hosting the most."""
     hosted, srcs = hosted_vms(session, topo)
     non_src = [int(p) for p in np.argsort(-hosted, kind="stable")
                if p not in set(srcs) and hosted[p] > 0]
     count = {p: srcs.count(p) for p in set(srcs)}
-    return dict(node=non_src[0], storm=non_src[:2],
+    return dict(node=non_src[0], storm=non_src[:STORM_NODES],
                 link=int(session.engine._state.lam.argmax()),
                 source=min(count, key=lambda p: (count[p], p)))
 
@@ -1537,8 +1571,9 @@ def phase_faults(boot_X) -> dict:
     periodic full solve, on the degraded problem, once.
 
     (ii) Adopt it again under ``defrag_every=0`` and replay a
-    ``rack_storm`` of the two non-source nodes hosting the most (failing
-    at t = 0.5, 0.55, recovering at 1.5, 1.55) merged with one tick of
+    ``rack_storm`` of the ``STORM_NODES`` non-source nodes hosting the
+    most (failing from t = 0.5, 0.05 apart, each recovering an hour
+    later) merged with one tick of
     ``flash_crowd_trace(64, 1, 16, rng=0)`` (8 departures, 8 arrivals at
     t = 1, a wave on the degraded substrate), ``waves=True``.
 
@@ -1719,11 +1754,12 @@ def phase_faults(boot_X) -> dict:
         ses2.replay(timeline, lambda sid: churn_vsr(sources, sid),
                     on_event=on_event, waves=True)
         replay_s = time.perf_counter() - t0
-    check([e["kind"] for e in replayed] == ["fail_node", "fail_node",
-                                            "wave", "recover_node",
-                                            "recover_node"],
+    check([e["kind"] for e in replayed]
+          == ["fail_node"] * STORM_NODES + ["wave"]
+          + ["recover_node"] * STORM_NODES,
           f"faults (ii): events {[e['kind'] for e in replayed]}")
-    check(mon2.get("node_failed") == mon2.get("node_recovered") == 2
+    check(mon2.get("node_failed") == mon2.get("node_recovered")
+          == STORM_NODES
           and ses2.health.all_up and set(ses2.sids) == admitted2
           and ses2.n_live == CHURN_R and not mon2.stranded_since,
           f"faults (ii): monitor {mon2.counters}, {ses2.n_live} live")
@@ -1731,9 +1767,10 @@ def phase_faults(boot_X) -> dict:
     rescore(ses2, ses2.result)            # after the count: a check only
     emit("faults_city_p468_R64",
          cut=f"R={CHURN_R} live services (phase 3 runs 1024), 8 handler "
-             "calls and a rack storm of 2 nodes with one 16-event wave: "
-             "each re-solve's polish sweeps every free VM, padded to "
-             "R x (V - 1) positions, twice",
+             f"calls and a rack storm of {STORM_NODES} node (cut from 2 in "
+             "PR 32 to pay for phase 5h) with one 16-event wave: each "
+             "re-solve's polish sweeps every free VM, padded to R x (V - 1) "
+             "positions, twice",
          P=ses.problem.P, N=ses.problem.N, R=ses.problem.R,
          V=ses.problem.V, targets=tg, stranded_services=m,
          defrag_every=7 + m, adopted_objective=adopted.objective,
@@ -1764,6 +1801,10 @@ FED_PROFILE_POSITIONS = 64
 # so the default 4 passes all ran (34 s at 8 services a region); one pass
 # shows the migration and its re-solve
 FED_COORD_PASSES = 1
+# (ii)'s wave: a departure and an arrival in each of these regions (cut in
+# PR 32 from one departure in every region and two arrivals in each of 2
+# and 3, to pay for phase 5h: each region touched re-solves, ~4.5 s)
+FED_WAVE_REGIONS = (2, 3)
 
 
 def _sync() -> None:
@@ -1890,7 +1931,8 @@ def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
     pass, ``FED_COORD_PASSES``), a ``PlacementMonitor`` and per-region
     monitors solves the same services (the coordinator must migrate),
     then 4 ``add``s homed in regions 2 and 3 (one with ``region=``), 2
-    ``remove``s, one ``apply_wave`` of 4 arrivals and 4 departures,
+    ``remove``s, one ``apply_wave`` of an arrival and a departure in
+    each region of ``FED_WAVE_REGIONS``,
     ``defrag()`` (the regional full solves: ``fused_anneal``),
     ``fail_region(1)`` / ``recover_region(1)``, ``brownout_region(2, w)``
     under region 2's watts / ``brownout_end_region(2)``, and
@@ -2094,16 +2136,16 @@ def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
                 local(2)):
         admitted.discard(sid)
         call(f"remove({sid})", lambda: ses.remove(sid))
-    deps = [local(g) for g in range(part.G)]
+    deps = [local(g) for g in FED_WAVE_REGIONS]
     arr = [(arrival(nid + k, g, k), nid + k)
-           for k, g in enumerate((2, 3, 2, 3))]
+           for k, g in enumerate(FED_WAVE_REGIONS)]
     admitted.difference_update(deps)
-    wr = call("apply_wave(4 arrivals, 4 departures)",
+    wr = call(f"apply_wave({len(arr)} arrivals, {len(deps)} departures)",
               lambda: ses.apply_wave(arr, deps))
-    check(sorted(wr.admitted) == [nid + k for k in range(4)]
+    check(sorted(wr.admitted) == [nid + k for k in range(len(arr))]
           and not wr.rejected and not wr.queued and wr.departed == deps,
           f"federation (ii): wave {wr}")
-    nid += 4
+    nid += len(arr)
     n0 = dict(pp.LAUNCHES)
     call("defrag()", ses.defrag)
     check(pp.LAUNCHES["fused_anneal"] > n0["fused_anneal"],
@@ -2176,7 +2218,9 @@ def phase_federation(device: str = "cuda", topo_kw: dict = FED_TOPO,
              "the profiler's raw event list, not its FunctionEvent tree "
              f"(~65 us an event on the host); (ii) {n_live} live services "
              "a region: a region failure re-solves once per stranded or "
-             "evacuated service",
+             "evacuated service; its wave touches regions "
+             f"{list(FED_WAVE_REGIONS)} (cut from all four in PR 32 to pay "
+             "for phase 5h)",
          batch=batch_out, launches_i=launches_i, coordinator=coord,
          calls=calls, evacuated=n_evac,
          fleet_monitor=ses.fleet_monitor().snapshot(),
@@ -3962,6 +4006,358 @@ def phase_serve_cmdr() -> tuple:
         sharded, resident_before_bytes=resident), depth
 
 
+# phase 5h: tensor-parallel serving on two ranks of the one card.  NCCL
+# puts no two ranks of a group on one device, so the two spawned processes
+# join gloo groups (scripts/gloo_cuda_probe.py: gloo carries every
+# collective of the path on CUDA tensors of one card)
+TP_WORLD = 2
+# (arch, layers: None for the config's own depth)
+TP_CELLS = (("qwen3-4b", None), ("hymba-1.5b", 2))
+# the ranks' logits against the plain engine's, relative to the largest
+# logit.  bf16: the reference's bound for the same arithmetic summed in
+# another order (cached decode against the forward pass,
+# tests/test_models.py:93): each rank rounds its partial products to bf16
+# before the all-reduce, and on the smoke config at 4 layers that alone
+# moves the logits 1.9e-2 of the largest, as far as bf16 against float32
+# (2.0e-2); float32 at TP_F32_LAYERS layers, tight
+TP_LOGITS_REL = 3e-2
+TP_F32_LAYERS = 2
+TP_F32_STEPS = 4
+TP_F32_REL = 1e-4
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+TP_COLLECTIVE_TIMEOUT_S = 300
+
+
+def _tp_cfg(arch: str, n_layers, dtype=None):
+    """``arch``'s full-width config at ``n_layers`` (None: its own) in
+    ``dtype`` (None: its own)."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    kw = {k: v for k, v in (("n_layers", n_layers), ("dtype", dtype))
+          if v is not None}
+    return dataclasses.replace(cfg, **kw)
+
+
+def _tp_tokens(cfg, batch: int):
+    import torch
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, SERVE_S)), dtype=torch.int32, device="cuda")
+
+
+def _tp_plain(cfg, batch: int, steps: int, path) -> dict:
+    """The plain engine's run of ``cfg`` in this process on ``batch``
+    prompts of ``SERVE_S`` tokens (build_served's weights and tokens): a
+    step-by-step greedy pass, synchronized per step, with no warm-up (the
+    ranks take none either; gloo's collectives, not cuBLAS's first
+    calls, set their times) -- every step's logits (float32, on the
+    host) and ids saved to ``path`` for the ranks; its prefill seconds
+    and decode ms per step returned, the model freed."""
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import cache as C, engine
+    model = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = _tp_tokens(cfg, batch)
+    spec = C.cache_spec(cfg, batch, SERVE_SMAX,
+                        dtype=getattr(torch, cfg.dtype))
+    cache = C.zeros(spec, device="cuda")
+    logits, ids, secs = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 0:
+            got, cache = engine.prefill(model, cfg, {"tokens": tokens}, cache)
+        else:
+            got, cache = engine.decode_step(model, cfg, ids[-1][:, None],
+                                            SERVE_S + i - 1, cache)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        ids.append(torch.argmax(got, -1).to(torch.int32))
+        logits.append(got.cpu())
+    check(all(bool(torch.isfinite(t).all()) for t in logits),
+          f"serve_tensor_parallel {cfg.name}: a plain logit is not finite")
+    torch.save({"tokens": tokens.cpu(), "logits": logits,
+                "ids": torch.stack(ids, 1).cpu()}, path)
+    del model, cache, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill_s=secs[0],
+                decode_ms_per_step=1e3 * statistics.mean(secs[1:]),
+                decode_ms_median=1e3 * statistics.median(secs[1:]))
+
+
+def _tp_rank(rank: int, jobs: list, store: str) -> None:
+    """One rank of phase 5h (a spawned process): a gloo group on a
+    ``file://`` store, a ("data", "model") (1, ``TP_WORLD``) mesh on
+    ``cuda:0``, each job of ``jobs`` through ``_tp_cell``; its record
+    written to ``rank<r>.json`` in ``store``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + str(Path(store) / "store"),
+        rank=rank, world_size=TP_WORLD,
+        timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = mesh_mod.make_mesh((1, TP_WORLD), ("data", "model"))
+        out = {"rank": rank,
+               "backend": dist.get_backend(mesh.get_group("model")),
+               "cells": {job["name"]: _tp_cell(job, mesh) for job in jobs}}
+        (Path(store) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_cell(job: dict, mesh) -> dict:
+    """A rank's run of one 5h job: the weights ``_tp_plain`` drew, sharded
+    (``engine.shard_model``), the rank's batch rows and cache blocks;
+    under ``mesh_context`` the engine's ``prefill`` and ``decode_step``
+    (the entry points a user calls), teacher-forced on the plain run's
+    ids and synchronized per step: its flash launches by kernel counted,
+    every step's logits against the plain run's (largest absolute
+    difference over the largest logit), the first step whose greedy id
+    differs and the plain and the rank's top-2 margins there, the
+    prefill's peak and seconds, decode ms per step; the shapes each
+    flash-attention launch took (the rank's heads)."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serve import cache as C, engine
+    ref = torch.load(job["path"])
+    cfg = _tp_cfg(job["arch"], job["n_layers"], job["dtype"])
+    steps = len(ref["logits"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    model = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    engine.shard_model(model, mesh)
+    gc.collect()
+    batch = engine.batch_block({"tokens": ref["tokens"].cuda()}, mesh)
+    B = batch["tokens"].shape[0]
+    spec = C.cache_spec(cfg, B, SERVE_SMAX, dtype=getattr(torch, cfg.dtype))
+    shapes, real = set(), fa.flash_attention_cuda
+
+    def recorded(q, k, v, *args, **kw):
+        shapes.add(("split_kv_lse" if kw.get("return_lse") else
+                    fa.choose_kernel(q.dtype, q.shape[3], v.shape[3],
+                                     q.shape[1] * q.shape[2] // k.shape[2]),
+                    *q.shape[:3], k.shape[2], k.shape[1]))
+        return real(q, k, v, *args, **kw)
+
+    out = {}
+    fa.flash_attention_cuda = recorded
+    try:
+        with sh.mesh_context(mesh):
+            cache = C.zeros(spec, device="cuda", mesh=mesh)
+            fa.reset_launches()
+            secs, rels, digests, first = [], [], [], None
+            for i in range(steps):
+                torch.cuda.synchronize()
+                if i == 0:
+                    torch.cuda.reset_peak_memory_stats()
+                    out["prefill_resident_bytes"] = \
+                        torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                if i == 0:
+                    got, cache = engine.prefill(model, cfg, batch, cache)
+                else:
+                    fed = ref["ids"][:, i - 1:i].cuda()
+                    got, cache = engine.decode_step(model, cfg, fed,
+                                                    SERVE_S + i - 1, cache)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                if i == 0:
+                    out["prefill_peak_bytes"] = \
+                        torch.cuda.max_memory_allocated()
+                want = ref["logits"][i].cuda()
+                check(bool(torch.isfinite(got).all()),
+                      f"serve_tensor_parallel {cfg.name}: a logit is not "
+                      "finite")
+                rels.append(float((got - want).abs().max()
+                                  / want.abs().max()))
+                digests.append(float(got.abs().sum()))
+                mine = torch.argmax(got, -1).cpu()
+                if first is None and not torch.equal(mine, ref["ids"][:, i]
+                                                     .long()):
+                    row = int((mine != ref["ids"][:, i]).nonzero()[0])
+                    margin = lambda t: float(torch.topk(t[row].float(), 2)
+                                             .values.diff().abs())
+                    first = dict(step=i, row=row, plain_margin=margin(want),
+                                 rank_margin=margin(got))
+            launches = dict(fa.LAUNCHES)
+    finally:
+        fa.flash_attention_cuda = real
+    out.update(
+        resident_before_bytes=resident,
+        launches={kn: launches[f"flash_attention_{kn}"] for kn in fa.KERNELS},
+        lse_launches=launches["flash_attention_split_kv_lse"],
+        attention_shapes=sorted(shapes), prefill_s=secs[0],
+        decode_ms_per_step=1e3 * statistics.mean(secs[1:]),
+        decode_ms_median=1e3 * statistics.median(secs[1:]),
+        logits_rel=max(rels), logits_rel_by_step=rels,
+        logits_digest=digests, ids_first_difference=first,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        local_param_bytes=sum(p.to_local().numel()
+                              * p.to_local().element_size()
+                              for p in model.parameters()))
+    del model, cache, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_tp() -> tuple:
+    """Phase 5h: tensor-parallel serving on two ranks of the one card
+    (two spawned processes on ``cuda:0``, gloo groups, a ("data",
+    "model") (1, 2) mesh): qwen3-4b at full width and depth (32 / 8 heads
+    of 128, d_ff 9728, vocab 151936: every split -- heads, kv heads, ffn
+    columns, vocab) and hymba-1.5b at full width and ``TP_CELLS``' depth
+    (25 heads: the query-row fallback at prefill, the whole heads at
+    decode; its 32001-token vocabulary whole) by phase 5's protocol (8
+    prompts of 1024 tokens, greedy), the weights those of a plain run in
+    this process (``_tp_plain``; its model freed before the spawn);
+    float32 at ``TP_F32_LAYERS`` layers on 2 prompts.  Checks: each rank's
+    logits at every step (prefill, then decode teacher-forced on the
+    plain run's ids) within ``TP_LOGITS_REL`` of the largest plain logit
+    (``TP_F32_REL`` in float32), the two ranks' logits equal; each
+    rank's launches -- wgmma one a layer at prefill, split-KV with its
+    lse output one a layer a decode step, no SIMT in bf16 -- and its
+    attention shapes (qwen3-4b's prefill at 16 / 4 heads a rank,
+    hymba's at 512 query rows; the decode at every head over the rank's
+    half of the cache's slots).  Recorded: where greedy ids part from the
+    plain run's and the top-2 margins there; prefill s and decode ms a
+    step of both; each rank's prefill peak against the dry run's
+    prediction at {"data": 1, "model": 2} (phase 8's method).  Returns
+    the kernels line's launches (rank 0's bf16 greedy calls, and its
+    float32 passes)."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    mesh_sizes = {"data": 1, "model": TP_WORLD}
+    jobs, plain, cells = [], {}, {}
+    for arch, n_layers in TP_CELLS:
+        for dtype, layers, batch, steps in (
+                (None, n_layers, SERVE_B, SERVE_GEN),
+                ("float32", TP_F32_LAYERS, F32_CHECK_B, TP_F32_STEPS)):
+            cfg = _tp_cfg(arch, layers, dtype)
+            name = arch if dtype is None else f"{arch}_float32"
+            path = TP_DIR / f"{name}.pt"
+            plain[name] = _tp_plain(cfg, batch, steps, path)
+            jobs.append(dict(name=name, arch=arch, n_layers=layers,
+                             dtype=dtype, path=str(path)))
+            cells[name] = cfg
+    full = {arch: configs.get(arch) for arch, _ in TP_CELLS}
+    qwen = full["qwen3-4b"]
+    check(qwen.d_model == 2560 and qwen.n_heads == 32
+          and qwen.n_kv_heads == 8 and qwen.head_dim == 128
+          and qwen.d_ff == 9728 and qwen.vocab == 151936,
+          f"serve_tensor_parallel: {qwen}")
+    check(full["hymba-1.5b"].n_heads % TP_WORLD != 0,
+          "serve_tensor_parallel: hymba's heads divide the model axis")
+    spawn_t = time.perf_counter()
+    mp.start_processes(_tp_rank, args=(jobs, str(TP_DIR)), nprocs=TP_WORLD,
+                       start_method="spawn")
+    ranks_s = time.perf_counter() - spawn_t
+    ranks = [json.loads((TP_DIR / f"rank{r}.json").read_text())
+             for r in range(TP_WORLD)]
+    out = {}
+    for name, cfg in cells.items():
+        got = [r["cells"][name] for r in ranks]
+        L, H, KH = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+        f32 = cfg.dtype == "float32"
+        steps = TP_F32_STEPS if f32 else SERVE_GEN
+        B = F32_CHECK_B if f32 else SERVE_B
+        want = ({"wgmma": 0, "split_kv": L * (steps - 1), "simt": L}
+                if f32 else
+                {"wgmma": L, "split_kv": L * (steps - 1), "simt": 0})
+        bound = TP_F32_REL if f32 else TP_LOGITS_REL
+        heads = H // TP_WORLD if H % TP_WORLD == 0 else H
+        rows = SERVE_S if H % TP_WORLD == 0 else SERVE_S // TP_WORLD
+        kv_heads = KH // TP_WORLD if H % TP_WORLD == 0 \
+            and KH % TP_WORLD == 0 else KH
+        for r, g in enumerate(got):
+            check(g["launches"] == want
+                  and g["lse_launches"] == want["split_kv"],
+                  f"serve_tensor_parallel {name} rank {r}: launches "
+                  f"{g['launches']} ({g['lse_launches']} with lse), want "
+                  f"{want}")
+            check(g["logits_rel"] <= bound,
+                  f"serve_tensor_parallel {name} rank {r}: logits rel "
+                  f"{g['logits_rel']} above {bound}")
+            prefill = [s for s in g["attention_shapes"]
+                       if s[0] != "split_kv_lse"]
+            decode = [s for s in g["attention_shapes"]
+                      if s[0] == "split_kv_lse"]
+            check(bool(prefill) and all(tuple(s[1:5]) == (B, rows, heads,
+                                                          kv_heads)
+                                        for s in prefill)
+                  and bool(decode) and all(
+                      tuple(s[1:5]) == (B, 1, H, KH)
+                      and s[5] < SERVE_SMAX for s in decode),
+                  f"serve_tensor_parallel {name} rank {r}: attention "
+                  f"shapes {g['attention_shapes']}")
+        check(got[0]["logits_digest"] == got[1]["logits_digest"],
+              f"serve_tensor_parallel {name}: the ranks' logits differ")
+        rec = None
+        if not f32:
+            rec = dryrun.run_cell(
+                name, configs.Shape("prefill_5h", SERVE_S, SERVE_B,
+                                    "prefill"),
+                mesh=mesh_sizes, cfg=cfg, cache_len=SERVE_SMAX,
+                verbose=False)
+            pred = rec["memory"]["peak_per_device_bytes"]
+            for g in got:
+                g["peak_ratio"] = pred / (g["prefill_peak_bytes"]
+                                          - g["resident_before_bytes"])
+                g["temp_ratio"] = rec["memory"]["temp_bytes"] / (
+                    g["prefill_peak_bytes"] - g["prefill_resident_bytes"])
+        out[name] = dict(
+            config=cfg.name, n_layers=L, d_model=cfg.d_model, n_heads=H,
+            n_kv_heads=KH, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+            vocab=cfg.vocab, dtype=cfg.dtype, batch=B, prompt_len=SERVE_S,
+            steps=steps, plain=plain[name], ranks=got,
+            logits_bound=bound,
+            dryrun=None if rec is None else dict(
+                predicted_peak_bytes=rec["memory"]["peak_per_device_bytes"],
+                temp_bytes=rec["memory"]["temp_bytes"],
+                argument_bytes=rec["memory"]["argument_bytes"],
+                dot_flops=rec["counted"]["dot_flops"],
+                per_collective=rec["counted"]["per_collective"],
+                serving_pattern=rec["serving_pattern"]))
+    launches = {f"flash_attention_{kn}": sum(
+        ranks[0]["cells"][n]["launches"][kn] for n, c in cells.items()
+        if c.dtype != "float32") for kn in fa.KERNELS}
+    launches_f32 = {f"flash_attention_{kn}": sum(
+        ranks[0]["cells"][n]["launches"][kn] for n, c in cells.items()
+        if c.dtype == "float32") for kn in fa.KERNELS}
+    emit("serve_tensor_parallel", world=TP_WORLD,
+         mesh={"axes": ["data", "model"], "shape": [1, TP_WORLD],
+               "backend": ranks[0]["backend"], "device": "cuda:0"},
+         cells=out, ranks_s=ranks_s, card_bytes=mesh_mod.CARD_MEMORY_BYTES,
+         cut=f"hymba-1.5b at {dict(TP_CELLS)['hymba-1.5b']} of "
+             f"{full['hymba-1.5b'].n_layers} layers; the float32 checks at "
+             f"{TP_F32_LAYERS} layers on {F32_CHECK_B} prompts and "
+             f"{TP_F32_STEPS} steps; qwen3-4b whole",
+         seconds=time.perf_counter() - t0)
+    return launches, launches_f32
+
+
 def serve_cells(phase: str, archs) -> tuple:
     """Phase 5's protocol on each of ``archs`` at full width and depth, 8
     prompts (whisper's 187-token decoder prompt over 1500 frames; 768
@@ -5296,6 +5692,11 @@ def main() -> int:
         phase_serve_cmdr()
     for tag, counts in (("cmdr", launches), ("cmdr_sharded", launches_sh),
                         ("cmdr_float32", launches_f32)):
+        for name, n in counts.items():
+            kernels[name][f"launches_{tag}"] = n
+    launches, launches_f32 = phase_serve_tp()
+    for tag, counts in (("tensor_parallel", launches),
+                        ("tensor_parallel_float32", launches_f32)):
         for name, n in counts.items():
             kernels[name][f"launches_{tag}"] = n
     phase_train_attention()

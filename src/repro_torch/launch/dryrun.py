@@ -20,40 +20,57 @@ The rank's step is the sharded train step's (``train/step.py``):
     cut back to the block (its reduce-scatters), here by ``_MetaGather``,
     which moves no data;
   * AdamW runs on the blocks.
-The "model" axis shards memory, not compute (ROADMAP item 12): a rank's
-dot FLOPs are the whole model on its batch block, so on the 16 x 16 mesh
-``useful_flops_ratio`` (the model FLOPs a device's share of the mesh over
-the FLOPs it counts) is about 1/16 for every cell.
+The "model" axis shards the train step's memory, not its compute
+(ROADMAP item 12c): a rank's dot FLOPs are the whole model on its batch
+block, so on the 16 x 16 mesh a train cell's ``useful_flops_ratio``
+(the model FLOPs a device's share of the mesh over the FLOPs it counts)
+is about 1/16.
 
-A serving cell's step is the rank's sharded serving step
+A serving cell's step is the rank's tensor-parallel serving step
 (``serve/engine.py``), traced under ``parallel.sharding.mesh_context`` of
-the sizes, for the mesh's rank 0 (``serving_pattern``:
-"gather_weights_split_cache"; "whole" on one device):
+the sizes, for the mesh's rank 0 (``serving_pattern``: "tensor_parallel"
+where the model axis holds more than one rank, "gather_weights_split_cache"
+where only the batch axes split, "whole" on one device):
   * the rank holds its blocks of the serving parameters (bf16 matrices,
-    float32 1-D leaves) as the train step holds its masters, and each leaf
-    a mesh axis splits is made whole where the step reads it
-    (``engine.gathered_view``; here ``_meta_whole``, which moves no data)
-    and dropped after its layer; a leaf no axis splits is read in place;
+    float32 1-D leaves) as the train step holds its masters; a leaf of
+    ``models.model.tp_leaves`` is read as the rank's block along "model",
+    made whole only along the other axes that split it, any other leaf a
+    mesh axis splits is made whole where the step reads it
+    (``engine.gathered_view``; here ``_meta_view_leaf``, which moves no
+    data) and dropped after its layer; a leaf no axis splits is read in
+    place;
+  * the step runs under ``parallel.sharding.tensor_parallel``: the rank's
+    dot FLOPs are its heads' (or, where the heads do not divide the model
+    axis and the prompt does, its query rows'), its ffn columns' and its
+    vocabulary block's; MLA, the MoE and the recurrent blocks compute
+    whole;
   * its cache is its block (``serve.cache.zeros(..., mesh=...)``): split
     along ``batch`` over ("pod", "data") and along ``kv_seq`` over "model"
     where they divide, the recurrent states whole on the model ranks
     (``cache_sharded``: whether any leaf is split; ``memory.cache_bytes``:
     the rank's block);
-  * a prefill attends its fresh K/V with no collective; a decode step
-    attends the rank's block of each split cache and all-gathers (out,
-    lse) over the model ranks to combine them (``models/layers.py``).
+  * a prefill attends its fresh K/V; a decode step over a split cache
+    attends the rank's block of it and all-gathers (out, lse) over the
+    model ranks to combine them (``models/layers.py``).
 A decode cell's cache holds ``seq_len - 1`` positions of history (each
 ring slot its latest) and the step decodes position ``seq_len - 1``.
 
 The collectives are counted from the step's own pattern, each op billed
 by ``roofline.collective_bytes`` at its group size:
   * per leaf, an all-gather of the compute copy over each axis that
-    splits it (major axis last, the payload growing): training once a
-    step, serving at each read of the leaf (a layer's leaves once, a tied
-    embedding twice), billed as the trace reaches it;
-  * serving's decode, per attention layer whose cache ``kv_seq`` is split,
-    the (out, lse) all-gather over the model ranks, billed by the
-    attention's own call (``roofline._Tracer.collective``);
+    splits it and that the step reads whole (major axis last, the
+    payload growing): training once a step, serving at each read of the
+    leaf (a layer's leaves once, a tied embedding twice), billed as the
+    trace reaches it;
+  * serving's tensor-parallel collectives, billed by the layers' own
+    calls as the trace reaches them (``parallel.sharding``'s helpers
+    through ``roofline._Tracer.collective``): the all-reduce of each
+    attention's and MLP's output projection and of the embedding, the
+    all-gather of the logits along the vocabulary (of the query rows
+    after ``wo`` in the fallback), the fresh K/V's all-gather along the
+    heads where a cache takes them, a decode's query heads' all-gather
+    and the (out, lse) all-gather of each attention layer whose cache
+    ``kv_seq`` is split;
   * training, per microbatch, a reduce-scatter of the float32 gradient
     over each batch axis that splits the leaf; after the microbatches an
     all-reduce over each batch axis that does not, and over "pod"; the
@@ -304,17 +321,30 @@ def _cache_positions(cache, n: int) -> Dict[torch.Tensor, np.ndarray]:
     return known
 
 
-def _meta_whole(placed, model: M.Model, sizes: Mapping[str, int]
-                ) -> Callable:
-    """``engine.gathered_view``'s leaf function of a rank on meta: a leaf
-    a mesh axis splits made whole (``repeat``: the gathers' output,
+def _meta_view_leaf(placed, model: M.Model, sizes: Mapping[str, int]
+                    ) -> Callable:
+    """``engine.gathered_view``'s leaf function of a rank on meta
+    (``engine._gather_plan``'s reads): a leaf a mesh axis splits made
+    whole, or for a leaf of ``models.model.tp_leaves`` the rank's block
+    along the model group's axes (``repeat``: the gathers' output,
     written), each all-gather billed to the tracer as ``_bill_gathers``
-    bills the train step's (minor axis first); any other leaf as it is."""
-    whole = {id(p): (shape, spec, f)
-             for p, (shape, spec, f) in zip(model.parameters(), placed)}
+    bills the train step's (minor axis first); any other leaf as it
+    is."""
+    tp_axes = sh.tp_axes(sizes)
+    n = math.prod(sizes[a] for a in tp_axes)
+    split = M.tp_leaves(model.cfg, n) if tp_axes else set()
+    read = {}
+    for (name, p), (shape, spec, f) in zip(model.named_parameters(), placed):
+        if name in split:
+            spec = tuple(tuple(a for a in sh.entry_axes(e)
+                               if a not in tp_axes) or None for e in spec)
+            shape = tuple(s // (k // g) for s, k, g in zip(
+                shape, f, _factors(spec, len(shape), sizes)))
+            f = _factors(spec, len(shape), sizes)
+        read[id(p)] = (shape, spec, f)
 
     def leaf(p: torch.Tensor) -> torch.Tensor:
-        shape, spec, f = whole[id(p)]
+        shape, spec, f = read[id(p)]
         if not any(k > 1 for k in f):
             return p
         for n_bytes, g in _leaf_gathers(shape, spec, f, p.element_size(),
@@ -344,8 +374,9 @@ def build_serve(cfg: ArchConfig, shape: configs.Shape,
     model = M.init_model(cfg, device="meta")
     placed = _place(model, sizes)
     split = any(k > 1 for _, _, f in placed for k in f)
-    view = engine.gathered_view(model, _meta_whole(placed, model, sizes)) \
-        if split else model
+    tp = bool(sh.tp_axes(sizes))
+    view = engine.gathered_view(model, _meta_view_leaf(placed, model, sizes),
+                                tp) if split else model
     cache = C.zeros(spec, device=META, mesh=sizes)
     blocks = C.leaves(cache)
     cache_split = any(tuple(b.shape) != s.shape
@@ -369,8 +400,8 @@ def build_serve(cfg: ArchConfig, shape: configs.Shape,
             return run()
 
     args = list(model.parameters()) + list(batch.values()) + blocks
-    pattern = "gather_weights_split_cache" if split or cache_split \
-        else "whole"
+    pattern = ("tensor_parallel" if tp else "gather_weights_split_cache"
+               if split or cache_split else "whole")
     return _Cell(step, known, _nbytes(args), _nbytes(blocks), rows,
                  lambda rec: None, pattern, cache_split)
 

@@ -6,8 +6,10 @@ group.  Axes:
 
   pod    -- data parallelism between pods (the slow axis; gradients only)
   data   -- FSDP/ZeRO: params + optimizer state sharded, batch sharded
-  model  -- the tensor-parallel axis (heads / ffn / experts / vocab); the
-            port shards memory over it, not compute (``train/step.py``)
+  model  -- the tensor-parallel axis (heads / ffn / experts / vocab):
+            serving splits the attention, dense-MLP and vocabulary
+            compute over it (``serve/engine.py``); training shards only
+            memory over it (``train/step.py``)
 
 A mesh needs ``torch.distributed`` initialized with one process a device
 (the caller gives its address, world size and rank).  A mesh of one

@@ -39,6 +39,37 @@ sizes the engine records (``parallel.sharding.step_fact``), it counts the
 whole batch's tokens and queues them across the ranks below the
 expert-parallel threshold.
 
+**Tensor-parallel serving.**  Under the serving step's model group
+(``parallel.sharding.tensor_parallel``: the "model" axis of more than one
+rank) the served view hands a layer the rank's blocks of the leaves
+``models.model.tp_leaves`` names, and each of the reference's activation
+constraints becomes the layout the activation has on the rank, with one
+named collective where two consecutive constraints disagree:
+  * ``attention``: q for the rank's H / n heads (``head_share``; the
+    reference's ``shard(q, ..., "heads", ...)``), k and v for its KH / n
+    kv heads where n divides them, else whole, the rank's query heads
+    reading their groups' kv heads (``kv_for_heads``).  Where n does not
+    divide the heads and S > ``DECODE_DIRECT_MAX_Q`` the rank takes S / n
+    query rows instead (the reference's ``q_seq`` fallback, hymba's 25
+    heads), attends them against the whole K/V and the rows are
+    all-gathered after ``wo`` (``tp_output``).  Without a cache the rank
+    attends with no collective.  A cache takes every kv head: the fresh
+    K/V split by heads are all-gathered along the heads (``gather_heads``;
+    the reshard between ``shard(k, ..., "heads", ...)`` and ``shard(ck,
+    "batch", "kv_seq", ...)`` as an all-gather and the owner's slice of
+    the slots), the rank then attending its heads' kv heads of the cache
+    (whole) or of the fresh K/V (a prefill into a ``kv_seq`` block).  A
+    decode step over a ``kv_seq`` block gathers the one-token q of every
+    head in the same all-gather, attends every head on its block, combines
+    the ranks' (out, lse) (``combine_ranks``) and keeps its heads.  ``out
+    @ wo`` is then a partial sum over the heads, all-reduced over the
+    group (the reference's ``shard(y, "batch", None, None)``);
+  * ``mlp``: the rank's d_ff / n columns of w_gate / w_up, its rows of
+    w_down, the products all-reduced (the reference's ``shard(h, ...,
+    "tp")`` then ``shard(y, ...)``);
+  * MLA, the MoE (its experts and shared expert) and the recurrent blocks
+    compute whole on every rank, from leaves gathered whole.
+
 A block's parameters are read by name (``params["wq"]``), so a dict of
 tensors and a ``models.model.ParamBlock`` both serve.  Weights are cast to
 the activation dtype at each use, as in the reference; that cast is a no-op
@@ -65,7 +96,8 @@ __all__ = ["Init", "FLOAT32_LEAVES", "leaf_dtype", "rms_norm", "rope",
            "softcap", "flash_attention", "direct_attention", "attend", "init_attention", "attention",
            "init_mla", "mla_attention", "init_mlp", "mlp", "init_moe",
            "moe", "moe_plan", "route", "queue_ranks", "moe_dropped",
-           "combine_ranks", "DECODE_DIRECT_MAX_Q"]
+           "combine_ranks", "head_share", "kv_for_heads", "gather_heads",
+           "tp_output", "DECODE_DIRECT_MAX_Q"]
 
 # ---------------------------------------------------------------------------
 # init helper
@@ -193,40 +225,130 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     [B, Smax, KH, Dh], "pos_ids" [Smax] int32}, a ring buffer (slot =
     position % Smax) written IN PLACE -- the reference returns new buffers;
     the port updates the cache it is given and returns it, which saves a
-    copy of the whole cache per layer and step."""
+    copy of the whole cache per layer and step.  Under a model group
+    (``parallel.sharding.tensor_parallel``) the rank computes its share
+    (module docstring, tensor-parallel serving)."""
     B, S, D = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     w = lambda name: params[prefix + name].to(x.dtype)
-    q = (x @ w("wq")).reshape(B, S, H, Dh)
-    k = (x @ w("wk")).reshape(B, S, KH, Dh)
-    v = (x @ w("wv")).reshape(B, S, KH, Dh)
+    g, h0, Hq = head_share(H)
+    rows = _q_rows(H, S)
+    xq, q_pos = x, positions
+    if rows is not None:
+        xq, q_pos = x[:, rows[0]:rows[0] + rows[1]], \
+            positions[rows[0]:rows[0] + rows[1]]
+    KHl = KH // g.size if g is not None and KH % g.size == 0 else KH
+    q = (xq @ w("wq")).reshape(B, -1, Hq, Dh)
+    k = (x @ w("wk")).reshape(B, S, KHl, Dh)
+    v = (x @ w("wv")).reshape(B, S, KHl, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, params[prefix + "q_norm"], cfg.norm_eps)
         k = rms_norm(k, params[prefix + "k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
+    q = rope(q, q_pos, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kw = dict(causal=causal, window=window, logit_cap=cfg.attn_logit_softcap)
+    # the kv heads the rank's query heads read, of a tensor of all KH
+    sel = (lambda t: t) if g is None else \
+        (lambda t: kv_for_heads(t, h0, Hq, H // KH))
     if cache is None:
-        out = attend(q, k, v, q_positions=positions, kv_positions=positions,
-                     **kw)
+        out = attend(q, k if KHl < KH else sel(k), v if KHl < KH else sel(v),
+                     q_positions=q_pos, kv_positions=positions, **kw)
     else:
         blk = _kv_block(cache, "k")
+        decode_split = blk is not None and S == 1
+        q_all = q
+        if g is not None and (KHl < KH or decode_split):
+            # the cache takes every kv head, and a decode step over a
+            # split cache attends every query head on the rank's slots
+            parts = gather_heads(g, *([q] if decode_split else []),
+                                 *([k, v] if KHl < KH else []))
+            if decode_split:
+                q_all = parts.pop(0)
+            if KHl < KH:
+                k, v = parts
         if blk is None:
             _write_cache(cache, positions, k.dtype, k=k, v=v)
-            out = attend(q, cache["k"], cache["v"], q_positions=positions,
-                         kv_positions=cache["pos_ids"], **kw)
+            out = attend(q, sel(cache["k"]), sel(cache["v"]),
+                         q_positions=q_pos, kv_positions=cache["pos_ids"],
+                         **kw)
         elif S > 1:
             k, v, kv_pos = _write_block(cache, positions, blk, k.dtype,
                                         k=k, v=v)
-            out = attend(q, k, v, q_positions=positions,
+            out = attend(q, sel(k), sel(v), q_positions=q_pos,
                          kv_positions=kv_pos, **kw)
         else:
             _, _, kv_pos = _write_block(cache, positions, blk, k.dtype,
                                         k=k, v=v)
             out = combine_ranks(*fa.attend_lse(
-                q, cache["k"], cache["v"], positions, kv_pos, **kw), blk[2])
-    out = out.to(x.dtype).reshape(B, S, H * Dh)
-    return out @ w("wo"), cache
+                q_all, cache["k"], cache["v"], positions, kv_pos, **kw),
+                blk[2])[:, :, h0:h0 + Hq]
+    out = out.to(x.dtype).reshape(B, -1, Hq * Dh)
+    return tp_output(out @ w("wo"), g, rows), cache
+
+
+def head_share(H: int) -> Tuple[Optional[sh.TensorParallel], int, int]:
+    """(group, first head, heads) of the query heads this rank computes:
+    its block of the H heads where the model group splits them
+    (``parallel.sharding.tp_of``), else (None, 0, H)."""
+    g = sh.tp_of(H)
+    if g is None:
+        return None, 0, H
+    h0, hl = g.block(H)
+    return g, h0, hl
+
+
+def _q_rows(H: int, S: int) -> Optional[Tuple[int, int]]:
+    """The reference's fallback to sequence parallelism
+    (``src/repro/models/layers.py:369-375``): where the model group does
+    not split the H heads and S > ``DECODE_DIRECT_MAX_Q``, the (start,
+    width) of the query rows this rank computes (the ``q_seq`` rule: None
+    where the group does not divide S either, and the layer runs whole)."""
+    g = sh.tp()
+    if (g is None or H % g.size == 0 or S <= DECODE_DIRECT_MAX_Q
+            or S % g.size):
+        return None
+    return g.block(S)
+
+
+def kv_for_heads(t: torch.Tensor, h0: int, hl: int, G: int) -> torch.Tensor:
+    """The kv heads of ``t`` [B, S, KH, D] that query heads [h0, h0 + hl)
+    read (GQA groups of G query heads a kv head), contiguous: a slice
+    where the rank's heads cover whole groups or share one group, else
+    one kv head a query head."""
+    if hl % G == 0:
+        t = t[:, :, h0 // G:(h0 + hl) // G]
+    elif G % hl == 0:
+        t = t[:, :, h0 // G:h0 // G + 1]
+    else:
+        t = t.index_select(2, torch.arange(h0, h0 + hl, device=t.device)
+                           // G)
+    return t.contiguous()
+
+
+def gather_heads(g: sh.TensorParallel, *xs: torch.Tensor) -> list:
+    """Each of ``xs`` [B, S, h_i, D] (one B, S, D) with every rank's heads,
+    concatenated along the heads in rank order: one all-gather over the
+    model group of the pieces packed along the heads."""
+    got = sh.gather_ranks(torch.cat(xs, 2), g.axes)      # [n, B, S, sum, D]
+    out = []
+    for piece in got.split([t.shape[2] for t in xs], 3):
+        n, B, S, h, D = piece.shape
+        out.append(piece.permute(1, 2, 0, 3, 4).reshape(B, S, n * h, D))
+    return out
+
+
+def tp_output(y: torch.Tensor, g: Optional[sh.TensorParallel],
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """A block's output projection y [B, S', D] made whole on the model
+    group: the sum of the ranks' partial products where ``g`` split the
+    contraction (all-reduce: the reference's ``shard(y, "batch", None,
+    None)``), the ranks' query rows concatenated where the fallback split
+    them (all-gather), else ``y``."""
+    if g is not None:
+        return sh.all_reduce(y, g.axes)
+    if rows is not None:
+        return sh.all_gather(y, 1, sh.tp().axes)
+    return y
 
 
 def _check_dtypes(cache: Dict, dtype, names) -> None:
@@ -348,39 +470,6 @@ def _ranks(axes: Tuple[str, ...]) -> int:
     return math.prod(sizes[a] for a in axes)
 
 
-def _gather_ranks(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
-    """[n, *x.shape]: ``x`` of every rank along the active mesh's ``axes``
-    (n ranks), stacked -- an all-gather over each axis's process group;
-    for n == 1, ``x`` itself, with nothing moved.  On meta (the dry run)
-    the gathered buffer is made and billed to the tracer as an
-    all-gather; a mapping of sizes holds no process group, so it takes
-    only n == 1 for real tensors."""
-    mesh = sh.current_mesh()
-    sizes = sh.mesh_shape(mesh)
-    n = _ranks(axes)
-    x = x.contiguous()[None]
-    if n == 1:
-        return x
-    if x.is_meta:
-        if fa.META_TRACE is None:
-            raise RuntimeError("a collective on the meta device runs only "
-                               "under launch.roofline.analyze_step")
-        out = x.expand((n,) + tuple(x.shape[1:])).contiguous()
-        fa.META_TRACE.collective("all-gather",
-                                 out.numel() * out.element_size(), n)
-        return out
-    if isinstance(mesh, Mapping):
-        raise ValueError("a mesh of sizes has no process group")
-    import torch.distributed as dist
-    # all_gather_single is all_gather_into_tensor's newer name
-    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
-    for a in reversed(axes):
-        out = x.new_empty((sizes[a] * x.shape[0],) + tuple(x.shape[1:]))
-        gather(out, x, group=mesh.get_group(a))
-        x = out
-    return x
-
-
 def combine_ranks(out: torch.Tensor, lse: torch.Tensor,
                   axes: Tuple[str, ...]) -> torch.Tensor:
     """Attention over every rank's block of the kv slots from each rank's
@@ -401,7 +490,7 @@ def combine_ranks(out: torch.Tensor, lse: torch.Tensor,
         packed = torch.cat([out.reshape(B, Sq, H * Dv),
                             lse_t.view(dt) if dt != torch.float32
                             else lse_t], -1)
-        got = _gather_ranks(packed, axes)
+        got = sh.gather_ranks(packed, axes)
         n = got.shape[0]
         outs = got[..., :H * Dv].reshape(n, B, Sq, H, Dv).float()
         lses = got[..., H * Dv:].contiguous().view(torch.float32)
@@ -525,10 +614,15 @@ def init_mlp(ini: Init, d_model: int, d_ff: int, n_layers: int,
            scale=1.0 / math.sqrt(d_ff * 2 * n_layers))
 
 
-def mlp(params, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
+def mlp(params, x: torch.Tensor, prefix: str = "",
+        group: Optional[sh.TensorParallel] = None) -> torch.Tensor:
+    """SwiGLU MLP.  ``group``: the model group whose rank's blocks the
+    leaves are (w_gate / w_up columns, w_down rows: d_ff / n of the
+    hidden width); the partial products are summed over it."""
     g = x @ params[prefix + "w_gate"].to(x.dtype)
     u = x @ params[prefix + "w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ params[prefix + "w_down"].to(x.dtype)
+    return tp_output((F.silu(g) * u) @ params[prefix + "w_down"].to(x.dtype),
+                     group)
 
 
 # ---------------------------------------------------------------------------
@@ -723,7 +817,7 @@ def _queue_ranks_across(experts: torch.Tensor, axes: Tuple[str, ...],
     batch's: the ranks along ``axes`` hold consecutive blocks of its
     tokens, this rank's from token ``first``.  One all-gather of the
     routing (T x K indices a rank)."""
-    every = _gather_ranks(experts, axes)                     # [n, T, K]
+    every = sh.gather_ranks(experts, axes)                     # [n, T, K]
     T = experts.shape[0]
     return queue_ranks(every.reshape(-1, experts.shape[1]))[first:first + T]
 

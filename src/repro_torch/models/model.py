@@ -8,11 +8,19 @@ leading ``repeats`` axis and scans over it; the port keeps one
 ``ParamBlock`` per layer and runs a Python loop.  Serving runs under
 ``torch.no_grad`` and never rematerializes; under grad each block is
 checkpointed by the config's ``remat_policy`` (the reference's ``_remat``).
-The JAX package's ``shard(...)`` activation constraints are dropped: the
-port's sharded train step (``train/step.py``) shards the parameters and
-optimizer state by each leaf's logical axes (``Model.axes``, the
-reference's tuples without its stacked ``repeats`` axis) and all-gathers
-a leaf's compute copy whole, so activations are never sharded.
+The JAX package's ``shard(...)`` activation constraints are dropped in
+training: the port's sharded train step (``train/step.py``) shards the
+parameters and optimizer state by each leaf's logical axes
+(``Model.axes``, the reference's tuples without its stacked ``repeats``
+axis) and all-gathers a leaf's compute copy whole, so its activations
+are never sharded.  Serving on a mesh computes tensor-parallel over the
+"model" axis (``serve/engine.py``): the attention and dense-MLP
+families' constraints become each activation's layout on its rank
+(``models/layers.py``), and ``cross_attention``, ``embed_tokens`` (a
+masked lookup of the rank's vocabulary rows, all-reduced) and
+``logits_fn`` (the rank's vocabulary block, all-gathered) follow the
+reference's ``model.py:248``, ``:404`` and ``:413``; ``tp_leaves`` names
+the leaves read as the rank's blocks.
 
 Training (``forward_train``, ``xent_loss``) holds float32 masters
 (``init_model`` / ``params_from_numpy`` with ``trainable=True``) and, as
@@ -195,12 +203,15 @@ class ParamView:
     """Read-only stand-in for a ``Model`` over other tensors: ``top`` leaves
     by name (``view["embed"]``), ``groups`` / ``enc_groups`` as nested
     lists of per-layer ``{"b{j}": {leaf: tensor}}``, the access the model
-    functions use."""
+    functions use.  ``tensor_parallel``: the leaves of ``tp_leaves`` are
+    a model rank's blocks (``serve.engine.gathered_view``)."""
 
     def __init__(self, cfg: ArchConfig, top: Dict[str, torch.Tensor],
-                 groups: List, enc_groups: List):
+                 groups: List, enc_groups: List,
+                 tensor_parallel: bool = False):
         self.cfg, self.top = cfg, top
         self.groups, self.enc_groups = groups, enc_groups
+        self.tensor_parallel = tensor_parallel
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.top[name]
@@ -281,6 +292,47 @@ def leaf_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     return out
 
 
+def tp_leaves(cfg: ArchConfig, n: int) -> set:
+    """The leaves (``Model.named_parameters`` names) that tensor-parallel
+    serving on a model group of ``n`` ranks reads as the rank's block
+    along their ``tp`` dimension -- the split ``attention``, ``mlp``,
+    ``cross_attention``, ``embed_tokens`` and ``logits_fn`` compute on
+    (``parallel.sharding.tp_of``): an attention's wq / wo where n divides
+    the heads, its wk / wv where n divides the kv heads (a cross
+    attention's never: its cache holds every kv head), a dense MLP's
+    w_gate / w_up / w_down where n divides d_ff, embed and lm_head where n
+    divides the vocabulary.  MLA, the MoE (experts and shared expert) and
+    the recurrent blocks compute whole: their leaves are none of these."""
+    H, KH, ff = cfg.n_heads, cfg.n_kv_heads, _dense_ff(cfg)
+    top = {"top.embed", "top.lm_head"} if cfg.vocab % n == 0 else set()
+
+    def block(kind: str) -> set:
+        out = set()
+        attn = {"": kind in ATTN_KINDS + ("attn_moe", "enc_attn",
+                                          "dec_attn"),
+                "attn_": kind in HYBRID_KINDS, "x_": kind == "dec_attn"}
+        for prefix, has in attn.items():
+            if has and H % n == 0:
+                out |= {prefix + "wq", prefix + "wo"}
+                if KH % n == 0 and prefix != "x_":
+                    out |= {prefix + "wk", prefix + "wv"}
+        if kind not in ("attn_moe", "mla_moe", "mlstm", "slstm") \
+                and ff % n == 0:
+            out |= {"w_gate", "w_up", "w_down"}
+        return out
+
+    plans = {"groups": layer_plan(cfg), "enc_groups": encoder_plan(cfg)}
+    names = set()
+    for name in leaf_axes(cfg):
+        parts = name.split(".")
+        if parts[0] == "top":
+            names |= top & {name}
+        elif parts[4] in block(plans[parts[0]][int(parts[1])]
+                               .kinds[int(parts[3][1:])]):
+            names.add(name)
+    return names
+
+
 def _dense_ff(cfg: ArchConfig) -> int:
     # deepseek-v2's first (dense) layer uses a wider FFN than the per-expert
     # width; public config: 12288.  Everything else uses cfg.d_ff.
@@ -338,7 +390,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                       prefix="mamba_")
         x = x + 0.5 * (a + m)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp(params, h), cache
+        return x + mlp(params, h, group=sh.tp_of(_dense_ff(cfg))), cache
     if kind == "dec_attn":
         a, _ = attention(params, h, cfg, positions=positions,
                          cache=None if cache is None else cache["self"])
@@ -348,7 +400,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                                 cache=None if cache is None
                                 else cache["cross"])
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp(params, h), cache
+        return x + mlp(params, h, group=sh.tp_of(_dense_ff(cfg))), cache
     if kind.startswith("mla"):
         a, new_cache = mla_attention(params, h, cfg, positions=positions,
                                      cache=cache)
@@ -359,7 +411,7 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     x = x + a
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     ff = moe(params, h, cfg) if kind in ("attn_moe", "mla_moe") \
-        else mlp(params, h)
+        else mlp(params, h, group=sh.tp_of(_dense_ff(cfg)))
     return x + ff, new_cache
 
 
@@ -387,8 +439,12 @@ def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     B, S, _ = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     w = lambda name: params[prefix + name].to(x.dtype)
-    q = (x @ w("wq")).reshape(B, S, H, Dh)
+    g, h0, Hq = L.head_share(H)
+    q = (x @ w("wq")).reshape(B, S, Hq, Dh)
     q_pos = torch.zeros(S, dtype=torch.int32, device=x.device)
+    # the kv heads the rank's query heads read (the cache holds all KH)
+    sel = (lambda t: t) if g is None else \
+        (lambda t: L.kv_for_heads(t, h0, Hq, H // KH))
     if enc_out is None:
         if cache is None:
             raise ValueError("cross attention needs enc_out or a cache")
@@ -407,10 +463,13 @@ def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
             raise ValueError(f"cross cache of {k.shape[1]} slots; its "
                              f"block of {n} under the mesh is {width}")
         if axes:
+            # every query head on the rank's slots, then its own heads
+            q_all = q if g is None else L.gather_heads(g, q)[0]
             out = L.combine_ranks(*fa.attend_lse(
-                q, k, v, q_pos, _positions(width, x.device, start),
-                causal=False), axes)
-            return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")
+                q_all, k, v, q_pos, _positions(width, x.device, start),
+                causal=False), axes)[:, :, h0:h0 + Hq]
+            out = out.to(x.dtype).reshape(B, S, Hq * Dh)
+            return L.tp_output(out @ w("wo"), g)
     else:
         k = (enc_out @ w("wk")).reshape(B, -1, KH, Dh)
         v = (enc_out @ w("wv")).reshape(B, -1, KH, Dh)
@@ -425,9 +484,10 @@ def cross_attention(params, x: torch.Tensor, cfg: ArchConfig, *,
             cache["k"].copy_(k[:, start:start + width])
             cache["v"].copy_(v[:, start:start + width])
     kv_pos = _positions(k.shape[1], x.device)
-    out = fa.attend(q, k, v, q_pos, kv_pos, causal=False,
+    out = fa.attend(q, sel(k), sel(v), q_pos, kv_pos, causal=False,
                     plain=fa.flash_attention)
-    return out.to(x.dtype).reshape(B, S, H * Dh) @ w("wo")
+    out = out.to(x.dtype).reshape(B, S, Hq * Dh)
+    return L.tp_output(out @ w("wo"), g)
 
 
 def _build_units(plan: List[LayerGroup], make_block) -> Units:
@@ -595,14 +655,33 @@ def apply_stack(model: Model, x: torch.Tensor, cfg: ArchConfig,
 
 def embed_tokens(model: Model, cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return model["embed"].to(_torch_dtype(cfg.dtype))[tokens.long()]
+    """The tokens' embeddings.  Where the model group splits the
+    vocabulary, ``embed`` is the rank's rows: a lookup of the tokens it
+    holds, zeros for the others, summed over the group (one rank holds
+    each token, so the sum is exact)."""
+    embed = model["embed"].to(_torch_dtype(cfg.dtype))
+    g = sh.tp_of(cfg.vocab)
+    if g is None:
+        return embed[tokens.long()]
+    start, width = g.block(cfg.vocab)
+    local = tokens.long() - start
+    held = (local >= 0) & (local < width)
+    x = torch.where(held[..., None], embed[local.clamp(0, width - 1)], 0.0)
+    return sh.all_reduce(x.to(embed.dtype), g.axes)
 
 
 def logits_fn(model: Model, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits [..., V] of final states ``h``.  Where the model group
+    splits the vocabulary (the reference's ``shard(logits, ..., "vocab")``)
+    the rank computes its rows' block of the vocabulary (``embed`` tied or
+    ``lm_head``: the rank's block either way) and the blocks are
+    all-gathered along the vocabulary, which the engine returns and takes
+    its argmax over."""
     h = rms_norm(h, model["final_norm"], cfg.norm_eps)
     w = model["embed"].T if cfg.tie_embeddings else model["lm_head"]
-    logits = h @ w.to(h.dtype)
-    return softcap(logits.float(), cfg.final_logit_softcap)
+    logits = softcap((h @ w.to(h.dtype)).float(), cfg.final_logit_softcap)
+    g = sh.tp_of(cfg.vocab)
+    return logits if g is None else sh.all_gather(logits, -1, g.axes)
 
 
 def _positions(n: int, device, start: int = 0) -> torch.Tensor:

@@ -19,6 +19,21 @@ cache along ``kv_seq``); ``step_facts`` records, for one step, what the
 host knows and its tensors cannot tell (the whole sizes its blocks were
 cut from, its first position).
 
+Tensor-parallel serving: ``tensor_parallel`` (a context the serving
+engine enters) names the model group of the step -- the mesh axes of the
+``tp`` rule, their size and this rank's index (``TensorParallel``) -- and
+``tp_of(n)`` gives it where it splits a dimension of n (the divisibility
+rule of ``_resolve``; outside the context, or over one rank, None, and the
+layers run their whole-layer code).  Its collectives: ``all_reduce`` (the
+sum of the ranks' partial products), ``gather_ranks`` (every rank's
+tensor, stacked: an all-gather; the reshard of fresh K/V from ``heads``
+to ``kv_seq`` is this all-gather and the owner's slice of the slots) and
+``all_gather`` (concatenated along a dimension).  Over one rank none moves
+anything; on ``meta`` (the dry run) each bills the tracer
+(``kernels.flash_attention.META_TRACE``) at its group size and moves
+nothing; on a mesh of sizes, which has no process group, a real tensor
+over more than one rank raises.
+
 Default rules (overridable per context):
   batch   -> ('pod', 'data')     a batch's leading dim (data parallelism)
   fsdp    -> 'data'              parameter / optimizer-state sharding (ZeRO-3)
@@ -36,7 +51,8 @@ import math
 import threading
 import weakref
 from contextlib import contextmanager
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -64,6 +80,7 @@ class MeshContext(threading.local):
         self.mesh = None
         self.rules: Dict[str, Tuple[str, ...]] = dict(DEFAULT_RULES)
         self.facts: Dict[str, int] = {}
+        self.tp: Optional["TensorParallel"] = None
 
 
 _CTX = MeshContext()
@@ -73,13 +90,14 @@ _CTX = MeshContext()
 def mesh_context(mesh, rules: Optional[Dict[str, Tuple[str, ...]]] = None):
     """Make ``mesh`` (a ``DeviceMesh``) the active mesh of this thread,
     with ``rules`` over the defaults."""
-    prev_mesh, prev_rules = _CTX.mesh, _CTX.rules
+    prev_mesh, prev_rules, prev_tp = _CTX.mesh, _CTX.rules, _CTX.tp
     _CTX.mesh = mesh
     _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
+    _CTX.tp = None
     try:
         yield mesh
     finally:
-        _CTX.mesh, _CTX.rules = prev_mesh, prev_rules
+        _CTX.mesh, _CTX.rules, _CTX.tp = prev_mesh, prev_rules, prev_tp
 
 
 def current_mesh():
@@ -261,10 +279,14 @@ def block(spec: Spec, shape: Sequence[int], sizes: Mapping[str, int],
 
 def distribute(x: torch.Tensor, spec: Spec, mesh):
     """A DTensor on ``mesh`` holding this rank's block of ``x`` (every rank
-    passes the same global ``x``; no communication)."""
+    passes the same global ``x``; no communication).  A block smaller
+    than ``x`` is a copy: a slice along the first dimension is a
+    contiguous view that would keep all of ``x``'s storage alive; the
+    whole ``x`` is kept as it is (contiguous), with no copy."""
     from torch.distributed.tensor import DTensor
-    local = x[block(spec, x.shape, mesh_shape(mesh),
-                    coordinate(mesh))].contiguous()
+    local = x[block(spec, x.shape, mesh_shape(mesh), coordinate(mesh))]
+    local = local.clone(memory_format=torch.contiguous_format) \
+        if local.numel() < x.numel() else local.contiguous()
     return DTensor.from_local(local, mesh, placements(spec, mesh),
                               run_check=False, shape=x.shape,
                               stride=x.contiguous().stride())
@@ -302,3 +324,154 @@ def replicas(spec: Spec, sizes: Mapping[str, int]) -> int:
     sizes of the axes that do not split the tensor."""
     split = {a for e in spec for a in entry_axes(e)}
     return math.prod(n for a, n in sizes.items() if a not in split)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the model group and its collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """The model group of a serving step: the mesh ``axes`` of the ``tp``
+    rule (more than one rank), their ``size``, this rank's index ``rank``
+    along them and, on a ``DeviceMesh``, the process ``group`` (None on a
+    mesh of sizes: the dry run's, meta tensors only)."""
+    axes: Tuple[str, ...]
+    size: int
+    rank: int
+    group: Any
+
+    def block(self, n: int) -> Tuple[int, int]:
+        """(start, width) of this rank's block of a dimension of ``n`` the
+        group splits (``size`` divides it; checked)."""
+        if n % self.size:
+            raise ValueError(f"{self.size} ranks do not split {n}")
+        w = n // self.size
+        return self.rank * w, w
+
+
+def tp_axes(mesh=None) -> Tuple[str, ...]:
+    """The mesh axes of the ``tp`` rule that hold more than one rank in
+    ``mesh`` (default: the active mesh): the model group's."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    return tuple(a for a in _CTX.rules.get("tp", ()) if sizes.get(a, 1) > 1)
+
+
+@contextmanager
+def tensor_parallel():
+    """Under the active mesh, the serving step's model group
+    (``TensorParallel`` of the ``tp`` rule's mesh axes) for the layers
+    run inside: each computes its share of the heads, ffn columns and
+    vocabulary where the group splits them (``tp_of``).  No mesh, or a
+    model axis of one rank: no group, and the layers run their whole-layer
+    code.  The group is one mesh axis (the default rule's "model")."""
+    mesh = _CTX.mesh
+    group = None
+    axes = tp_axes()
+    if axes:
+        sizes = mesh_shape(mesh)
+        if len(axes) > 1:
+            raise ValueError(f"tensor parallelism over one mesh axis, not "
+                             f"{axes}")
+        (a,) = axes
+        real = not isinstance(mesh, Mapping)
+        group = TensorParallel(axes, sizes[a], coordinate(mesh)[a],
+                               mesh.get_group(a) if real else None)
+    prev = _CTX.tp
+    _CTX.tp = group
+    try:
+        yield group
+    finally:
+        _CTX.tp = prev
+
+
+def tp() -> Optional[TensorParallel]:
+    """The model group ``tensor_parallel`` entered, or None."""
+    return _CTX.tp
+
+
+def tp_of(n: int) -> Optional[TensorParallel]:
+    """The model group where it splits a dimension of ``n`` (its size
+    divides n, as ``_resolve`` keeps an axis), else None."""
+    g = _CTX.tp
+    return g if g is not None and n % g.size == 0 else None
+
+
+def _meta_collective(opcode: str, result_bytes: int, n: int) -> None:
+    """Bill the dry run's tracer one collective of ``result_bytes`` a rank
+    over ``n`` ranks."""
+    from ..kernels import flash_attention as fa
+    if fa.META_TRACE is None:
+        raise RuntimeError("a collective on the meta device runs only "
+                           "under launch.roofline.analyze_step")
+    fa.META_TRACE.collective(opcode, result_bytes, n)
+
+
+def _groups(axes: Tuple[str, ...]):
+    """(mesh, sizes, ranks along ``axes``) of the active mesh."""
+    mesh = _CTX.mesh
+    sizes = mesh_shape(mesh)
+    return mesh, sizes, math.prod(sizes[a] for a in axes)
+
+
+def gather_ranks(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """[n, *x.shape]: ``x`` of every rank along the active mesh's ``axes``
+    (n ranks), stacked in rank order -- an all-gather over each axis's
+    process group; for n == 1, ``x`` itself, with nothing moved.  On meta
+    (the dry run) the gathered buffer is made and billed to the tracer
+    as an all-gather; a mapping of sizes holds no process group, so it
+    takes only n == 1 for real tensors."""
+    mesh, sizes, n = _groups(axes)
+    x = x.contiguous()[None]
+    if n == 1:
+        return x
+    if x.is_meta:
+        out = x.expand((n,) + tuple(x.shape[1:])).contiguous()
+        _meta_collective("all-gather", out.numel() * out.element_size(), n)
+        return out
+    if isinstance(mesh, Mapping):
+        raise ValueError("a mesh of sizes has no process group")
+    import torch.distributed as dist
+    # all_gather_single is all_gather_into_tensor's newer name
+    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    for a in reversed(axes):
+        out = x.new_empty((sizes[a] * x.shape[0],) + tuple(x.shape[1:]))
+        gather(out, x, group=mesh.get_group(a))
+        x = out
+    return x
+
+
+def all_gather(x: torch.Tensor, dim: int, axes: Tuple[str, ...]
+               ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` concatenated along ``dim`` in rank
+    order (``gather_ranks``; ``x`` itself over one rank)."""
+    got = gather_ranks(x, axes)
+    if got.shape[0] == 1:
+        return x
+    dim = dim % x.ndim
+    return got.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def all_reduce(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The sum of every rank's ``x`` along ``axes`` (the ranks' partial
+    products of a split contraction), in ``x``'s dtype: an all-reduce
+    over each axis's process group, in place on a contiguous ``x``; ``x``
+    itself over one rank.  On meta, billed to the tracer as an
+    all-reduce."""
+    mesh, sizes, n = _groups(axes)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    if x.is_meta:
+        _meta_collective("all-reduce", x.numel() * x.element_size(), n)
+        return x
+    if isinstance(mesh, Mapping):
+        raise ValueError("a mesh of sizes has no process group")
+    import torch.distributed as dist
+    for a in axes:
+        dist.all_reduce(x, group=mesh.get_group(a))
+    return x

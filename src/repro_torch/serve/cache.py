@@ -19,9 +19,10 @@ Attention K/V, MLA's compressed KV and whisper's cross K/V lie along
 ``("batch", "kv_seq", ...)``; position ids ``(None,)`` stay whole on every
 rank.  The recurrent states' ``heads`` / ``tp`` dimensions resolve to
 "model" in ``shardings`` (the reference's layout), but the port computes
-every head on every model rank until tensor-parallel compute lands
-(ROADMAP item 12), so ``zeros`` keeps those dimensions whole
-(``held_spec``).
+the recurrent blocks whole on every model rank (their split is ROADMAP
+item 12b), so ``zeros`` keeps those dimensions whole (``held_spec``).
+The attention caches hold every kv head on each rank: tensor-parallel
+serving gathers a step's fresh K/V along the heads before the write.
 
 Sizing: a full-attention layer holds ``Smax = max_len`` slots, a
 sliding-window layer ``min(window, max_len)`` (a ring buffer).  An MLA
@@ -51,8 +52,9 @@ __all__ = ["TSpec", "Blocks", "tmap", "zeros", "sds", "shardings",
            "held_spec", "whole_sizes", "block_cache_spec", "cache_spec",
            "cache_bytes", "leaves"]
 
-# logical axes the port computes whole on every model rank (ROADMAP item
-# 12): ``zeros`` keeps the cache dimensions they name whole
+# logical axes the port computes whole on every model rank (the recurrent
+# blocks; ROADMAP item 12b): ``zeros`` keeps the cache dimensions they
+# name whole
 WHOLE_ON_MODEL_RANKS = ("heads", "tp")
 
 

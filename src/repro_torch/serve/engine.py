@@ -15,11 +15,25 @@ kernel on the card, the plain versions on the CPU.
 ``parallel.sharding.mesh_context(mesh)``:
   * the weights lie as the train step lays out its masters
     (``shard_model``: a DTensor of the rank's block of each leaf by its
-    logical axes, ``Model.axes``); a leaf the mesh splits is all-gathered
-    whole where the step reads it, in its own dtype (bf16 matrices), and
-    dropped after its layer (``gathered_view``), and a leaf it does not
-    split is read in place, with no copy -- on a (1, 1) mesh nothing is
-    copied;
+    logical axes, ``Model.axes``); a leaf the model group splits for
+    tensor-parallel compute (``models.model.tp_leaves``: wq / wk / wv /
+    w_gate / w_up columns, wo / w_down rows, embed rows, lm_head
+    columns, where the split falls on whole heads, ffn columns or vocab
+    rows) is read as the rank's block along "model", all-gathered only
+    along the other axes that split it ("data" for ``fsdp``); any other
+    leaf the mesh splits is all-gathered whole; each where the step
+    reads it, in its own dtype (bf16 matrices), and dropped after its
+    layer (``gathered_view``); a leaf nothing splits is read in place,
+    with no copy -- on a (1, 1) mesh nothing is copied;
+  * the step runs under ``parallel.sharding.tensor_parallel`` where the
+    model axis holds more than one rank: a model rank computes its share
+    of the heads (the query rows where the heads do not divide, the
+    reference's fallback), of the ffn columns and of the vocabulary, and
+    the layers move activations between the reference's layouts with one
+    named collective each (``models/layers.py``: the output projections'
+    all-reduce, the fresh K/V's all-gather along the heads for the cache,
+    a decode's query heads gathered for the combine; the logits
+    all-gathered along the vocabulary);
   * the cache is the rank's block (``serve.cache.zeros(..., mesh=mesh)``):
     split along ``batch`` over ("pod", "data") and along ``kv_seq`` over
     "model", the attention combining the model ranks' blocks
@@ -33,13 +47,13 @@ kernel on the card, the plain versions on the CPU.
     caches' encoder length, which says whether the model axis split
     them), and the step's first position, which picks the owner of a
     decode step's slot with no device read.
-Every rank of a model group computes every head of its batch block: the
-"model" axis splits the cache and the weights' memory, not the compute
-(tensor-parallel compute is ROADMAP item 12).
+MLA, the MoE's experts and the recurrent blocks still compute whole on
+every rank of a model group, from leaves gathered whole.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -64,8 +78,10 @@ def shard_model(model: M.Model, mesh) -> M.Model:
 
 def _gather_plan(model: M.Model) -> Dict[int, Tuple]:
     """Per DTensor leaf of ``model`` (by ``id``): its local block and the
-    all-gathers (dim, process group, ranks) that make it whole, minor axis
-    first -- an axis of one rank splits nothing.  Read from the leaves'
+    all-gathers (dim, mesh axis, process group, ranks) that make the
+    leaf the step reads, minor axis first: whole, or for a leaf of
+    ``models.model.tp_leaves`` the rank's block along the model group's
+    axes -- an axis of one rank splits nothing.  Read from the leaves'
     placements once a sharded model and kept on it (a DTensor's
     placements and ``to_local`` cost tens of microseconds a read, and a
     step reads every leaf)."""
@@ -74,14 +90,23 @@ def _gather_plan(model: M.Model) -> Dict[int, Tuple]:
     params = list(model.parameters())
     if plan is not None and plan.keys() == {id(p) for p in params}:
         return plan
+    mesh = params[0].device_mesh
+    sizes, tp_axes = sh.mesh_shape(mesh), sh.tp_axes(mesh)
+    split = M.tp_leaves(model.cfg, math.prod(sizes[a] for a in tp_axes)) \
+        if tp_axes else set()
     plan = {}
-    for p in params:
-        mesh = p.device_mesh
-        sizes = sh.mesh_shape(mesh)
+    for name, p in model.named_parameters():
+        spec = T._spec_of(p)
+        keep = tp_axes if name in split else ()
+        if keep and not set(keep) <= {a for e in spec
+                                      for a in sh.entry_axes(e)}:
+            raise ValueError(f"{name}: {spec} does not split it along "
+                             f"{keep} for tensor-parallel serving")
         plan[id(p)] = (p.to_local(), tuple(
-            (d, mesh.get_group(a), sizes[a])
-            for d, entry in enumerate(T._spec_of(p))
-            for a in reversed(sh.entry_axes(entry)) if sizes[a] > 1))
+            (d, a, mesh.get_group(a), sizes[a])
+            for d, entry in enumerate(spec)
+            for a in reversed(sh.entry_axes(entry))
+            if sizes[a] > 1 and a not in keep))
     model._serve_gather_plan = plan
     return plan
 
@@ -126,20 +151,26 @@ class _Units:
                    for b, blk in unit.items()}
 
 
-def gathered_view(model: M.Model, gather: Callable) -> M.ParamView:
+def gathered_view(model: M.Model, gather: Callable,
+                  tensor_parallel: bool = False) -> M.ParamView:
     """A ``ParamView`` of ``model`` whose leaves are ``gather(leaf)``, made
     where a step reads them: a layer's once for the layer, the top-level
-    leaves (embed, lm_head) at each read."""
+    leaves (embed, lm_head) at each read.  ``tensor_parallel``: the
+    leaves of ``models.model.tp_leaves`` are the rank's blocks along the
+    model group, and the engine's steps on the view run under
+    ``parallel.sharding.tensor_parallel``."""
     stack = lambda groups: [_Units(units, gather) for units in groups]
     return M.ParamView(model.cfg, _Gathered(model.top, gather, False),
-                       stack(model.groups), stack(model.enc_groups))
+                       stack(model.groups), stack(model.enc_groups),
+                       tensor_parallel)
 
 
 def _params(model):
     """``model``, or for a model sharded by ``shard_model`` (which must be
     served under its mesh's ``mesh_context``) its ``gathered_view``: each
-    leaf's block all-gathered whole (``_gather_plan``), or the block
-    itself where nothing splits it."""
+    leaf's block all-gathered as ``_gather_plan`` says (whole, or the
+    rank's block along the model group), or the block itself where
+    nothing is gathered."""
     if not isinstance(model, M.Model):
         return model
     from torch.distributed.tensor import DTensor
@@ -152,26 +183,33 @@ def _params(model):
                          "mesh)")
     plan = _gather_plan(model)
 
-    def whole(leaf: torch.Tensor) -> torch.Tensor:
+    def read(leaf: torch.Tensor) -> torch.Tensor:
         local, gathers = plan[id(leaf)]
-        for d, group, n in gathers:
+        for d, _, group, n in gathers:
             local = T._gather(local, d, group, n)
         return local
-    return gathered_view(model, whole)
+    return gathered_view(model, read, bool(sh.tp_axes(p.device_mesh)))
 
 
-def _step_facts(cache: List, position: int):
-    """Under an active mesh, the context recording the whole sizes the
+def _step(params, cache: List, position: int):
+    """Under an active mesh, the contexts of a step: the whole sizes the
     rank's cache blocks were cut from (``serve.cache.whole_sizes`` of the
-    spec its ``Blocks`` keep) and the step's first ``position``; outside
-    one, nothing."""
+    spec its ``Blocks`` keep) and the step's first ``position``
+    (``parallel.sharding.step_facts``), and for a tensor-parallel view
+    (``gathered_view``) the model group (``parallel.sharding.
+    tensor_parallel``); outside one, nothing."""
+    stack = contextlib.ExitStack()
     if sh.current_mesh() is None:
-        return contextlib.nullcontext()
+        return stack
     spec = getattr(cache, "spec", None)
     if spec is None:
         raise ValueError("a sharded step serves a cache made by "
                          "serve.cache.zeros(..., mesh=mesh)")
-    return sh.step_facts({**C.whole_sizes(spec), "position": position})
+    stack.enter_context(sh.step_facts({**C.whole_sizes(spec),
+                                       "position": position}))
+    if getattr(params, "tensor_parallel", False):
+        stack.enter_context(sh.tensor_parallel())
+    return stack
 
 
 @torch.no_grad()
@@ -182,12 +220,12 @@ def prefill(model: M.Model, cfg: ArchConfig, batch: Dict, cache: List
     the stack, filling the cache.  Returns (last-position logits [B, V]
     float32, cache)."""
     model = _params(model)
-    with _step_facts(cache, 0):
+    with _step(model, cache, 0):
         x, positions, enc_out = M.decoder_inputs(model, cfg, batch)
         x, cache = M.apply_stack(model, x, cfg, M.layer_plan(cfg),
                                  positions=positions, caches=cache,
                                  enc_out=enc_out)
-    return M.logits_fn(model, cfg, x[:, -1:])[:, 0], cache
+        return M.logits_fn(model, cfg, x[:, -1:])[:, 0], cache
 
 
 @torch.no_grad()
@@ -197,12 +235,12 @@ def decode_step(model: M.Model, cfg: ArchConfig, tokens: torch.Tensor,
     batch; the cache holds ``position`` tokens of history).  Returns the
     next token's logits [B, V] and the cache."""
     model = _params(model)
-    x = M.embed_tokens(model, cfg, tokens)
-    positions = M._positions(1, x.device, start=int(position))
-    with _step_facts(cache, int(position)):
+    with _step(model, cache, int(position)):
+        x = M.embed_tokens(model, cfg, tokens)
+        positions = M._positions(1, x.device, start=int(position))
         x, cache = M.apply_stack(model, x, cfg, M.layer_plan(cfg),
                                  positions=positions, caches=cache)
-    return M.logits_fn(model, cfg, x)[:, 0], cache
+        return M.logits_fn(model, cfg, x)[:, 0], cache
 
 
 @torch.no_grad()

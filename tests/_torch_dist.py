@@ -206,19 +206,55 @@ def elastic_restore(rank, world, out_dir, ckpt_dir):
                                 restored=restored))
 
 
+def _recording(M, L, fa):
+    """Wrap the port's attention and MLP entry points to record what a
+    rank computes: per call the step, the query's and keys' shapes
+    (``attend`` / ``attend_lse``) and the MLP's hidden width by prefix;
+    returns (records, restore)."""
+    rec = {"step": 0, "attend": [], "mlp": []}
+    real = (L.attend, fa.attend_lse, M.mlp)
+
+    def attend(q, k, v, **kw):
+        rec["attend"].append((rec["step"], "attend", tuple(q.shape),
+                              tuple(k.shape)))
+        return real[0](q, k, v, **kw)
+
+    def attend_lse(q, k, v, *a, **kw):
+        rec["attend"].append((rec["step"], "attend_lse", tuple(q.shape),
+                              tuple(k.shape)))
+        return real[1](q, k, v, *a, **kw)
+
+    def mlp(params, x, prefix="", group=None):
+        rec["mlp"].append((rec["step"], prefix,
+                           int(params[prefix + "w_gate"].shape[1])))
+        return real[2](params, x, prefix, group)
+
+    L.attend, fa.attend_lse, M.mlp = attend, attend_lse, mlp
+
+    def restore():
+        L.attend, fa.attend_lse, M.mlp = real
+    return rec, restore
+
+
 def sharded_serving(rank, world, out_dir, cells):
-    """On 4 ranks, a ("data", "model") (2, 2) mesh: for each cell (arch,
-    reference weights ``tree``, float32 config overrides, global batch,
-    max_len, encoder length, decode steps) the port's sharded serving --
-    ``shard_model``, the cache's blocks (``zeros(..., mesh=...)``), the
-    rank's rows (``batch_block``) -- through prefill and greedy decode
-    steps under ``mesh_context``: the rank's logits of every step, its
-    ids, its cache leaves and its coordinate."""
+    """On 4 ranks, a ("data", "model") (2, 2) mesh: for each cell (name,
+    arch, reference weights ``tree``, float32 config overrides, global
+    batch, max_len, encoder length, decode steps) the port's sharded
+    serving -- ``shard_model``, the cache's blocks (``zeros(...,
+    mesh=...)``), the rank's rows (``batch_block``) -- through prefill and
+    greedy decode steps under ``mesh_context``, tensor-parallel over the
+    model axis: the rank's logits of every step, its ids, its cache
+    leaves and its coordinate; what its attention and MLP calls took
+    (``_recording``); the leaves the model group splits
+    (``models.model.tp_leaves``), those the served view all-gathers
+    along "model" (``engine._gather_plan``) and those whose block keeps
+    a larger storage alive."""
     _init(rank, world, out_dir)
     import torch
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.models import model as M
+    from repro_torch.models import layers as L, model as M
     from repro_torch.parallel import sharding as sh
     from repro_torch.serve import cache as C, engine
     mesh = mesh_mod.make_mesh((2, 2), ("data", "model"), "cpu")
@@ -235,17 +271,33 @@ def sharded_serving(rank, world, out_dir, cells):
                             dtype=torch.float32)
         cache = C.zeros(spec, "cpu", mesh=mesh)
         prompt = batch["tokens"].shape[1] + (cfg.vision_prefix_tokens or 0)
-        with sh.mesh_context(mesh):
-            logits, cache = engine.prefill(model, cfg, batch, cache)
-            steps = [logits]
-            for i in range(cell["steps"]):
-                tok = torch.argmax(steps[-1], -1).to(torch.int32)[:, None]
-                logits, cache = engine.decode_step(model, cfg, tok,
-                                                   prompt + i, cache)
-                steps.append(logits)
-        out[cell["arch"]] = dict(
+        rec, restore = _recording(M, L, fa)
+        try:
+            with sh.mesh_context(mesh):
+                logits, cache = engine.prefill(model, cfg, batch, cache)
+                steps = [logits]
+                for i in range(cell["steps"]):
+                    rec["step"] = i + 1
+                    tok = torch.argmax(steps[-1], -1).to(torch.int32)[:, None]
+                    logits, cache = engine.decode_step(model, cfg, tok,
+                                                       prompt + i, cache)
+                    steps.append(logits)
+        finally:
+            restore()
+        names = {id(p): n for n, p in model.named_parameters()}
+        out[cell["name"]] = dict(
             logits=[t.numpy() for t in steps],
             ids=torch.stack([torch.argmax(t, -1) for t in steps], 1)
             .numpy(),
-            cache=[t.numpy().copy() for t in C.leaves(cache)])
+            cache=[t.numpy().copy() for t in C.leaves(cache)],
+            attend=rec["attend"], mlp=rec["mlp"],
+            tp_leaves=sorted(M.tp_leaves(cfg, 2)),
+            pinned_storage=sorted(
+                n for n, p in model.named_parameters()
+                if p.to_local().untyped_storage().nbytes()
+                > p.to_local().numel() * p.to_local().element_size()),
+            gathered_along_model=sorted(
+                names[i] for i, (_, gathers) in
+                engine._gather_plan(model).items()
+                if any(a == "model" for _, a, _, _ in gathers)))
     _finish(rank, out_dir, out)

@@ -501,16 +501,17 @@ def test_run_cell_record(arch, shape, multi_pod):
     assert mem["peak_per_device_bytes"] == mem["argument_bytes"] \
         + mem["temp_bytes"]
     assert mem["fits_card"]
-    # a serving cell is the rank's sharded serving step: weights gathered
-    # where read, its cache split along batch (and kv_seq where the model
-    # axis divides it)
+    # a serving cell is the rank's tensor-parallel serving step: the
+    # leaves the model axis splits for the compute read as the rank's
+    # blocks, the others gathered where read, its cache split along batch
+    # (and kv_seq where the model axis divides it)
     split = sh_.kind != "train" and any(
         any(e is not None for e in TC.held_spec(leaf, sizes))
         for leaf in TC.leaves(TS.serve_specs(cfg, sh_.global_batch,
                                              sh_.seq_len, sh_.kind)[4]))
     assert rec["cache_sharded"] == split
     assert rec["serving_pattern"] == (None if sh_.kind == "train"
-                                      else "gather_weights_split_cache")
+                                      else "tensor_parallel")
     counted = rec["counted"]
     assert counted["dot_flops"] > 0 and counted["collective_wire_bytes"] > 0
     dp = sizes.get("pod", 1) * sizes["data"]
@@ -521,9 +522,20 @@ def test_run_cell_record(arch, shape, multi_pod):
     assert rec["roofline"]["bound_s"] == max(
         rec["roofline"][k] for k in ("compute_s", "memory_s",
                                      "collective_s"))
-    # the "model" axis shards memory, not compute: a rank computes the
-    # whole model on its batch block
     assert 0 < rec["useful_flops_ratio"] < 1
+    # training: the "model" axis shards memory, not compute (a rank
+    # computes the whole model on its batch block).  Serving splits the
+    # compute: a prefill of a model without experts whose attention or
+    # MLP the model axis splits (the smoke configs' 4 heads take the
+    # query-row fallback on 16 ranks) counts fewer dot FLOPs than the
+    # whole model on its batch block (model FLOPs / (pod x data)), so the
+    # ratio exceeds 1 / model.  Not so for a decode's attention over a
+    # long cache, whole where 16 does not divide the heads, nor for an
+    # MoE, whose counted expert work exceeds the model's FLOPs.
+    if sh_.kind == "prefill" and not cfg.moe and any(
+            not n.startswith("top.")
+            for n in TM.tp_leaves(cfg, sizes["model"])):
+        assert rec["useful_flops_ratio"] * sizes["model"] > 1
 
 
 def test_main_writes_the_record_and_the_ok_line(tmp_path, capsys):
@@ -541,24 +553,62 @@ def test_main_writes_the_record_and_the_ok_line(tmp_path, capsys):
 
 
 def test_serving_decode_bills_the_combine_all_gather():
-    """A decode step whose cache the model axis splits bills, beside the
-    weights' all-gathers (the prefill's, read for read), one (out, lse)
-    all-gather a layer over the model ranks: out [B, 1, H * Dh] in bf16
-    and lse [B, 1, H] float32 a rank, packed, gathered from 2."""
+    """A tensor-parallel decode step whose cache the model axis splits
+    bills, beside what the prefill bills (the weights' all-gathers read
+    for read, the logits' all-gather along the vocabulary), per layer the
+    query heads' all-gather (the rank's H / 2 heads of q [B, 1, H / 2,
+    Dh] in bf16; the smoke config's single kv head is whole) and one
+    (out, lse) all-gather over the model ranks: out [B, 1, H * Dh] in
+    bf16 and lse [B, 1, H] float32 a rank, packed, gathered from 2.  Both
+    steps all-reduce the embedding and each layer's attention and MLP
+    outputs, [B, S, D] in bf16."""
     cfg = tconfigs.get_smoke("qwen3-4b")
     mesh = {"data": 1, "model": 2}
-    recs = {kind: TD.run_cell("qwen3-4b", tconfigs.Shape(kind, 96, 2, kind),
+    S = 96
+    recs = {kind: TD.run_cell("qwen3-4b", tconfigs.Shape(kind, S, 2, kind),
                               cfg=cfg, mesh=mesh, verbose=False)
             for kind in ("prefill", "decode")}
     assert all(r["cache_sharded"] for r in recs.values())
-    wire = {k: r["counted"]["per_collective"]["all-gather"]
-            for k, r in recs.items()}
-    B, H, Dh = 2, cfg.n_heads, cfg.head_dim
-    result = 2 * B * (H * Dh * 2 + H * 4)
-    assert wire["decode"] - wire["prefill"] == pytest.approx(
-        cfg.n_layers * TR.collective_bytes("all-gather", result, 2)[0])
+    wire = {k: r["counted"]["per_collective"] for k, r in recs.items()}
+    B, H, Dh, L = 2, cfg.n_heads, cfg.head_dim, cfg.n_layers
+    gathered = lambda n_bytes: TR.collective_bytes("all-gather", n_bytes,
+                                                   2)[0]
+    combine = gathered(2 * B * (H * Dh * 2 + H * 4))
+    q_heads = gathered(2 * B * H // 2 * Dh * 2)
+    assert wire["decode"]["all-gather"] - wire["prefill"]["all-gather"] \
+        == pytest.approx(L * (combine + q_heads))
+    reduced = lambda s: (2 * L + 1) * TR.collective_bytes(
+        "all-reduce", B * s * cfg.d_model * 2, 2)[0]
+    assert wire["prefill"]["all-reduce"] == pytest.approx(reduced(S))
+    assert wire["decode"]["all-reduce"] == pytest.approx(reduced(1))
     assert recs["decode"]["counted"]["kernel_calls"] == {
         "flash_attention_split_kv": cfg.n_layers}
+
+
+def test_serving_prefill_splits_dot_flops_over_the_model_axis():
+    """Smoke qwen3-4b's prefill (B 2, S 128) on a model axis of 2 counts
+    at most 0.55 of the dot FLOPs it counts on one rank (the heads, the
+    ffn columns and the vocabulary halved; its single kv head keeps wk /
+    wv whole on both ranks, ~0.53 expected); S 128 keeps the attention
+    kernel's 128-row tiles whole at both sizes.  The model axis gathers
+    only the leaves whose split does not fall on whole heads (wk / wv,
+    a layer's read each) and the logits along the vocabulary: no leaf
+    the compute splits."""
+    cfg = tconfigs.get_smoke("qwen3-4b")
+    B, S, L = 2, 128, cfg.n_layers
+    shape = tconfigs.Shape("prefill", S, B, "prefill")
+    recs = {m: TD.run_cell("qwen3-4b", shape, cfg=cfg, verbose=False,
+                           mesh={"data": 1, "model": m}) for m in (1, 2)}
+    flops = {m: r["counted"]["dot_flops"] for m, r in recs.items()}
+    assert flops[2] <= 0.55 * flops[1]
+    assert recs[1]["serving_pattern"] == "whole"
+    assert recs[2]["serving_pattern"] == "tensor_parallel"
+    gathered = lambda n_bytes: TR.collective_bytes("all-gather", n_bytes,
+                                                   2)[0]
+    kv_leaf = cfg.d_model * cfg.n_kv_heads * cfg.head_dim * 2
+    logits = 2 * B * cfg.vocab // 2 * 4
+    assert recs[2]["counted"]["per_collective"]["all-gather"] == \
+        pytest.approx(2 * L * gathered(kv_leaf) + gathered(logits))
 
 
 def test_serving_moe_on_a_split_batch_bills_the_routing_all_gather():

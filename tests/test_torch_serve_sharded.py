@@ -16,7 +16,14 @@ decode steps:
     ones, as in the reference's sort path);
   * hymba-1.5b (its attention cache split, its mamba state whole on the
     model ranks);
-  * whisper-base (its cross cache of 32 encoder slots split).
+  * whisper-base (its cross cache of 32 encoder slots split);
+  * hymba-1.5b with 3 heads (``n_heads=3``), which the model axis does not
+    divide: its prefill takes the reference's fallback to sequence
+    parallelism (each model rank attends half the query rows).
+Every cell runs tensor-parallel over the model axis: each model rank
+computes half the heads (or of the query rows), half the ffn columns
+and half the vocabulary, from the blocks of the leaves the model axis
+splits, which are never all-gathered along it.
 Then the cache layout: every leaf's logical axes, and their spec on a
 16 x 16 mesh, equal to the reference's for every architecture.
 
@@ -47,13 +54,15 @@ from _torch_dist import run_ranks, sharded_serving
 
 B, STEPS = 4, 4
 SIZES = {"data": 2, "model": 2}
-# arch -> (prompt tokens, cache slots, encoder frames, config overrides)
+# cell -> (arch, prompt tokens, cache slots, encoder frames, config
+# overrides)
 CELLS = {
-    "qwen3-4b": (20, 28, 0, {}),
-    "gemma2-27b": (88, 93, 0, {}),
-    "deepseek-v2-236b": (20, 28, 0, {}),
-    "hymba-1.5b": (24, 32, 0, {}),
-    "whisper-base": (12, 20, 32, {}),
+    "qwen3-4b": ("qwen3-4b", 20, 28, 0, {}),
+    "gemma2-27b": ("gemma2-27b", 88, 93, 0, {}),
+    "deepseek-v2-236b": ("deepseek-v2-236b", 20, 28, 0, {}),
+    "hymba-1.5b": ("hymba-1.5b", 24, 32, 0, {}),
+    "whisper-base": ("whisper-base", 12, 20, 32, {}),
+    "hymba-1.5b-3-heads": ("hymba-1.5b", 24, 32, 0, {"n_heads": 3}),
 }
 j_prefill = jax.jit(jengine.prefill, static_argnums=1)
 j_decode = jax.jit(jengine.decode_step, static_argnums=1)
@@ -128,7 +137,7 @@ def _single(tcfg, tree, batch, max_len, enc_len):
 def served(tmp_path_factory):
     """The 4-rank job and both single-device runs of every cell."""
     cells, want = [], {}
-    for i, (arch, (prompt, max_len, enc_len, over)) in enumerate(
+    for i, (name, (arch, prompt, max_len, enc_len, over)) in enumerate(
             CELLS.items()):
         jcfg, tcfg = _configs(arch, over)
         params, _ = JM.init_model(jcfg, jax.random.PRNGKey(1))
@@ -139,12 +148,12 @@ def served(tmp_path_factory):
         if enc_len:
             batch["frames"] = (0.1 * rng.standard_normal(
                 (B, enc_len, jcfg.d_model))).astype(np.float32)
-        cells.append(dict(arch=arch, tree=tree, batch=batch,
+        cells.append(dict(name=name, arch=arch, tree=tree, batch=batch,
                           max_len=max_len, enc_len=enc_len, steps=STEPS,
                           overrides=dict(n_layers=2, dtype="float32",
                                          **over)))
         single, cache = _single(tcfg, tree, batch, max_len, enc_len)
-        want[arch] = dict(reference=_reference(jcfg, tree, batch, max_len,
+        want[name] = dict(reference=_reference(jcfg, tree, batch, max_len,
                                                enc_len),
                           single=single, cache=cache, tcfg=tcfg)
     ranks = run_ranks(sharded_serving, 4, tmp_path_factory.mktemp("serve"),
@@ -195,7 +204,7 @@ def test_each_rank_holds_its_blocks_of_the_cache(served, arch):
     along kv_seq."""
     ranks, want = served
     tcfg = want[arch]["tcfg"]
-    prompt, max_len, enc_len, _ = CELLS[arch]
+    _, prompt, max_len, enc_len, _ = CELLS[arch]
     spec = TC.leaves(TC.cache_spec(tcfg, B, max_len, enc_len=enc_len,
                                    dtype=torch.float32))
     split_kv = 0
@@ -213,6 +222,56 @@ def test_each_rank_holds_its_blocks_of_the_cache(served, arch):
             split_kv += "kv_seq" in s.axes and held[s.axes.index(
                 "kv_seq")] is not None
     assert split_kv > 0
+
+
+@pytest.mark.parametrize("arch", list(CELLS))
+def test_each_model_rank_computes_its_share(served, arch):
+    """Tensor-parallel compute on the model axis of 2: at prefill a rank's
+    attention takes H / 2 query heads, or -- where 2 does not divide the
+    heads (the fallback cell) -- all H heads on S / 2 query rows; MLA
+    takes every head (its split is not ported); a decode step over a
+    cache split along kv_seq attends every query head on the rank's half
+    of the slots, over a whole cache H / 2 heads; every dense MLP's
+    hidden width is d_ff / 2; no leaf the model axis splits for the
+    compute (``models.model.tp_leaves``) is all-gathered along it, and a
+    leaf whose split does not fall on whole heads (qwen's single kv
+    head's wk) is; no rank's block keeps a larger storage alive."""
+    ranks, want = served
+    tcfg = want[arch]["tcfg"]
+    _, prompt, max_len, enc_len, _ = CELLS[arch]
+    H, Dh = tcfg.n_heads, tcfg.head_dim
+    ff = TM._dense_ff(tcfg)
+    for r in ranks:
+        got = r[arch]
+        prefill = [c for c in got["attend"] if c[0] == 0]
+        decode = [c for c in got["attend"] if c[0] > 0]
+        assert prefill and (decode or tcfg.use_mla)
+        for _, fn, q, k in prefill:
+            if tcfg.use_mla:
+                assert q[2] == H
+            elif H % 2:
+                assert q[1] == prompt // 2 and q[2] == H, (q, k)
+            else:
+                assert q[2] == H // 2 and q[3] == Dh, (q, k)
+        for _, fn, q, k in decode:
+            assert q[1] == 1
+            if fn == "attend_lse":
+                assert q[2] == H and k[1] < max(max_len, enc_len), (q, k)
+            else:
+                assert q[2] == (H if H % 2 else H // 2), (q, k)
+        widths = {w for _, prefix, w in got["mlp"] if prefix == ""}
+        assert widths == {ff // 2}, widths
+        split = set(got["tp_leaves"])
+        assert split and not split & set(got["gathered_along_model"])
+        # a rank's block owns its storage (a row block of the whole leaf
+        # would keep all of it alive)
+        assert got["pinned_storage"] == []
+        assert ("top.embed" in split) == (tcfg.vocab % 2 == 0)
+    if arch == "qwen3-4b":
+        assert "groups.0.0.b0.wq" in split
+        assert "groups.0.0.b0.wk" in ranks[0][arch]["gathered_along_model"]
+    if H % 2:
+        assert not any(n.endswith(".attn_wq") for n in split)
 
 
 def test_gemma2_global_cache_stays_whole_and_local_ring_splits():
